@@ -1,0 +1,139 @@
+"""Build, load and launch-count the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source has a plain C interface (one ``*_launch``
+function per kernel that returns ``cudaGetLastError()``) and compiles on
+its own with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+-Xcompiler -fPIC`` into ``build/repro_torch_kernels/`` at the repository
+root.  The build happens at first use, never at import: all sources start
+compiling together (one ``nvcc`` each) and the libraries load through
+``ctypes``.  Outputs are named by a hash of source and flags, so a rerun
+in the same checkout reuses them and an edited source rebuilds.
+
+``LAUNCHES`` counts, per kernel, the launches that the wrappers made:
+each wrapper adds one right where it launches its kernel, and nowhere
+else.  Plain-version calls (CPU tensors) never count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+KERNELS = ("rank_packed", "rank_select", "radix_hist", "radix_pos")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argtypes of each C entry point: c_void_p for every pointer and the stream
+SIGNATURES = {
+    "rank_packed": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "rank_select": [_P, _I, _P, _P, _P, _P, _I, _P],
+    "radix_hist": [_P, _I, _I, _I, _P, _P],
+    "radix_pos": [_P, _P, _I, _I, _I, _P, _I] + [_P] * 8 + [_P],
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+BUILD_LOG: dict[str, str] = {}   # nvcc/ptxas output per kernel (last build)
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all() -> float:
+    """Compile every kernel that has no up-to-date library; returns the
+    wall seconds spent.  One ``nvcc`` per source, all started together;
+    raises with the compiler's output if any of them fails."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in KERNELS:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(f"--- {name} (rc={proc.returncode})\n{log}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name`` (building first)."""
+    if name not in _libs:
+        build_all()
+        lib = ctypes.CDLL(str(_target(name)))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry on PyTorch's current stream, raise on
+    a launch error, and count the launch."""
+    fn = getattr(library(name), f"{name}_launch")
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous int32 CUDA tensor on one
+    device (what every kernel here takes)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: tensors must share one CUDA device")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """The dispatch rule of every wrapper: CPU tensors take the plain
+    version; anything else launches the kernel (or raises in
+    ``check_cuda``).  No switch or fallback reroutes a CUDA tensor."""
+    return all(t.device.type == "cpu" for t in tensors)

@@ -1,0 +1,81 @@
+"""Public kernel entry points, with the JAX package's ``kernels/ops.py``
+signatures (minus the merge-walk ``rank_walkers``).
+
+The kernel wrappers (``rank_packed``, ``rank_select``, ``radix_hist``,
+``radix_pos``, re-exported from their modules) dispatch on their tensors'
+device: CPU tensors take the plain PyTorch version, CUDA tensors launch
+the hand-written kernel (or raise).  No argument or environment variable reroutes a CUDA tensor to
+plain code.  Launches are counted in ``_build.LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .radix_hist import radix_hist  # noqa: F401  (re-export)
+from .radix_sort import radix_pos  # noqa: F401  (re-export)
+from .radix_sort import radix_sort_blocked, radix_sort_plain
+from .rank_select import rank_packed  # noqa: F401  (re-export)
+from .rank_select import rank_select
+
+COMPARE = "compare"
+RADIX = "radix"
+_INT32_MIN = -(1 << 31)
+
+
+def resolve_sort_engine(engine: str, device) -> str:
+    """"auto" -> the device default: the radix engine (the CUDA kernels) on
+    the GPU, the stable compare sort on the CPU, mirroring the JAX
+    package's radix-on-TPU / compare-elsewhere rule."""
+    if engine == "auto":
+        return RADIX if torch.device(device).type == "cuda" else COMPARE
+    if engine not in (COMPARE, RADIX):
+        raise ValueError(f"unknown local_sort engine {engine!r}")
+    return engine
+
+
+def _compare_sort(operands, num_keys: int):
+    """Stable LSD sort by whole key words (least-significant first), each
+    word ordered as unsigned: flipping the sign bit maps unsigned order
+    onto signed order, so q-gram words that fill all 32 bits (negative as
+    int32) still sort last."""
+    arrs = list(operands)
+    for w in range(num_keys - 1, -1, -1):
+        perm = torch.sort(arrs[w] ^ _INT32_MIN, stable=True).indices
+        arrs = [a[perm] for a in arrs]
+    return tuple(arrs)
+
+
+def local_sort(operands, num_keys: int, *, engine: str = COMPARE,
+               key_bits=None):
+    """Stable sort of int32 key words (most-significant first, read as
+    unsigned) + payloads by the chosen engine: ``"compare"`` (stable
+    ``torch.sort`` per key word) or ``"radix"`` (the LSD radix pipeline).
+    Both are stable, so they are interchangeable bit for bit."""
+    operands = tuple(operands)
+    if engine == RADIX:
+        if key_bits is None:
+            key_bits = (32,) * num_keys
+        return radix_sort(operands, num_keys=num_keys,
+                          key_bits=tuple(key_bits))
+    if engine != COMPARE:
+        raise ValueError(f"unknown local_sort engine {engine!r}")
+    return _compare_sort(operands, num_keys)
+
+
+def radix_sort(operands, *, num_keys: int, key_bits, block: int = 1024):
+    """Stable LSD radix sort of key words (MSW first) + payloads.
+
+    ``key_bits[w]`` bounds the significant bits of word ``w``; digits above
+    it are never examined, so pads must be field-limited.  CUDA tensors go
+    through the hist/scatter kernels; CPU tensors through the plain
+    counting sort."""
+    operands = tuple(operands)
+    key_bits = tuple(key_bits)
+    if all(a.device.type == "cpu" for a in operands):
+        return radix_sort_plain(operands, num_keys, key_bits)
+    return radix_sort_blocked(operands, num_keys, key_bits, block=block)
+
+
+# the JAX package's batched unpacked rank: the same kernel wrapper here
+rank_unpacked = rank_select

@@ -1,0 +1,43 @@
+"""Per-block 8-bit digit histograms: the counting pass of the LSD radix
+local sort.  Plain PyTorch version + CUDA kernel (``csrc/radix_hist.cu``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._bits import u32
+
+
+def _check_blocks(n: int, block: int) -> None:
+    if block <= 0 or n % block:
+        raise ValueError(f"n={n} must be a multiple of block={block}")
+
+
+def radix_hist_plain(keys, shift: int, *, block: int = 1024):
+    """keys int32[n] (read as uint32, n % block == 0) -> int32[n/block,
+    256] counts of ``(key >> shift) & 0xFF`` per block, in plain PyTorch
+    (one bincount over ``block_id * 256 + digit``)."""
+    n = keys.shape[0]
+    _check_blocks(n, block)
+    digits = (u32(keys) >> shift) & 0xFF
+    blk = torch.arange(n, device=keys.device) // block
+    flat = torch.bincount(blk * 256 + digits, minlength=(n // block) * 256)
+    return flat.view(n // block, 256).to(torch.int32)
+
+
+def radix_hist(keys, shift: int, *, block: int = 1024):
+    """Per-block digit histograms; the plain version for CPU tensors, the
+    CUDA kernel otherwise."""
+    if _build.on_cpu(keys):
+        return radix_hist_plain(keys, shift, block=block)
+    _build.check_cuda("radix_hist", keys)
+    n = keys.shape[0]
+    _check_blocks(n, block)
+    hist = torch.empty((n // block, 256), dtype=torch.int32,
+                       device=keys.device)
+    if n:
+        _build.launch("radix_hist", keys.data_ptr(), shift, n, block,
+                      hist.data_ptr())
+    return hist

@@ -1,0 +1,179 @@
+"""Stable LSD radix sort over field-limited 32-bit key words (int32
+storage read as uint32): the local-sort engine of the suffix-array build.
+
+One 8-bit digit per pass, least-significant key word first:
+
+  1. ``radix_hist``            per-block 256-bin digit histograms (kernel)
+  2. ``digit_major_bases``     exclusive scan in (digit, block) order
+  3. ``radix_scatter``         destination = bin base + stable intra-block
+                               rank, fused with the scatter of every
+                               operand (kernel ``csrc/radix_pos.cu``)
+
+Keys are field-limited: only ``key_bits[w]`` low bits of word ``w`` are
+significant, so a k-bit key costs ``ceil(k/8)`` passes.  Every pass is
+stable, hence so is the sort; pad slots appended after real data stay
+behind equal real keys.
+
+``radix_sort_plain`` is the plain counting sort, the twin of the JAX
+package's ``radix_sort_jnp``; it is what ``ops.radix_sort`` runs for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._bits import u32
+from .radix_hist import _check_blocks, radix_hist
+
+MAX_OPS = 4  # operands one fused scatter pass moves (csrc/radix_pos.cu)
+
+
+def digit_major_bases(hist: torch.Tensor) -> torch.Tensor:
+    """(nblocks, 256) per-block histograms -> (nblocks, 256) global bin
+    bases: exclusive scan in (digit, block) order."""
+    nblocks, nbins = hist.shape
+    flat = hist.t().reshape(-1)                    # digit-major
+    starts = torch.cumsum(flat, 0, dtype=torch.int32) - flat
+    return starts.view(nbins, nblocks).t().contiguous()
+
+
+def radix_pos_plain(keys, base, shift: int, *, block: int = 1024):
+    """Destination of every key for one 8-bit pass, in plain PyTorch:
+    ``base[blk, digit]`` + the key's stable rank among its block's keys of
+    the same digit (from one stable sort over ``blk * 256 + digit``)."""
+    n = keys.shape[0]
+    _check_blocks(n, block)
+    dev = keys.device
+    blk = torch.arange(n, device=dev) // block
+    group = blk * 256 + ((u32(keys) >> shift) & 0xFF)
+    order = torch.sort(group, stable=True).indices
+    sorted_at = torch.empty_like(order)
+    sorted_at[order] = torch.arange(n, device=dev)
+    hist = torch.bincount(group, minlength=(n // block) * 256).view(-1, 256)
+    below = (torch.cumsum(hist, 1) - hist).view(-1)   # smaller digits in blk
+    intra = sorted_at - (blk * block + below[group])
+    return (base.reshape(-1)[group].to(torch.int64) + intra).to(torch.int32)
+
+
+def _launch_pos(keys, base, shift, block, pos_out, operands, outs):
+    _build.check_cuda("radix_pos", keys, base, *operands, *outs)
+    n = keys.shape[0]
+    _check_blocks(n, block)
+    if block % 32 or block > 1024:
+        raise ValueError(f"radix_pos: block={block} must be a multiple of "
+                         "32 and at most 1024 (one key per thread)")
+    if len(operands) > MAX_OPS or len(outs) != len(operands):
+        raise ValueError(f"radix_pos: at most {MAX_OPS} operands, each with "
+                         "an output")
+    if base.shape != (n // block, 256):
+        raise ValueError(f"radix_pos: base shape {tuple(base.shape)}")
+    for t in (*operands, *outs):
+        if t.shape[0] != n:
+            raise ValueError("radix_pos: operands must match the keys")
+    ins = [t.data_ptr() for t in operands] + [None] * (MAX_OPS - len(operands))
+    ots = [t.data_ptr() for t in outs] + [None] * (MAX_OPS - len(outs))
+    if n:
+        _build.launch("radix_pos", keys.data_ptr(), base.data_ptr(), shift, n,
+                      block, None if pos_out is None else pos_out.data_ptr(),
+                      len(operands), *ins, *ots)
+
+
+def radix_pos(keys, base, shift: int, *, block: int = 1024):
+    """Destination of every key for one 8-bit pass (int32[n]); the plain
+    version for CPU tensors, the CUDA kernel otherwise."""
+    if _build.on_cpu(keys, base):
+        return radix_pos_plain(keys, base, shift, block=block)
+    pos = torch.empty_like(keys)
+    _launch_pos(keys, base, shift, block, pos, (), ())
+    return pos
+
+
+def radix_scatter_plain(keys, base, shift: int, operands, outs, *,
+                        block: int = 1024) -> None:
+    """One stable pass in plain PyTorch: positions, then one indexed write
+    per operand."""
+    pos = radix_pos_plain(keys, base, shift, block=block).long()
+    for src, dst in zip(operands, outs):
+        dst[pos] = src
+
+
+def radix_scatter(keys, base, shift: int, operands, outs, *,
+                  block: int = 1024) -> None:
+    """One stable pass: ``outs[k][pos[i]] = operands[k][i]`` for every
+    operand, with ``pos`` as in ``radix_pos``.  The CUDA kernel fuses the
+    position and the scatter; CPU tensors take the plain version."""
+    if _build.on_cpu(keys, base):
+        radix_scatter_plain(keys, base, shift, operands, outs, block=block)
+        return
+    _launch_pos(keys, base, shift, block, None, tuple(operands), tuple(outs))
+
+
+def _pad_value(bits: int) -> int:
+    """Field-limited all-ones pad as an int32 bit pattern."""
+    v = (1 << bits) - 1
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def radix_sort_blocked(operands, num_keys: int, key_bits, *,
+                       block: int = 1024):
+    """Stable LSD radix sort of key words (most-significant first) + int32
+    payloads through the block pipeline (hist -> bases -> fused scatter).
+
+    ``key_bits[w]`` bounds the significant bits of word ``w``; pads go
+    after the real data and stay there because every pass is stable.  Two
+    ping-pong buffer sets; the inputs are never written."""
+    operands = tuple(operands)
+    n = operands[0].shape[0]
+    pad = (-n) % block
+    if pad:
+        operands = tuple(
+            torch.cat([a, torch.full(
+                (pad,), _pad_value(key_bits[i]) if i < num_keys else 0,
+                dtype=a.dtype, device=a.device)])
+            for i, a in enumerate(operands)
+        )
+    src, bufs = list(operands), [None, None]
+    flip = 0
+    for w in range(num_keys - 1, -1, -1):
+        for shift in range(0, key_bits[w], 8):
+            if bufs[flip] is None:
+                bufs[flip] = [torch.empty_like(a) for a in operands]
+            dst = bufs[flip]
+            word = src[w]
+            base = digit_major_bases(radix_hist(word, shift, block=block))
+            radix_scatter(word, base, shift, src, dst, block=block)
+            src, flip = dst, 1 - flip
+    out = tuple(src)
+    if pad:
+        out = tuple(a[:n] for a in out)
+    return out
+
+
+def radix_sort_plain(operands, num_keys: int, key_bits):
+    """Plain stable LSD counting sort (the twin of ``radix_sort_jnp``).
+
+    The per-pass transient is an (n, 2^radix_bits) int32 cumsum; the digit
+    narrows as n grows to keep it near 64 MiB (floor: 1-bit digits)."""
+    n = operands[0].shape[0]
+    radix_bits = max(1, min(8, 24 - max(1, n - 1).bit_length()))
+    arrs = list(operands)
+    for w in range(num_keys - 1, -1, -1):
+        for shift in range(0, key_bits[w], radix_bits):
+            nb = min(radix_bits, key_bits[w] - shift)
+            nbins = 1 << nb
+            d = (u32(arrs[w]) >> shift) & (nbins - 1)
+            onehot = d[:, None] == torch.arange(nbins, device=d.device)
+            incl = torch.cumsum(onehot.to(torch.int32), 0, dtype=torch.int32)
+            totals = incl[-1]
+            starts = torch.cumsum(totals, 0, dtype=torch.int32) - totals
+            intra = incl.gather(1, d[:, None])[:, 0] - 1
+            pos = (starts[d] + intra).long()
+            new = []
+            for a in arrs:
+                out = torch.empty_like(a)
+                out[pos] = a
+                new.append(out)
+            arrs = new
+    return tuple(arrs)

@@ -1,0 +1,180 @@
+"""The port's build path (keypack, both suffix-array builders, both local
+sort engines, BWT, BuildStats) against the JAX package on the same seeded
+inputs, at sigma {2, 4, 16, 17} plus the dna / proteins / english corpora,
+n <= 2^14.
+
+Every output is an integer (or a float computed by the same expression on
+the same integers), so the tolerance is exact equality.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import alphabet as jal
+from repro.core import keypack as jkp
+from repro.core.bwt import bwt_from_sa as j_bwt_from_sa
+from repro.core.suffix_array import suffix_array_fast as j_suffix_array_fast
+from repro.data.corpus import corpus as j_corpus
+from repro_torch.core import alphabet as al
+from repro_torch.core import keypack
+from repro_torch.core.bwt import bwt_from_sa, bwt_naive, inverse_bwt
+from repro_torch.core.suffix_array import (
+    build_isa_fast,
+    isa_prefix_doubling,
+    suffix_array,
+    suffix_array_fast,
+)
+from repro_torch.data.corpus import corpus
+from repro_torch.kernels import ops
+from repro_torch.kernels.radix_sort import radix_sort_blocked
+
+CORPORA = ["sigma2", "sigma4", "sigma16", "sigma17", "dna", "proteins",
+           "english"]
+
+
+def _text(name: str) -> np.ndarray:
+    """Sentinel-terminated text: uniform over [1, sigma) (unary for
+    sigma 2, the most rounds) or a corpus, n <= 2^14."""
+    if name.startswith("sigma"):
+        sigma = int(name[5:])
+        n = 4095
+        if sigma == 2:
+            toks = np.ones(n, np.int32)
+        else:
+            rng = np.random.default_rng(sigma)
+            toks = rng.integers(1, sigma, n).astype(np.int32)
+    else:
+        n = {"dna": (1 << 14) - 1, "proteins": 6000, "english": 5000}[name]
+        toks = corpus(name, n)
+        assert np.array_equal(toks, j_corpus(name, n))   # the copy agrees
+    return al.append_sentinel(toks)
+
+
+@pytest.fixture(scope="module")
+def jax_builds():
+    """The JAX package's fast build (compare engine) per corpus, computed
+    once: (sa, stats dict, bwt, row)."""
+    out = {}
+    for name in CORPORA:
+        s = _text(name)
+        sigma = jal.sigma_of(s)
+        sa, stats = j_suffix_array_fast(jnp.asarray(s), sigma,
+                                        local_sort="compare")
+        bwt, row = j_bwt_from_sa(jnp.asarray(s), sa)
+        out[name] = (np.array(sa), stats.as_dict(), np.array(bwt),
+                     int(row))
+    return out
+
+
+class TestKeypack:
+    @pytest.mark.parametrize("n", [2, 3, 1000, 40000, 65535, 100000])
+    def test_pairs_match_reference(self, n):
+        rng = np.random.default_rng(n)
+        spec = keypack.pair_spec(n)
+        assert tuple(spec) == tuple(jkp.pair_spec(n))
+        assert spec.key_bits == jkp.pair_spec(n).key_bits
+        assert spec.pad_words() == jkp.pair_spec(n).pad_words()
+        r1 = rng.integers(0, n, 512).astype(np.int32)
+        r2 = rng.integers(-1, n, 512).astype(np.int32)
+        r1[:2], r2[:2] = n - 1, (-1, n - 1)
+        got = keypack.pack_pairs(torch.from_numpy(r1), torch.from_numpy(r2),
+                                 spec)
+        want = jkp.pack_pairs(jnp.asarray(r1), jnp.asarray(r2), spec)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w).view(np.int32))
+        u1, u2 = keypack.unpack_pairs(got, spec)
+        assert np.array_equal(u1.numpy(), r1)
+        assert np.array_equal(u2.numpy(), r2)
+
+    @pytest.mark.parametrize("sigma", [2, 4, 7, 16, 17, 23, 258])
+    @pytest.mark.parametrize("words", [1, 2])
+    def test_qgram_keys_match_reference(self, sigma, words):
+        rng = np.random.default_rng(sigma * 10 + words)
+        s = np.concatenate([rng.integers(1, sigma, 300), [0]]).astype(
+            np.int32)
+        s[:40] = sigma - 1                       # saturated fields
+        params = keypack.qgram_params(sigma, words)
+        assert params == jkp.qgram_params(sigma, words)
+        q, fpw, bits = params
+        assert keypack.qgram_pad(fpw, bits) == jkp.qgram_pad(fpw, bits)
+        assert (keypack.qgram_rounds_skipped(q)
+                == jkp.qgram_rounds_skipped(q))
+        got = keypack.qgram_keys_local(torch.from_numpy(s), fpw, bits, words)
+        want = jkp.qgram_keys_local(jnp.asarray(s), fpw, bits, words)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w).view(np.int32))
+
+
+class TestSuffixArray:
+    @pytest.mark.parametrize("name", CORPORA)
+    @pytest.mark.parametrize("engine", ["compare", "radix"])
+    def test_fast_build_matches_reference(self, jax_builds, name, engine):
+        s = _text(name)
+        sigma = al.sigma_of(s)
+        want_sa, want_stats, want_bwt, want_row = jax_builds[name]
+        sa, stats = suffix_array_fast(torch.from_numpy(s), sigma,
+                                      local_sort=engine)
+        assert np.array_equal(sa.numpy(), want_sa)
+        got_stats = stats.as_dict()
+        assert got_stats.pop("local_sort") == engine
+        want_stats = dict(want_stats)
+        want_stats.pop("local_sort")
+        assert got_stats == want_stats
+        bwt, row = bwt_from_sa(torch.from_numpy(s), sa)
+        assert np.array_equal(bwt.numpy(), want_bwt)
+        assert int(row) == want_row
+
+    @pytest.mark.parametrize("name", ["sigma2", "sigma17", "dna"])
+    def test_seed_builder_matches_reference(self, jax_builds, name):
+        s = _text(name)
+        sa = suffix_array(torch.from_numpy(s), al.sigma_of(s))
+        assert np.array_equal(sa.numpy(), jax_builds[name][0])
+
+    @pytest.mark.parametrize("name", ["sigma4", "english"])
+    def test_block_pipeline_engine_in_build(self, jax_builds, name,
+                                            monkeypatch):
+        """The radix engine through the block pipeline that the CUDA
+        kernels run (hist -> bases -> stable scatter, plain versions on the
+        CPU) builds the reference SA."""
+        monkeypatch.setattr(
+            ops, "radix_sort",
+            lambda operands, *, num_keys, key_bits, block=1024:
+            radix_sort_blocked(operands, num_keys, key_bits, block=block))
+        s = _text(name)
+        sa, _ = suffix_array_fast(torch.from_numpy(s), al.sigma_of(s),
+                                  local_sort="radix")
+        assert np.array_equal(sa.numpy(), jax_builds[name][0])
+
+    def test_knob_matrix(self):
+        """Every knob combination of the fast builder == the seed oracle
+        (odd length, small alphabet: several rounds execute)."""
+        rng = np.random.default_rng(5)
+        s = al.append_sentinel(rng.integers(1, 4, 776).astype(np.int32))
+        sigma = al.sigma_of(s)
+        want = isa_prefix_doubling(torch.from_numpy(s), sigma)
+        for engine in ("compare", "radix"):
+            for qgram, qw in ((False, 1), (True, 1), (True, 2)):
+                for discard in (False, True):
+                    got, stats = build_isa_fast(
+                        torch.from_numpy(s), sigma, local_sort=engine,
+                        qgram=qgram, qgram_words=qw, discard=discard)
+                    key = (engine, qgram, qw, discard)
+                    assert torch.equal(got, want), key
+                    assert stats.rounds_skipped == (
+                        keypack.qgram_rounds_skipped(stats.q) if qgram
+                        else 0)
+
+    def test_bwt_oracles(self):
+        for sigma_hi in (4, 20):
+            rng = np.random.default_rng(sigma_hi)
+            s = al.append_sentinel(
+                rng.integers(1, sigma_hi, 500).astype(np.int32))
+            sigma = al.sigma_of(s)
+            sa, _ = suffix_array_fast(torch.from_numpy(s), sigma)
+            bwt, row = bwt_from_sa(torch.from_numpy(s), sa)
+            want_bwt, want_row = bwt_naive(s)
+            assert np.array_equal(bwt.numpy(), want_bwt)
+            assert int(row) == want_row
+            assert np.array_equal(inverse_bwt(bwt, row, sigma).numpy(), s)
