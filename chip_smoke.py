@@ -24,24 +24,39 @@ script exits nonzero and prints no final result:
   3  the same for proteins at n = 2^24 (sigma 23: the unpacked rank kernel)
   4  cross-device parity at n = 2^16 for dna, proteins and english: the CPU
      build (plain versions) and the CUDA build (kernels) must agree bit for
-     bit (SA, BWT, every FMIndex field, counts, locates)
+     bit (SA, BWT, every FMIndex field, counts, locates), for the fast and
+     the seed builder
+  5  the seed builder (Init -> (Pair, Re-rank)*) on DNA n = 2^28: SA, BWT
+     and every FMIndex field equal phase 2's fast build
+  6  save -> restore of phase 2's index: the stored-layout restore and a
+     copy without the layout (the derived-layout branch) must equal the
+     built index and answer phase 2's requests identically; then the
+     serving launcher with --ckpt-dir and --restore (proteins, n = 2^24)
 
-Then a ``kernels`` line (launches on the main paths of phases 2-3, parity
-error, times and bounds) and, last, the ``{"ok": true, ...}`` device line.
-Exits nonzero without a result when no CUDA device is present.
+Launch counts are set to 0 just before each path (the phase 2 and 3 main
+paths, the seed build, each restore) and read just after it.  Then a
+``kernels`` line (launches on the main paths of phases 2-3 and on each
+path, parity error, times and bounds), the card's name and power limit
+and, last, the ``{"ok": true, ...}`` device line.  Exits nonzero without a
+result when no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 LOCATE_K = 16
+ROOT = Path(__file__).resolve().parent
 
 
 def emit(obj) -> None:
@@ -95,10 +110,11 @@ def same(a, b, what: str) -> int:
 # phase 1: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time of one launch of CUDA kernel ``kernel`` (its
-    ``__global__`` name) over ``reps`` calls, from torch.profiler: the
-    kernel alone, without host gaps between launches."""
+def kernel_device_split(fn, kernel: str, reps: int = 20) -> dict:
+    """Mean device milliseconds per call of each CUDA kernel whose
+    ``__global__`` name contains ``kernel`` (a wrapper may launch several
+    passes) over ``reps`` calls, from torch.profiler: the kernels alone,
+    without host gaps between launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -108,9 +124,16 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    require(len(hits) == 1, f"profiler rows for {kernel}: {len(hits)}")
-    return hits[0].self_device_time_total / hits[0].count / 1e3
+    hits = {e.key[:48]: e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages()
+            if kernel in e.key and e.self_device_time_total > 0}
+    require(len(hits) >= 1, f"no profiler rows for {kernel}")
+    return hits
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """The summed device time per call of ``kernel_device_split``."""
+    return sum(kernel_device_split(fn, kernel, reps).values())
 
 
 def phase_kernels(log2n_dna: int):
@@ -270,6 +293,128 @@ def phase_kernels(log2n_dna: int):
     return rows
 
 
+def hist_row(tokens, sigma: int, what: str) -> dict:
+    """char_histogram against its plain version on ``tokens``, timed beside
+    its bound (each token read once) and ``torch.bincount``."""
+    import torch
+
+    from repro_torch.kernels.char_histogram import (
+        char_histogram,
+        char_histogram_plain,
+    )
+
+    err = same(char_histogram(tokens, sigma),
+               char_histogram_plain(tokens, sigma), f"char_histogram {what}")
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: char_histogram(tokens, sigma), 20),
+        plain_ms=time_ms(lambda: char_histogram_plain(tokens, sigma), 3),
+        bound_ms=bound_ms(4 * tokens.numel() + 4 * sigma),
+        library_ms=time_ms(lambda: torch.bincount(tokens, minlength=sigma),
+                           3),
+        device_ms=kernel_device_ms(lambda: char_histogram(tokens, sigma),
+                                   "char_histogram_kernel"),
+        shape=f"{what}: tokens[{tokens.numel()}], sigma={sigma}")
+
+
+def phase_build_kernels(dna_toks) -> dict:
+    """rerank_scan and char_histogram against their plain versions: at the
+    main path's shapes (the sorted q-gram key words and the prepared text of
+    DNA 2^28) and on edge sweeps."""
+    import torch
+
+    from repro_torch.core import keypack
+    from repro_torch.core.pipeline import prepare_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.char_histogram import (
+        char_histogram,
+        char_histogram_plain,
+    )
+    from repro_torch.kernels.rerank_scan import rerank_scan, rerank_scan_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    big = (1 << 31) - 1
+
+    def rint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def check_rerank(r1, r2, what) -> int:
+        got_r, got_g = rerank_scan(r1, r2)
+        want_r, want_g = rerank_scan_plain(r1, r2)
+        err = same(got_r, want_r, f"rerank_scan ranks {what}")
+        require(int(got_g) == int(want_g),
+                f"rerank_scan groups {what}: {int(got_g)} != {int(want_g)}")
+        return err
+
+    # -- rerank_scan: edge sweep ---------------------------------------------
+    rerr, cases = 0, 0
+    for n in (1, 2, 2047, 2048, 2049, 5000, (1 << 20) + 3):
+        rand = torch.sort(rint(0, 50, n)).values
+        sweep = {
+            "all_equal": (torch.zeros(n, dtype=torch.int32, device=dev),) * 2,
+            "all_distinct": (torch.arange(n, dtype=torch.int32, device=dev),
+                             torch.zeros(n, dtype=torch.int32, device=dev)),
+            "random_sorted": (rand, torch.zeros_like(rand)),
+            # runs of 3000 cross every 2048-pair tile edge
+            "long_runs": ((torch.arange(n, device=dev) // 3000).to(
+                torch.int32), torch.zeros(n, dtype=torch.int32, device=dev)),
+        }
+        r1, r2 = rand.clone(), rint(-1, 3, n)
+        key = r1.long() * 8 + r2.long() + 1          # lexicographic order
+        order = torch.sort(key, stable=True).indices
+        sweep["random_pairs"] = (r1[order], r2[order])
+        tail = torch.arange(n, dtype=torch.int32, device=dev)
+        tail[-3:] = big
+        sweep["int32_max_tail"] = (tail, tail.clone())
+        for name, (a, b) in sweep.items():
+            rerr = max(rerr, check_rerank(a.contiguous(), b.contiguous(),
+                                          f"{name} n={n}"))
+            cases += 1
+
+    # -- rerank_scan: the q-gram init's sorted key words (DNA 2^28) ----------
+    s, sigma = prepare_tokens(dna_toks, 64)
+    s_dev = torch.as_tensor(s, device=dev)
+    del s
+    nq = s_dev.shape[0]
+    _, fpw, bits = keypack.qgram_params(sigma, 2)
+    keys = keypack.qgram_keys_local(s_dev, fpw, bits, 2)
+    k0, k1, _ = ops.local_sort(
+        (*keys, torch.arange(nq, dtype=torch.int32, device=dev)), 2,
+        engine=ops.RADIX, key_bits=(min(32, fpw * bits),) * 2)
+    del keys
+    rerr = max(rerr, check_rerank(k0, k1, f"q-gram words n={nq}"))
+    rows = {"rerank_scan": dict(
+        max_abs_err=rerr,
+        ms=time_ms(lambda: rerank_scan(k0, k1), 20),
+        plain_ms=time_ms(lambda: rerank_scan_plain(k0, k1), 3),
+        bound_ms=bound_ms(12 * nq + 4),
+        library_ms=None,
+        device_ms_by_pass=kernel_device_split(lambda: rerank_scan(k0, k1),
+                                              "rerank_"),
+        groups=int(rerank_scan(k0, k1)[1]), sweep_cases=cases,
+        shape=f"sorted q-gram words k0,k1[{nq}] (DNA n={len(dna_toks)})")}
+    rows["rerank_scan"]["device_ms"] = sum(
+        rows["rerank_scan"]["device_ms_by_pass"].values())
+    del k0, k1
+
+    # -- char_histogram: sigma sweep with out-of-range values, then the text -
+    herr = 0
+    for sig in (7, 23, 258):
+        for n in (1, 100, 1025, (1 << 24) + 17):
+            toks = rint(-2, sig + 3, n)
+            herr = max(herr, same(char_histogram(toks, sig),
+                                  char_histogram_plain(toks, sig),
+                                  f"char_histogram sigma={sig} n={n}"))
+    row = hist_row(s_dev, sigma, f"DNA n={len(dna_toks)} prepared text")
+    row["max_abs_err"] = max(row["max_abs_err"], herr)
+    rows["char_histogram"] = row
+    del s_dev
+    torch.cuda.empty_cache()
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phases 2-3: the main path at full size
 # --------------------------------------------------------------------------
@@ -405,19 +550,17 @@ def stage_times(toks, sample_rate: int, sa_sample_rate: int) -> dict:
     return out
 
 
-def phase_main(kind: str, log2n: int, phase: int):
+def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool):
+    """One main path; returns its launches and, with ``keep``, what later
+    phases compare against (the index, its requests and answers)."""
     import torch
 
     from repro_torch.configs.bwt_index import CONFIG as icfg
     from repro_torch.core.pipeline import SAConfig, build_index, prepare_tokens
-    from repro_torch.data.corpus import corpus
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import FMQueryServer
 
-    n = 1 << log2n
-    t0 = time.perf_counter()
-    toks = corpus(kind, n)
-    gen_s = time.perf_counter() - t0
+    n = len(toks)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -471,9 +614,12 @@ def phase_main(kind: str, log2n: int, phase: int):
           "count_check": "64 brute force + 1024 locate-consistent",
           "locate_check": f"{sum(len(p) for p in located)} positions",
           **extra})
-    del index, server, toks_dev
+    del server, toks_dev
+    kept = dict(index=index, pats=pats, counts=counts, located=located,
+                build_s=build_s) if keep else None
+    del index
     torch.cuda.empty_cache()
-    return launches
+    return launches, kept
 
 
 # --------------------------------------------------------------------------
@@ -511,14 +657,163 @@ def phase_parity(log2n: int):
         pg, kg = gpu.locate(pats, LOCATE_K)
         require(torch.equal(pc, pg.cpu()) and torch.equal(kc, kg.cpu()),
                 f"{kind}: locates differ")
+        # the seed builder on both devices: the same index again
+        for dev in ("cpu", "cuda"):
+            seed = build_index(toks, device=dev, fast=False)
+            require(torch.equal(cpu.sa, seed.sa.cpu()),
+                    f"{kind}: seed SA on {dev} differs")
+            mm = fm_mismatch(cpu.fm, seed.fm)
+            require(mm == [], f"{kind}: seed FMIndex on {dev} differs: {mm}")
+            require(torch.equal(cpu.count(pats), seed.count(pats).cpu()),
+                    f"{kind}: seed counts on {dev} differ")
         out[kind] = {"sigma": cpu.sigma, "bits": cpu.fm.bits,
-                     "engines": engines, "identical": True}
+                     "engines": engines, "builders": ["fast", "seed"],
+                     "identical": True}
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 5: the seed builder at full size
+# --------------------------------------------------------------------------
+
+def phase_seed(dna_toks, kept) -> dict:
+    import torch
+
+    from repro_torch.core.fm_index import fm_mismatch
+    from repro_torch.core.pipeline import build_index
+    from repro_torch.kernels import _build
+
+    fast = kept["index"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    seed = build_index(dna_toks, sample_rate=64, sa_sample_rate=32,
+                       fast=False, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    require(torch.equal(seed.sa, fast.sa), "seed SA != fast SA")
+    require(torch.equal(seed.bwt, fast.bwt), "seed BWT != fast BWT")
+    require(int(seed.row) == int(fast.row), "seed row != fast row")
+    mm = fm_mismatch(seed.fm, fast.fm)
+    require(mm == [], f"seed FMIndex differs from the fast build: {mm}")
+    for name in ("rerank_scan", "char_histogram"):
+        require(launches[name] > 0, f"phase 5: kernel {name} never launched")
+    # the seed builder's Re-rank runs once per doubling round
+    out = {"n": len(dna_toks), "build_s": build_s,
+           "rounds": launches["rerank_scan"], "peak_mem_gib": peak_gib,
+           "launches": launches, "fast_build_s": kept["build_s"],
+           "identical_to_fast": True,
+           "profile_build": profiled(lambda: build_index(
+               dna_toks, sample_rate=64, sa_sample_rate=32, fast=False,
+               device="cuda"))}
+    del seed
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 6: save -> restore, and the launcher's --ckpt-dir / --restore
+# --------------------------------------------------------------------------
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_restore(kept, proteins_log2n: int) -> tuple[dict, dict]:
+    """Returns (the phase's record, launches per restore path)."""
+    import torch
+
+    from repro_torch.configs.bwt_index import CONFIG as icfg
+    from repro_torch.core.fm_index import fm_mismatch
+    from repro_torch.core.index_io import (
+        _FM_LAYOUT,
+        restore_index,
+        save_index,
+    )
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import FMQueryServer
+    from repro_torch.training.checkpoint import Checkpointer
+
+    index = kept["index"]
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=build_dir))
+    out, launches = {}, {}
+    try:
+        stored, derived = tmp / "stored", tmp / "derived"
+        t0 = time.perf_counter()
+        save_index(str(stored), index)
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes_on_disk"] = dir_bytes(stored)
+
+        # the reference's sharded kind stores no single-device layout
+        t0 = time.perf_counter()
+        flat, meta = Checkpointer(str(stored)).restore_raw()
+        out["read_npz_s"] = time.perf_counter() - t0   # host side of restore
+        for name in _FM_LAYOUT:
+            flat.pop(name, None)
+        meta.pop("step")
+        meta.update(kind="dist_fm", arrays=sorted(flat))
+        Checkpointer(str(derived)).save(0, flat, extra=meta)
+        del flat
+        out["derived_bytes_on_disk"] = dir_bytes(derived)
+
+        for name, path in (("stored_layout", stored),
+                           ("derived_layout", derived)):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            rest = restore_index(str(path), device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches[name] = dict(_build.LAUNCHES)
+            mm = fm_mismatch(index.fm, rest.fm)
+            require(mm == [], f"{name} restore differs: {mm}")
+            server = FMQueryServer.from_config(
+                rest, icfg.replace(locate_k=LOCATE_K), device="cuda")
+            counts = [int(x) for x in server.count(kept["pats"])]
+            located = server.locate(kept["pats"])
+            require(counts == kept["counts"], f"{name}: counts differ")
+            require(len(located) == len(kept["located"]) and all(
+                torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                for a, b in zip(located, kept["located"])),
+                f"{name}: locates differ")
+            out[name] = {"restore_s": secs, "fm_mismatch": mm,
+                         "answers": "1024 count + 1024 locate identical",
+                         "launches": launches[name]}
+            del rest, server
+        require(launches["derived_layout"]["char_histogram"] > 0,
+                "phase 6: char_histogram never launched on the derived "
+                "restore")
+
+        # the launcher: build + save, then restore + serve
+        ck = tmp / "launcher"
+        argv = ["--kind", "proteins", "--n", str(1 << proteins_log2n),
+                "--ckpt-dir", str(ck), "--device", "cuda"]
+        results = {}
+        for mode, extra in (("build", []), ("restore", ["--restore"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                results[mode] = serve.main(argv + extra)
+            text = buf.getvalue()
+            want = "checkpointed to" if mode == "build" else "restored fm"
+            require(want in text, f"launcher {mode}: no '{want}' line")
+            out[f"launcher_{mode}"] = text.strip().splitlines()
+        require(results["build"] == results["restore"],
+                f"launcher answers differ: {results}")
+        require(results["restore"]["total_hits"] > 0, "launcher: no hits")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -549,28 +844,72 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "ptxas": ptxas})
 
-    rows = phase_kernels(args.dna_log2n) if 1 in phases else {}
-    if rows:
+    from repro_torch.data.corpus import corpus
+
+    t0 = time.perf_counter()
+    dna_toks = corpus("dna", 1 << args.dna_log2n)   # phases 1, 2, 5, 6
+    dna_gen_s = time.perf_counter() - t0
+
+    rows = {}
+    if 1 in phases:
+        rows = phase_kernels(args.dna_log2n)
+        rows.update(phase_build_kernels(dna_toks))
         emit({"phase": 1, "kernels": rows})
 
     main_launches = {name: 0 for name in _build.KERNELS}
-    paths = {2: ("dna", args.dna_log2n, ("rank_packed", "radix_hist",
-                                         "radix_pos")),
+    path_launches = {}
+    build_kernels = ("radix_hist", "radix_pos", "rerank_scan",
+                     "char_histogram")
+    paths = {2: ("dna", args.dna_log2n, ("rank_packed", *build_kernels)),
              3: ("proteins", args.proteins_log2n, ("rank_select",
-                                                   "radix_hist",
-                                                   "radix_pos"))}
+                                                   *build_kernels))}
+    kept = None
     for phase, (kind, log2n, needed) in paths.items():
         if phase not in phases:
             continue
-        launches = phase_main(kind, log2n, phase)
+        if kind == "dna":
+            toks, gen_s = dna_toks, dna_gen_s
+        else:
+            t0 = time.perf_counter()
+            toks = corpus(kind, 1 << log2n)
+            gen_s = time.perf_counter() - t0
+        launches, k = phase_main(kind, toks, gen_s, phase, keep=kind == "dna")
+        kept = k or kept
         for name in needed:
             require(launches[name] > 0,
                     f"phase {phase}: kernel {name} never launched")
         for name, v in launches.items():
             main_launches[name] += v
+        path_launches[kind] = launches
+    if kept is not None and rows:
+        # char_histogram on the input the main path gives build_fm_index
+        fm = kept["index"].fm
+        row = hist_row(kept["index"].bwt, fm.sigma,
+                       f"DNA n={len(dna_toks)} BWT")
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 rows["char_histogram"]["max_abs_err"])
+        row["text"] = {k: rows["char_histogram"][k]
+                       for k in ("ms", "plain_ms", "library_ms", "device_ms",
+                                 "shape")}
+        rows["char_histogram"] = row
+        emit({"phase": 1, "char_histogram_on_bwt": row})
 
     if 4 in phases:
         emit({"phase": 4, "parity": phase_parity(args.parity_log2n)})
+
+    if 5 in phases:
+        require(kept is not None, "phase 5 compares with phase 2's build")
+        rec = phase_seed(dna_toks, kept)
+        path_launches["seed"] = rec["launches"]
+        emit({"phase": 5, **rec})
+
+    if 6 in phases:
+        require(kept is not None, "phase 6 restores phase 2's build")
+        rec, launches = phase_restore(kept, args.proteins_log2n)
+        for name, v in launches.items():
+            path_launches[f"restore_{name}"] = v
+        emit({"phase": 6, **rec})
+    del kept
 
     if rows and {2, 3} <= phases:
         src = "src/repro_torch/kernels/csrc/{}.cu"
@@ -579,6 +918,8 @@ def main(argv=None) -> int:
             "rank_select": "src/repro/kernels/rank_select.py:179",
             "radix_hist": "src/repro/kernels/radix_hist.py:25",
             "radix_pos": "src/repro/kernels/radix_sort.py:54",
+            "rerank_scan": "src/repro/kernels/rerank_scan.py:54",
+            "char_histogram": "src/repro/kernels/char_histogram.py:30",
         }
         emit({"kernels": [
             {"name": name, "route": "cuda", "source": src.format(name),
@@ -588,6 +929,8 @@ def main(argv=None) -> int:
              "bound_ms": rows[name]["bound_ms"], "bound_by": "bytes",
              "library_ms": rows[name]["library_ms"],
              "device_ms": rows[name]["device_ms"],
+             "launches_by_path": {p: v[name]
+                                  for p, v in path_launches.items()},
              "shape": rows[name]["shape"]}
             for name in _build.KERNELS]})
     print(card, flush=True)

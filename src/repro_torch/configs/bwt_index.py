@@ -30,6 +30,11 @@ class BWTIndexConfig:
     serve_length_buckets: tuple[int, ...] = (8, 16, 32, 64)
     serve_max_batch: int = 1024   # micro-batch cap per bucket
 
+    # index persistence: the defaults of launch.serve's --ckpt-dir /
+    # --ckpt-keep (core/index_io.py checkpoints)
+    ckpt_dir: str | None = None   # None = index dies with the process
+    ckpt_keep: int = 3            # retained checkpoint steps
+
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import ops as kernel_ops
+
 
 def bwt_from_sa(s: torch.Tensor, sa: torch.Tensor):
     """(bwt int32[n], I int32 scalar): last column of the sorted rotation
@@ -24,7 +26,7 @@ def bwt_from_sa(s: torch.Tensor, sa: torch.Tensor):
 def lf_mapping(bwt_arr: torch.Tensor, sigma: int) -> torch.Tensor:
     """LF[i] = C[bwt[i]] + occ(bwt[i], i): O(n * sigma) memory, a test
     oracle."""
-    counts = torch.bincount(bwt_arr, minlength=sigma)
+    counts = kernel_ops.char_histogram(bwt_arr, sigma)
     c_array = torch.cumsum(counts, 0) - counts
     onehot = (bwt_arr[:, None] == torch.arange(sigma, device=bwt_arr.device))
     occ_incl = torch.cumsum(onehot.to(torch.int64), 0)

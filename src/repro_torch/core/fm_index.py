@@ -15,10 +15,11 @@ package's ``FMIndex``, so the two can be compared field by field):
   optionally bit-packed as ``val // s`` at ``sa_val_bits`` bits.
 
 rank(c, p) = occ_samples[p // r, c] + count of c in bwt[(p//r)*r : p].
-All rank queries go through ``kernels/ops`` (CUDA kernels for CUDA tensors,
-plain versions for CPU tensors).  The build is onehot-free: block counts
-come from one ``bincount`` over ``block * sigma + symbol`` instead of an
-n x sigma one-hot, with bit-identical output.
+All rank queries and the symbol counts of ``C`` go through ``kernels/ops``
+(CUDA kernels for CUDA tensors, plain versions for CPU tensors).  The
+build is onehot-free: block counts come from one ``bincount`` over
+``block * sigma + symbol`` instead of an n x sigma one-hot, with
+bit-identical output.
 """
 
 from __future__ import annotations
@@ -191,7 +192,7 @@ def build_fm_index(
     """
     dev = bwt_arr.device
     n = bwt_arr.shape[0]
-    counts = torch.bincount(bwt_arr, minlength=sigma)
+    counts = ops.char_histogram(bwt_arr, sigma)
     c_array = (torch.cumsum(counts, 0) - counts).to(torch.int32)
 
     n_blocks = -(-n // sample_rate)  # ceil

@@ -40,23 +40,10 @@ def _arange(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
-def _last_head(head: torch.Tensor) -> torch.Tensor:
-    """int32 position of the last set flag at or before each slot (-1
-    before the first): the reference's prefix max over
-    ``where(head, slot, -1)``.  A 1-D cumsum (a single device scan) plus a
-    gather of the head positions; ``torch.cummax`` computes the same but
-    runs several times slower on the GPU."""
-    group = torch.cumsum(head, 0, dtype=torch.int32) - 1
-    pos = torch.nonzero(head).flatten().to(torch.int32)
-    if pos.numel() == 0:
-        return torch.full_like(group, -1)
-    return torch.where(group >= 0, pos[group.clamp(min=0).long()], -1)
-
-
 def initial_ranks(s: torch.Tensor, sigma: int) -> torch.Tensor:
     """Paper's Init step: rank[i] = Occ(S(i)) via histogram + exclusive
     cumulative sum."""
-    counts = torch.bincount(s, minlength=sigma)
+    counts = kernel_ops.char_histogram(s, sigma)
     occ = torch.cumsum(counts, 0) - counts
     return occ[s].to(torch.int32)
 
@@ -64,11 +51,10 @@ def initial_ranks(s: torch.Tensor, sigma: int) -> torch.Tensor:
 def rerank_from_sorted(r1_sorted: torch.Tensor, r2_sorted: torch.Tensor):
     """Paper's Re-rank step on lexicographically sorted pairs: new rank =
     position of the head of each equal-group.  Returns
-    ``(new_ranks, all_distinct)``."""
-    neq = (r1_sorted[1:] != r1_sorted[:-1]) | (r2_sorted[1:] != r2_sorted[:-1])
-    flags = torch.cat([torch.ones(1, dtype=torch.bool,
-                                  device=r1_sorted.device), neq])
-    return _last_head(flags), bool(flags.all())
+    ``(new_ranks, all_distinct)``; the group count is the one host readback
+    of a round."""
+    ranks, groups = kernel_ops.rerank_scan(r1_sorted, r2_sorted)
+    return ranks, int(groups) == r1_sorted.shape[0]
 
 
 def shifted_ranks(rank: torch.Tensor, h: int) -> torch.Tensor:
@@ -151,7 +137,12 @@ def _qgram_init(s, fpw: int, bits: int, words: int, engine: str):
         neq |= k[1:] != k[:-1]
     one = torch.ones(1, dtype=torch.bool, device=s.device)
     head = torch.cat([one, neq])
-    ranks_sorted = _last_head(head)          # head[0] is set: never -1
+    # re-rank by the whole key: the pair (k0, k1), or (k0, k0) for one
+    # word; more words fold in from the last, since a slot's flag depends
+    # only on whether its key differs from its predecessor's
+    ranks_sorted = ks[-1]
+    for k in ks[-2::-1] or ks:
+        ranks_sorted = kernel_ops.rerank_scan(k, ranks_sorted)[0]
     succ_head = torch.cat([head[1:], one])
     active_sorted = ~(head & succ_head)
     rank = torch.empty(n, dtype=torch.int32, device=s.device)
@@ -163,7 +154,7 @@ def _qgram_init(s, fpw: int, bits: int, words: int, engine: str):
 
 def _occ_init(s, sigma: int):
     """Seed Occ init + active flags (char occurs more than once)."""
-    counts = torch.bincount(s, minlength=sigma)
+    counts = kernel_ops.char_histogram(s, sigma)
     occ = torch.cumsum(counts, 0) - counts
     return occ[s].to(torch.int32), counts[s] > 1
 
@@ -200,14 +191,17 @@ def _fast_round(rank, active_idx, n_active: int, h: int, *, cap: int,
     r1s, r2s = keypack.unpack_pairs(sorted_ops[:W], spec)
     ais = sorted_ops[W]
 
-    valid_s = slot < n_active   # pads sort strictly last (keypack proof)
+    # Pads sort strictly last (keypack proof), so the prefix of every valid
+    # slot holds valid slots only: the unmasked head scans below equal the
+    # reference's valid-masked scans on every slot that is read
+    # (new_rank[valid_s]); pad slots get garbage that nothing reads.
+    valid_s = slot < n_active
     one = torch.ones(1, dtype=torch.bool, device=dev)
     neq1 = torch.cat([one, r1s[1:] != r1s[:-1]])
     neq2 = torch.cat([one, r2s[1:] != r2s[:-1]])
-    r1_head = valid_s & neq1
     pair_head = valid_s & (neq1 | neq2)
-    r1_pos = _last_head(r1_head)
-    pair_pos = _last_head(pair_head)
+    r1_pos = kernel_ops.rerank_scan(r1s, r1s)[0]
+    pair_pos = kernel_ops.rerank_scan(r1s, r2s)[0]
     new_rank = r1s + (pair_pos - r1_pos)
 
     succ_head = torch.cat([pair_head[1:], ~one]) | (slot + 1 >= n_active)

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("rank_packed", "rank_select", "radix_hist", "radix_pos")
+KERNELS = ("rank_packed", "rank_select", "radix_hist", "radix_pos",
+           "rerank_scan", "char_histogram")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +40,8 @@ SIGNATURES = {
     "rank_select": [_P, _I, _P, _P, _P, _P, _I, _P],
     "radix_hist": [_P, _I, _I, _I, _P, _P],
     "radix_pos": [_P, _P, _I, _I, _I, _P, _I] + [_P] * 8 + [_P],
+    "rerank_scan": [_P, _P, _I, _P, _P, _P, _I, _P],
+    "char_histogram": [_P, _I, _I, _P, _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -2,9 +2,9 @@
 signatures (minus the merge-walk ``rank_walkers``).
 
 The kernel wrappers (``rank_packed``, ``rank_select``, ``radix_hist``,
-``radix_pos``, re-exported from their modules) dispatch on their tensors'
-device: CPU tensors take the plain PyTorch version, CUDA tensors launch
-the hand-written kernel (or raise).  No argument or environment variable reroutes a CUDA tensor to
+``radix_pos``, ``rerank_scan``, ``char_histogram``) dispatch on their
+tensors' device: CPU tensors take the plain PyTorch version, CUDA tensors
+launch the hand-written kernel (or raise).  No argument or environment variable reroutes a CUDA tensor to
 plain code.  Launches are counted in ``_build.LAUNCHES``.
 """
 
@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from . import char_histogram as _char_histogram
+from . import rerank_scan as _rerank_scan
 from .radix_hist import radix_hist  # noqa: F401  (re-export)
 from .radix_sort import radix_pos  # noqa: F401  (re-export)
 from .radix_sort import radix_sort_blocked, radix_sort_plain
@@ -21,6 +23,22 @@ from .rank_select import rank_select
 COMPARE = "compare"
 RADIX = "radix"
 _INT32_MIN = -(1 << 31)
+
+
+def char_histogram(tokens, sigma: int, *, block_rows: int = 8):
+    """Histogram of token values: int32[n] -> int32[sigma]; values outside
+    [0, sigma) count nowhere.  ``block_rows`` is the JAX signature's TPU
+    tile height and changes no result."""
+    del block_rows
+    return _char_histogram.char_histogram(tokens, sigma)
+
+
+def rerank_scan(r1, r2, *, block: int = 512):
+    """(ranks int32[n], num_groups int32 scalar tensor) for sorted key pairs
+    ``r1``/``r2`` int32[n]: rank = index of each pair's first occurrence.
+    ``block`` is the JAX signature's TPU block and changes no result."""
+    del block
+    return _rerank_scan.rerank_scan(r1, r2)
 
 
 def resolve_sort_engine(engine: str, device) -> str:

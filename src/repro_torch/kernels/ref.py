@@ -10,8 +10,11 @@ from ._bits import u32
 
 
 def char_histogram_ref(tokens: torch.Tensor, sigma: int) -> torch.Tensor:
-    """Histogram of token values: int32[sigma]."""
-    return torch.bincount(tokens.reshape(-1), minlength=sigma).to(torch.int32)
+    """Histogram of token values: int32[sigma] (a one-hot sum, so values
+    outside [0, sigma) count nowhere)."""
+    onehot = tokens.reshape(-1)[:, None] == torch.arange(
+        sigma, device=tokens.device)
+    return onehot.sum(dim=0).to(torch.int32)
 
 
 def rerank_scan_ref(r1: torch.Tensor, r2: torch.Tensor):

@@ -1,0 +1,155 @@
+"""Checkpointing: atomic, async, keep-k, in the JAX package's on-disk
+format (``training/checkpoint.py`` there), so either package reads what
+the other wrote.
+
+Layout (one directory per step, atomically renamed into place):
+
+    ckpt_dir/
+      step_000123/
+        arrays.npz          flattened leaves by joined key path
+        meta.json           step + the caller's extra metadata
+
+  * atomic   — write to ``step_X.tmp`` then ``os.rename`` (POSIX atomic);
+               a crash mid-save never corrupts the latest checkpoint.
+  * async    — ``save_async`` copies the tensors to the host on the caller
+               thread (the snapshot) and does the file IO on a background
+               thread.
+  * keep-k   — old steps garbage-collected after a successful save.
+  * host     — arrays are saved as host numpy arrays whatever device they
+               came from; restore hands back numpy and the caller places
+               them.
+
+The pytree ``restore(tree_like, shardings)`` of the reference belongs to
+the training loop and is not part of this package yet; ``restore_raw``
+serves callers that rebuild typed objects from a manifest
+(``core/index_io.py``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..testing.faultinject import fault_point
+
+_SEP = "/"
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()        # npz-safe, as the reference stores bf16
+        return t.numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
+        arr = arr.astype(np.float32)
+    return arr
+
+
+def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Leaves of nested dicts / lists / tuples of tensors or arrays, keyed
+    by their path joined with ``/`` (dict keys in sorted order, sequence
+    indices as numbers, ``None`` leaves dropped): the keys the reference's
+    ``jax.tree_util`` flattening gives the same structure."""
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    elif tree is None:
+        return {}
+    else:
+        return {prefix: _host(tree)}
+    flat = {}
+    for key, value in items:
+        flat.update(_flatten(value, f"{prefix}{_SEP}{key}" if prefix
+                             else key))
+    return flat
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep: int = 3):
+        # created lazily on first save: constructing a Checkpointer to
+        # *read* (restore_raw / latest_step) must not touch the filesystem
+        self.dir = directory
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+
+    # -- save ---------------------------------------------------------------
+
+    def save(self, step: int, tree, extra: dict[str, Any] | None = None):
+        """Synchronous atomic save."""
+        self._write(step, _flatten(tree), extra or {})
+
+    def save_async(self, step: int, tree, extra: dict[str, Any] | None = None):
+        """Snapshot now (host copy), write in the background."""
+        self.wait()
+        flat = _flatten(tree)  # the device-to-host copy is the snapshot
+        self._thread = threading.Thread(
+            target=self._write, args=(step, flat, extra or {}), daemon=True
+        )
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, flat, extra):
+        os.makedirs(self.dir, exist_ok=True)
+        name = f"step_{step:08d}"
+        tmp = os.path.join(self.dir, name + ".tmp")
+        final = os.path.join(self.dir, name)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        fault_point("io.write")
+        np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+        fault_point("io.write")
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"step": step, **extra}, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        fault_point("io.rename")
+        os.rename(tmp, final)
+        self._gc()
+
+    def _gc(self):
+        steps = sorted(self.all_steps())
+        for s in steps[: -self.keep] if self.keep > 0 else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"))
+
+    # -- restore ------------------------------------------------------------
+
+    def all_steps(self) -> list[int]:
+        if not os.path.isdir(self.dir):
+            return []
+        out = []
+        for d in os.listdir(self.dir):
+            if d.startswith("step_") and not d.endswith(".tmp"):
+                out.append(int(d[len("step_"):]))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore_raw(self, step: int | None = None):
+        """(flat {keypath: np.ndarray}, meta) without a structure template,
+        for callers that rebuild typed objects from a saved manifest."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            flat = {k: z[k] for k in z.files}
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        return flat, meta

@@ -15,12 +15,18 @@ import torch
 from repro.core import alphabet as jal
 from repro.core import keypack as jkp
 from repro.core.bwt import bwt_from_sa as j_bwt_from_sa
+from repro.core.suffix_array import _fast_round as j_fast_round
+from repro.core.suffix_array import _qgram_init as j_qgram_init
+from repro.core.suffix_array import suffix_array as j_suffix_array
 from repro.core.suffix_array import suffix_array_fast as j_suffix_array_fast
 from repro.data.corpus import corpus as j_corpus
 from repro_torch.core import alphabet as al
 from repro_torch.core import keypack
 from repro_torch.core.bwt import bwt_from_sa, bwt_naive, inverse_bwt
 from repro_torch.core.suffix_array import (
+    _cap_bucket,
+    _fast_round,
+    _qgram_init,
     build_isa_fast,
     isa_prefix_doubling,
     suffix_array,
@@ -126,11 +132,62 @@ class TestSuffixArray:
         assert np.array_equal(bwt.numpy(), want_bwt)
         assert int(row) == want_row
 
-    @pytest.mark.parametrize("name", ["sigma2", "sigma17", "dna"])
-    def test_seed_builder_matches_reference(self, jax_builds, name):
+    @pytest.mark.parametrize("name", CORPORA)
+    def test_seed_builder_matches_reference(self, name):
+        """The seed builder (Init -> (Pair, Re-rank)*, through the
+        char_histogram and rerank_scan entries) == the JAX seed builder."""
         s = _text(name)
-        sa = suffix_array(torch.from_numpy(s), al.sigma_of(s))
-        assert np.array_equal(sa.numpy(), jax_builds[name][0])
+        sigma = al.sigma_of(s)
+        sa = suffix_array(torch.from_numpy(s), sigma)
+        assert np.array_equal(sa.numpy(),
+                              np.asarray(j_suffix_array(jnp.asarray(s),
+                                                        sigma)))
+
+    @pytest.mark.parametrize("words", [1, 2, 3])
+    def test_qgram_init_matches_reference(self, words):
+        """The q-gram init's re-rank over one, two or three key words
+        (runs of one symbol make keys that differ only in a later word)."""
+        rng = np.random.default_rng(words)
+        toks = np.ones(3000, np.int32)
+        toks[rng.choice(3000, 40, replace=False)] = 2
+        toks[rng.choice(3000, 10, replace=False)] = 3
+        s = al.append_sentinel(toks)
+        sigma = al.sigma_of(s)
+        _, fpw, bits = keypack.qgram_params(sigma, words)
+        rank, active = _qgram_init(torch.from_numpy(s), fpw, bits, words,
+                                   "compare")
+        want_rank, want_active = j_qgram_init(jnp.asarray(s), fpw, bits,
+                                              words, "compare")
+        assert np.array_equal(rank.numpy(), np.asarray(want_rank))
+        assert np.array_equal(active.numpy(), np.asarray(want_active))
+
+    @pytest.mark.parametrize("seed,hi", [(0, 3), (1, 3), (2, 5), (3, 2)])
+    def test_fast_round_with_pads(self, seed, hi):
+        """The first doubling round after a one-word q-gram init, over the
+        compacted active set in its capacity bucket, so pad slots are
+        present (cap > n_active): the unmasked head scans give the
+        reference's ranks and next active set."""
+        rng = np.random.default_rng(seed)
+        n = 3000
+        s = al.append_sentinel(rng.integers(1, hi, n - 1).astype(np.int32))
+        sigma = al.sigma_of(s)
+        q, fpw, bits = keypack.qgram_params(sigma, 1)
+        rank, active = _qgram_init(torch.from_numpy(s), fpw, bits, 1,
+                                   "compare")
+        pos = torch.nonzero(active).flatten().to(torch.int32)
+        n_active = pos.shape[0]
+        cap = _cap_bucket(n_active, n)
+        assert cap > n_active
+        buf = torch.full((cap,), n, dtype=torch.int32)
+        buf[:n_active] = pos
+        want_rank, want_active, want_still = j_fast_round(n, cap, "compare")(
+            jnp.asarray(rank.numpy()), jnp.asarray(buf.numpy()),
+            jnp.int32(n_active), jnp.int32(q))
+        got_active, got_still = _fast_round(rank, buf, n_active, q, cap=cap,
+                                            engine="compare")
+        assert np.array_equal(rank.numpy(), np.asarray(want_rank))
+        assert got_still == int(want_still)
+        assert np.array_equal(got_active.numpy(), np.asarray(want_active))
 
     @pytest.mark.parametrize("name", ["sigma4", "english"])
     def test_block_pipeline_engine_in_build(self, jax_builds, name,

@@ -122,11 +122,44 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert out["total_hits"] > 0 and out["located"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--restore"], ["--segments", "2"],
-                                  ["--serve-async"], ["--ckpt-dir", "x"]])
+@pytest.mark.parametrize("flag", [["--segments", "2"], ["--serve-async"]])
 def test_serve_launcher_unported_flags_raise(flag):
     with pytest.raises(SystemExit):                 # argparse: unknown flag
         serve.main(["--n", "1000", "--device", "cpu", *flag])
+
+
+def test_serve_launcher_checkpoints_each_build(tmp_path, capsys):
+    """--ckpt-dir saves step 0 on the first build and latest + 1 after."""
+    from repro_torch.core.index_io import describe_index, latest_index_step
+
+    argv = ["--n", "3000", "--batch", "8", "--batches", "2", "--device",
+            "cpu", "--ckpt-dir", str(tmp_path)]
+    first = serve.main(argv)
+    assert latest_index_step(str(tmp_path)) == 0
+    assert serve.main(argv) == first
+    assert latest_index_step(str(tmp_path)) == 1
+    text = capsys.readouterr().out
+    assert "step 0" in text and "step 1" in text
+    info = describe_index(str(tmp_path))
+    assert (info.kind, info.text_length) == ("fm", 3001)
+
+
+def test_serve_launcher_restores_with_manifest_n(tmp_path, capsys):
+    """--restore serves the saved index, over the corpus size the manifest
+    records (not --n), with the built run's answers."""
+    base = ["--kind", "proteins", "--batch", "8", "--batches", "2",
+            "--device", "cpu", "--ckpt-dir", str(tmp_path)]
+    built = serve.main(["--n", "2500", *base])
+    restored = serve.main(["--n", "100", "--restore", *base])
+    text = capsys.readouterr().out
+    assert "using the checkpoint's size" in text
+    assert "restored fm index" in text and "index built" in text
+    assert restored == built and restored["n"] == 2500
+
+
+def test_serve_launcher_restore_needs_ckpt_dir():
+    with pytest.raises(SystemExit):
+        serve.main(["--n", "1000", "--device", "cpu", "--restore"])
 
 
 def test_mesh_build_not_ported():
