@@ -124,9 +124,11 @@ def kernel_device_split(fn, kernel: str, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = {e.key[:48]: e.self_device_time_total / reps / 1e3
-            for e in prof.key_averages()
-            if kernel in e.key and e.self_device_time_total > 0}
+    hits = {}
+    for e in prof.key_averages():
+        if kernel in e.key and e.self_device_time_total > 0:
+            hits[e.key[:48]] = (hits.get(e.key[:48], 0.0)
+                                + e.self_device_time_total / reps / 1e3)
     require(len(hits) >= 1, f"no profiler rows for {kernel}")
     return hits
 
@@ -142,7 +144,11 @@ def phase_kernels(log2n_dna: int):
     from repro_torch.kernels import radix_sort as rs
     from repro_torch.kernels import rank_select as rk
     from repro_torch.kernels import ops
-    from repro_torch.kernels.radix_hist import radix_hist, radix_hist_plain
+    from repro_torch.kernels.radix_hist import (
+        TILE,
+        radix_hist,
+        radix_hist_plain,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -210,19 +216,45 @@ def phase_kernels(log2n_dna: int):
         shape=f"blocks[{nb},{r}], sigma={sig}, B={B}")
     blk_s, c_s, cut_s = blk, c, cut
 
-    # -- radix hist / pos: parity sweeps at n = 2^22 ------------------------
+    # -- radix hist / pos: parity sweeps at n = 2^22, at block 1024 (the
+    #    JAX kernels' block) and at the sort engine's tile ---------------------
     n = 1 << 22
-    keys = rint(-(1 << 31), (1 << 31) - 1, n)
-    herr = perr = 0
-    for shift in (0, 8, 16, 24):
-        h = radix_hist(keys, shift)
-        herr = max(herr, same(h, radix_hist_plain(keys, shift),
-                              f"radix_hist shift={shift}"))
-        base = rs.digit_major_bases(h)
-        perr = max(perr, same(rs.radix_pos(keys, base, shift),
-                              rs.radix_pos_plain(keys, base, shift),
-                              f"radix_pos shift={shift}"))
+    uni = rint(-(1 << 31), (1 << 31) - 1, n)
+    sweeps = {
+        "uniform": uni,
+        "all_equal": torch.full((n,), 0x5A3C96E1, dtype=torch.int32,
+                                device=dev),
+        "two_values": torch.where((uni & 1) == 0, 0x01010101,
+                                  0x7F7F7F7F).to(torch.int32),
+        "dna_like": rint(1, 5, n) * 0x01010101,   # 4 values in every digit
+    }
     pay = torch.arange(n, dtype=torch.int32, device=dev)
+    herr = perr = radix_cases = 0
+    for block in (1024, TILE):
+        for name, keys in sweeps.items():
+            for shift in (0, 8, 16, 24):
+                what = f"{name} shift={shift} block={block}"
+                h = radix_hist(keys, shift, block=block)
+                herr = max(herr, same(h, radix_hist_plain(keys, shift,
+                                                          block=block),
+                                      f"radix_hist {what}"))
+                base = rs.digit_major_bases(h)
+                want = rs.radix_pos_plain(keys, base, shift, block=block)
+                for b in (base, base.contiguous()):   # both base layouts
+                    perr = max(perr, same(rs.radix_pos(keys, b, shift,
+                                                       block=block),
+                                          want, f"radix_pos {what}"))
+                # the fused scatter of four operands, the key word among them
+                operands = (pay, keys, pay ^ keys, pay.flip(0))
+                outs = tuple(torch.empty_like(a) for a in operands)
+                rs.radix_scatter(keys, base, shift, operands, outs,
+                                 block=block)
+                for k, (a, got) in enumerate(zip(operands, outs)):
+                    expect = torch.empty_like(a)
+                    expect[want.long()] = a
+                    perr = max(perr, same(got, expect,
+                                          f"radix_scatter {what} op {k}"))
+                radix_cases += 1
     cases = []
     for bits_ in (29, 17, 32):                       # single word
         k = rint(-(1 << 31), (1 << 31) - 1, n)
@@ -230,67 +262,169 @@ def phase_kernels(log2n_dna: int):
             k = k & ((1 << bits_) - 1)
         cases.append(((k, pay), 1, (bits_,)))
     cases.append(((rint(0, 7, n), rint(0, 11, n), pay), 2, (3, 4)))  # ties
-    m = n - 500                                       # forces block padding
+    m = n - 500                                       # forces tile padding
     sat = torch.full((m,), (1 << 12) - 1, dtype=torch.int32, device=dev)
     cases.append(((sat, pay[:m]), 1, (12,)))          # saturated + pads
     for operands, nk, kb in cases:
-        got = ops.radix_sort(operands, num_keys=nk, key_bits=kb)
         want = ops.local_sort(operands, nk, engine=ops.COMPARE)
-        for x, y in zip(got, want):
-            perr = max(perr, same(x, y, f"radix_sort key_bits={kb}"))
-    require(bool((got[1] == pay[:m]).all()), "saturated keys moved")
-    del keys, cases, got, want
+        for got in (ops.radix_sort(operands, num_keys=nk, key_bits=kb),
+                    rs.radix_sort_blocked(operands, nk, kb, block=1024)):
+            for x, y in zip(got, want):
+                perr = max(perr, same(x, y, f"radix_sort key_bits={kb}"))
+            if operands[0] is sat:
+                require(bool((got[1] == pay[:m]).all()), "saturated keys moved")
+            radix_cases += 1
+    del sweeps, uni, cases, got, want, operands, outs
 
-    # -- radix parity and timing at the main path's q-gram init shape -------
-    nr = n_main + (-n_main) % 1024
-    keys = rint(-(1 << 31), (1 << 31) - 1, nr)
-    ops3 = (keys, rint(0, 1 << 30, nr), torch.arange(nr, dtype=torch.int32,
-                                                     device=dev))
-    outs = tuple(torch.empty_like(a) for a in ops3)
-    nblk = nr // 1024
-    h = radix_hist(keys, 0)
-    herr = max(herr, same(h, radix_hist_plain(keys, 0),
-                          f"radix_hist n={nr}"))
-    base = rs.digit_major_bases(h)
-    rs.radix_scatter(keys, base, 0, ops3, outs)
-    want = tuple(torch.empty_like(a) for a in ops3)
-    rs.radix_scatter_plain(keys, base, 0, ops3, want)
-    for k, (x, y) in enumerate(zip(outs, want)):
-        perr = max(perr, same(x, y, f"radix_scatter n={nr} operand {k}"))
-    del want
-    digits = keys & 0xFF
-    cell = (torch.arange(nr, device=dev) // 1024) * 256 + digits
-    rows["radix_hist"] = dict(
-        max_abs_err=herr,
-        ms=time_ms(lambda: radix_hist(keys, 0), 10),
-        plain_ms=time_ms(lambda: radix_hist_plain(keys, 0), 3),
-        bound_ms=bound_ms(4 * nr + nblk * 256 * 4),
-        library_ms=time_ms(lambda: torch.bincount(cell,
-                                                  minlength=nblk * 256), 3),
-        shape=f"keys[{nr}], block=1024")
-    del cell
-    rows["radix_pos"] = dict(
-        max_abs_err=perr,
-        ms=time_ms(lambda: rs.radix_scatter(keys, base, 0, ops3, outs), 10),
-        plain_ms=time_ms(lambda: rs.radix_scatter_plain(keys, base, 0, ops3,
-                                                        outs), 3),
-        # the key word is operand 0: read once, then each operand written
-        bound_ms=bound_ms(nblk * 256 * 4 + 4 * nr * len(ops3)
-                          + 4 * nr * len(outs)),
-        library_ms=time_ms(lambda: torch.sort(digits, stable=True), 3),
-        shape=f"keys[{nr}], 3 operands scattered")
+    # -- radix timing at the main path's size: uniform keys, 3 operands -----
+    keys, ops3 = uniform_operands(n_main, g)
+    hrow, prow = radix_rows(keys, ops3, f"uniform keys[{keys.shape[0]}]")
+    hrow["max_abs_err"] = max(herr, hrow["max_abs_err"])
+    prow["max_abs_err"] = max(perr, prow["max_abs_err"])
+    prow["sweep_cases"] = radix_cases
+    rows["radix_hist"], rows["radix_pos"] = hrow, prow
     calls = {
         "rank_packed": lambda: rk.rank_packed(
             fused_p, blk_p, c_p, cut_p, bits=4, sigma=7),
         "rank_select": lambda: rk.rank_select(blocks, blk_s, c_s, cut_s),
-        "radix_hist": lambda: radix_hist(keys, 0),
-        "radix_pos": lambda: rs.radix_scatter(keys, base, 0, ops3, outs),
     }
     for name, fn in calls.items():
         rows[name]["device_ms"] = kernel_device_ms(fn, f"{name}_kernel")
-    del keys, ops3, outs, digits, base, h
+    del keys, ops3
     torch.cuda.empty_cache()
     return rows
+
+
+def pad_to_tiles(a, value: int):
+    """``a`` followed by ``value`` up to a multiple of the sort engine's
+    tile (a multiple of every radix tile), as the engine pads
+    (field-limited pads sort last)."""
+    import torch
+
+    from repro_torch.kernels.radix_hist import TILE
+
+    pad = (-a.shape[0]) % TILE
+    return torch.cat([a, torch.full((pad,), value, dtype=a.dtype,
+                                    device=a.device)])
+
+
+def uniform_operands(n: int, g):
+    """Uniform random 32-bit keys at ``n`` (padded to the sort engine's
+    tile) and the three operands of the q-gram init's first pass: the key
+    word, a second word and the index."""
+    import torch
+
+    from repro_torch.kernels.radix_hist import TILE
+
+    dev = g.device
+    nr = n + (-n) % TILE
+    keys = torch.randint(-(1 << 31), (1 << 31) - 1, (nr,), generator=g,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    second = torch.randint(0, 1 << 30, (nr,), generator=g, device=dev,
+                           dtype=torch.int64).to(torch.int32)
+    return keys, (keys, second, torch.arange(nr, dtype=torch.int32,
+                                             device=dev))
+
+
+def qgram_operands(s_dev, sigma: int):
+    """The q-gram init's real first pass on the prepared text ``s_dev``:
+    key word 1 of the two-word q-gram keys, over the operands (k0, k1,
+    idx), padded as the sort engine pads."""
+    import torch
+
+    from repro_torch.core import keypack
+    from repro_torch.kernels.radix_sort import _pad_value
+
+    _, fpw, bits = keypack.qgram_params(sigma, 2)
+    k0, k1 = keypack.qgram_keys_local(s_dev, fpw, bits, 2)
+    kpad = _pad_value(min(32, fpw * bits))
+    idx = torch.arange(s_dev.shape[0], dtype=torch.int32, device=s_dev.device)
+    ops3 = (pad_to_tiles(k0, kpad), pad_to_tiles(k1, kpad),
+            pad_to_tiles(idx, 0))
+    return ops3[1], ops3
+
+
+def radix_rows(keys, operands, what: str) -> tuple[dict, dict]:
+    """radix_hist and the fused radix_scatter of ``operands`` (the key word
+    among them) at shift 0 and the sort engine's tile, against their plain
+    versions, timed beside their bounds and yardsticks (``bincount`` of
+    the (tile, digit) cells; a stable ``torch.sort`` of the digit).  The
+    scatter's row also carries one whole digit pass (hist + bases +
+    scatter) and the kernel's device time with only its rank phase (no
+    operand), with the positions written instead of the operands, and
+    with one digit in every key (one run per tile)."""
+    import torch
+
+    from repro_torch.kernels import radix_sort as rs
+    from repro_torch.kernels.radix_hist import (
+        TILE,
+        radix_hist,
+        radix_hist_plain,
+    )
+
+    nr, k = keys.shape[0], len(operands)
+    ntiles = nr // TILE
+    outs = tuple(torch.empty_like(a) for a in operands)
+    h = radix_hist(keys, 0, block=TILE)
+    herr = same(h, radix_hist_plain(keys, 0, block=TILE),
+                f"radix_hist {what}")
+    base = rs.digit_major_bases(h)
+    rs.radix_scatter(keys, base, 0, operands, outs, block=TILE)
+    want = tuple(torch.empty_like(a) for a in operands)
+    rs.radix_scatter_plain(keys, base, 0, operands, want, block=TILE)
+    perr = max(same(x, y, f"radix_scatter {what} operand {i}")
+               for i, (x, y) in enumerate(zip(outs, want)))
+    del want
+
+    def hist():
+        return radix_hist(keys, 0, block=TILE)
+
+    def scatter():
+        rs.radix_scatter(keys, base, 0, operands, outs, block=TILE)
+
+    def digit_pass():
+        b = rs.digit_major_bases(radix_hist(keys, 0, block=TILE))
+        rs.radix_scatter(keys, b, 0, operands, outs, block=TILE)
+
+    cell = (torch.arange(nr, device=keys.device) // TILE) * 256 + (keys & 0xFF)
+    hrow = dict(
+        max_abs_err=herr, ms=time_ms(hist, 10),
+        plain_ms=time_ms(lambda: radix_hist_plain(keys, 0, block=TILE), 3),
+        bound_ms=bound_ms(4 * nr + ntiles * 256 * 4),
+        library_ms=time_ms(lambda: torch.bincount(
+            cell, minlength=ntiles * 256), 3),
+        device_ms=kernel_device_ms(hist, "radix_hist_kernel"),
+        shape=f"{what}, tile={TILE}")
+    del cell
+    digits = keys & 0xFF
+    one = torch.zeros_like(keys)
+    one_base = rs.digit_major_bases(radix_hist(one, 0, block=TILE))
+    prow = dict(
+        max_abs_err=perr, ms=time_ms(scatter, 10),
+        plain_ms=time_ms(lambda: rs.radix_scatter_plain(
+            keys, base, 0, operands, outs, block=TILE), 3),
+        # each operand read and written once (the key word is one of them)
+        # and one 256-entry base row per tile
+        bound_ms=bound_ms(ntiles * 256 * 4 + 8 * nr * k),
+        library_ms=time_ms(lambda: torch.sort(digits, stable=True), 3),
+        device_ms=kernel_device_ms(scatter, "radix_pos_kernel"),
+        device_ms_rank_only=kernel_device_ms(
+            lambda: rs.radix_scatter(keys, base, 0, (), (), block=TILE),
+            "radix_pos_kernel"),
+        device_ms_positions=kernel_device_ms(
+            lambda: rs.radix_pos(keys, base, 0, block=TILE),
+            "radix_pos_kernel"),
+        # the same pass with one digit everywhere: one run per tile
+        device_ms_one_digit=kernel_device_ms(
+            lambda: rs.radix_scatter(one, one_base, 0, (one, *operands[1:]),
+                                     outs, block=TILE),
+            "radix_pos_kernel"),
+        digit_pass=dict(ms=time_ms(digit_pass, 10),
+                        device_ms=kernel_device_ms(digit_pass, ""),
+                        bound_ms=bound_ms(8 * nr * k)),
+        shape=f"{what}, {k} operands scattered, tile={TILE}")
+    del one, one_base
+    return hrow, prow
 
 
 def hist_row(tokens, sigma: int, what: str) -> dict:
@@ -385,7 +519,13 @@ def phase_build_kernels(dna_toks) -> dict:
         engine=ops.RADIX, key_bits=(min(32, fpw * bits),) * 2)
     del keys
     rerr = max(rerr, check_rerank(k0, k1, f"q-gram words n={nq}"))
-    rows = {"rerank_scan": dict(
+    # -- radix hist / pos at the q-gram init's real first pass -------------
+    qkeys, q3 = qgram_operands(s_dev, sigma)
+    rows = {"radix_qgram": radix_rows(
+        qkeys, q3, f"DNA n={len(dna_toks)} q-gram word 1 [{qkeys.shape[0]}]")}
+    del qkeys, q3
+    torch.cuda.empty_cache()
+    rows["rerank_scan"] = dict(
         max_abs_err=rerr,
         ms=time_ms(lambda: rerank_scan(k0, k1), 20),
         plain_ms=time_ms(lambda: rerank_scan_plain(k0, k1), 3),
@@ -394,7 +534,7 @@ def phase_build_kernels(dna_toks) -> dict:
         device_ms_by_pass=kernel_device_split(lambda: rerank_scan(k0, k1),
                                               "rerank_"),
         groups=int(rerank_scan(k0, k1)[1]), sweep_cases=cases,
-        shape=f"sorted q-gram words k0,k1[{nq}] (DNA n={len(dna_toks)})")}
+        shape=f"sorted q-gram words k0,k1[{nq}] (DNA n={len(dna_toks)})")
     rows["rerank_scan"]["device_ms"] = sum(
         rows["rerank_scan"]["device_ms_by_pass"].values())
     del k0, k1
@@ -838,7 +978,8 @@ def main(argv=None) -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]
              for name, log in _build.BUILD_LOG.items()}
     emit({"phase": 0, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
@@ -853,7 +994,13 @@ def main(argv=None) -> int:
     rows = {}
     if 1 in phases:
         rows = phase_kernels(args.dna_log2n)
-        rows.update(phase_build_kernels(dna_toks))
+        built = phase_build_kernels(dna_toks)
+        for name, row in zip(("radix_hist", "radix_pos"),
+                             built.pop("radix_qgram")):
+            rows[name]["qgram"] = row
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            row["max_abs_err"])
+        rows.update(built)
         emit({"phase": 1, "kernels": rows})
 
     main_launches = {name: 0 for name in _build.KERNELS}

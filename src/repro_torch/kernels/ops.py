@@ -14,6 +14,7 @@ import torch
 
 from . import char_histogram as _char_histogram
 from . import rerank_scan as _rerank_scan
+from .radix_hist import TILE
 from .radix_hist import radix_hist  # noqa: F401  (re-export)
 from .radix_sort import radix_pos  # noqa: F401  (re-export)
 from .radix_sort import radix_sort_blocked, radix_sort_plain
@@ -81,13 +82,15 @@ def local_sort(operands, num_keys: int, *, engine: str = COMPARE,
     return _compare_sort(operands, num_keys)
 
 
-def radix_sort(operands, *, num_keys: int, key_bits, block: int = 1024):
+def radix_sort(operands, *, num_keys: int, key_bits, block: int = TILE):
     """Stable LSD radix sort of key words (MSW first) + payloads.
 
     ``key_bits[w]`` bounds the significant bits of word ``w``; digits above
     it are never examined, so pads must be field-limited.  CUDA tensors go
-    through the hist/scatter kernels; CPU tensors through the plain
-    counting sort."""
+    through the hist/scatter kernels over tiles of ``block`` keys (one of
+    ``radix_hist.TILES``; the default is the card's tile, where the JAX
+    signature has its 1024-key TPU block); CPU tensors through the plain
+    counting sort.  The tile changes no result: every pass is stable."""
     operands = tuple(operands)
     key_bits = tuple(key_bits)
     if all(a.device.type == "cpu" for a in operands):

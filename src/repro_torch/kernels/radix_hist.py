@@ -1,5 +1,9 @@
-"""Per-block 8-bit digit histograms: the counting pass of the LSD radix
+"""Per-tile 8-bit digit histograms: the counting pass of the LSD radix
 local sort.  Plain PyTorch version + CUDA kernel (``csrc/radix_hist.cu``).
+
+A tile (the JAX signature's ``block``) is the run of consecutive keys that
+one histogram row counts and one CUDA block of the scatter pass sorts.  The
+kernels take the tiles in ``TILES``; the sort engine uses ``TILE``.
 """
 
 from __future__ import annotations
@@ -9,10 +13,21 @@ import torch
 from . import _build
 from ._bits import u32
 
+TILE = 8192                 # the sort engine's tile on the card
+TILES = (1024, TILE)        # what csrc/radix_{hist,pos}.cu take: the JAX
+                            # signature's block and the engine's tile
+
 
 def _check_blocks(n: int, block: int) -> None:
     if block <= 0 or n % block:
         raise ValueError(f"n={n} must be a multiple of block={block}")
+
+
+def check_tile(name: str, n: int, block: int) -> None:
+    """Raise unless the CUDA kernels can take ``block`` for n keys."""
+    _check_blocks(n, block)
+    if block not in TILES:
+        raise ValueError(f"{name}: block={block} is not one of {TILES}")
 
 
 def radix_hist_plain(keys, shift: int, *, block: int = 1024):
@@ -28,16 +43,20 @@ def radix_hist_plain(keys, shift: int, *, block: int = 1024):
 
 
 def radix_hist(keys, shift: int, *, block: int = 1024):
-    """Per-block digit histograms; the plain version for CPU tensors, the
-    CUDA kernel otherwise."""
+    """Per-block digit histograms, int32 values of shape (n/block, 256);
+    the plain version for CPU tensors, the CUDA kernel otherwise.
+
+    The kernel stores the counts digit-major, as a contiguous (256,
+    n/block) tensor, and returns its transposed view: the values are the
+    JAX layout, and ``digit_major_bases`` scans the storage in place."""
     if _build.on_cpu(keys):
         return radix_hist_plain(keys, shift, block=block)
     _build.check_cuda("radix_hist", keys)
     n = keys.shape[0]
-    _check_blocks(n, block)
-    hist = torch.empty((n // block, 256), dtype=torch.int32,
+    check_tile("radix_hist", n, block)
+    hist = torch.empty((256, n // block), dtype=torch.int32,
                        device=keys.device)
     if n:
         _build.launch("radix_hist", keys.data_ptr(), shift, n, block,
                       hist.data_ptr())
-    return hist
+    return hist.t()

@@ -1,13 +1,19 @@
 """Stable LSD radix sort over field-limited 32-bit key words (int32
 storage read as uint32): the local-sort engine of the suffix-array build.
 
-One 8-bit digit per pass, least-significant key word first:
+One 8-bit digit per pass, least-significant key word first, over tiles
+of ``TILE`` consecutive keys (the JAX package's 1024-key ``block``, made
+larger on the card; any tile in ``TILES`` gives the same result):
 
-  1. ``radix_hist``            per-block 256-bin digit histograms (kernel)
-  2. ``digit_major_bases``     exclusive scan in (digit, block) order
-  3. ``radix_scatter``         destination = bin base + stable intra-block
+  1. ``radix_hist``            per-tile 256-bin digit histograms (kernel),
+                               stored digit-major
+  2. ``digit_major_bases``     exclusive scan in (digit, tile) order, in
+                               place over that storage
+  3. ``radix_scatter``         destination = bin base + stable intra-tile
                                rank, fused with the scatter of every
-                               operand (kernel ``csrc/radix_pos.cu``)
+                               operand (kernel ``csrc/radix_pos.cu``: the
+                               tile is ranked in shared memory, then each
+                               operand is written in runs per digit)
 
 Keys are field-limited: only ``key_bits[w]`` low bits of word ``w`` are
 significant, so a k-bit key costs ``ceil(k/8)`` passes.  Every pass is
@@ -25,18 +31,21 @@ import torch
 
 from . import _build
 from ._bits import u32
-from .radix_hist import _check_blocks, radix_hist
+from .radix_hist import TILE, _check_blocks, check_tile, radix_hist
 
 MAX_OPS = 4  # operands one fused scatter pass moves (csrc/radix_pos.cu)
 
 
 def digit_major_bases(hist: torch.Tensor) -> torch.Tensor:
     """(nblocks, 256) per-block histograms -> (nblocks, 256) global bin
-    bases: exclusive scan in (digit, block) order."""
+    bases: exclusive scan in (digit, block) order.  The result is the
+    transposed view of a digit-major (256, nblocks) tensor; when ``hist``
+    is already such a view (``radix_hist``'s kernel output) no transpose
+    is copied."""
     nblocks, nbins = hist.shape
     flat = hist.t().reshape(-1)                    # digit-major
     starts = torch.cumsum(flat, 0, dtype=torch.int32) - flat
-    return starts.view(nbins, nblocks).t().contiguous()
+    return starts.view(nbins, nblocks).t()
 
 
 def radix_pos_plain(keys, base, shift: int, *, block: int = 1024):
@@ -58,12 +67,13 @@ def radix_pos_plain(keys, base, shift: int, *, block: int = 1024):
 
 
 def _launch_pos(keys, base, shift, block, pos_out, operands, outs):
-    _build.check_cuda("radix_pos", keys, base, *operands, *outs)
+    _build.check_cuda("radix_pos", keys, *operands, *outs)
+    # the bases are read through their strides: a digit-major view
+    # (digit_major_bases) and a contiguous tile-major table both work
+    if base.device != keys.device or base.dtype != torch.int32:
+        raise ValueError("radix_pos: base must be int32 on the keys' device")
     n = keys.shape[0]
-    _check_blocks(n, block)
-    if block % 32 or block > 1024:
-        raise ValueError(f"radix_pos: block={block} must be a multiple of "
-                         "32 and at most 1024 (one key per thread)")
+    check_tile("radix_pos", n, block)
     if len(operands) > MAX_OPS or len(outs) != len(operands):
         raise ValueError(f"radix_pos: at most {MAX_OPS} operands, each with "
                          "an output")
@@ -75,14 +85,17 @@ def _launch_pos(keys, base, shift, block, pos_out, operands, outs):
     ins = [t.data_ptr() for t in operands] + [None] * (MAX_OPS - len(operands))
     ots = [t.data_ptr() for t in outs] + [None] * (MAX_OPS - len(outs))
     if n:
-        _build.launch("radix_pos", keys.data_ptr(), base.data_ptr(), shift, n,
-                      block, None if pos_out is None else pos_out.data_ptr(),
+        _build.launch("radix_pos", keys.data_ptr(), base.data_ptr(),
+                      base.stride(0), base.stride(1), shift, n, block,
+                      None if pos_out is None else pos_out.data_ptr(),
                       len(operands), *ins, *ots)
 
 
 def radix_pos(keys, base, shift: int, *, block: int = 1024):
     """Destination of every key for one 8-bit pass (int32[n]); the plain
-    version for CPU tensors, the CUDA kernel otherwise."""
+    version for CPU tensors, the CUDA kernel otherwise.  ``base`` holds
+    int32 values of shape (n/block, 256) in any strides: the kernel reads
+    the digit-major view that ``digit_major_bases`` returns in place."""
     if _build.on_cpu(keys, base):
         return radix_pos_plain(keys, base, shift, block=block)
     pos = torch.empty_like(keys)
@@ -117,9 +130,10 @@ def _pad_value(bits: int) -> int:
 
 
 def radix_sort_blocked(operands, num_keys: int, key_bits, *,
-                       block: int = 1024):
+                       block: int = TILE):
     """Stable LSD radix sort of key words (most-significant first) + int32
-    payloads through the block pipeline (hist -> bases -> fused scatter).
+    payloads through the tile pipeline (hist -> bases -> fused scatter).
+    ``block`` is the tile; every tile gives the same result.
 
     ``key_bits[w]`` bounds the significant bits of word ``w``; pads go
     after the real data and stay there because every pass is stable.  Two

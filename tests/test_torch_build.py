@@ -34,6 +34,7 @@ from repro_torch.core.suffix_array import (
 )
 from repro_torch.data.corpus import corpus
 from repro_torch.kernels import ops
+from repro_torch.kernels.radix_hist import TILE
 from repro_torch.kernels.radix_sort import radix_sort_blocked
 
 CORPORA = ["sigma2", "sigma4", "sigma16", "sigma17", "dna", "proteins",
@@ -197,7 +198,7 @@ class TestSuffixArray:
         CPU) builds the reference SA."""
         monkeypatch.setattr(
             ops, "radix_sort",
-            lambda operands, *, num_keys, key_bits, block=1024:
+            lambda operands, *, num_keys, key_bits, block=TILE:
             radix_sort_blocked(operands, num_keys, key_bits, block=block))
         s = _text(name)
         sa, _ = suffix_array_fast(torch.from_numpy(s), al.sigma_of(s),

@@ -17,6 +17,7 @@ from repro.kernels.radix_sort import _digit_major_bases, radix_pos_pallas
 from repro.kernels.rank_select import pack_words as jpack_words
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.char_histogram import char_histogram_plain
+from repro_torch.kernels.radix_hist import TILE, TILES
 from repro_torch.kernels.radix_sort import (
     digit_major_bases,
     radix_sort_blocked,
@@ -116,7 +117,8 @@ class TestRankSelect:
 class TestRadixHist:
     @pytest.mark.parametrize("shift", [0, 8, 16, 24])
     @pytest.mark.parametrize("n,block", [(2048, 1024), (8192, 2048),
-                                         (4096, 128)])
+                                         (4096, 128), (2 * TILE, TILE),
+                                         (4 * TILE, TILE)])
     def test_vs_interpret_and_refs(self, shift, n, block):
         rng = np.random.default_rng(shift + n)
         keys = rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(
@@ -128,27 +130,41 @@ class TestRadixHist:
         eq(got, ref.radix_hist_ref(t(keys), shift, block))
 
 
+_SHIFTS = (0, 8, 16, 24)
+
+
 class TestRadixPos:
-    @pytest.mark.parametrize("shift", [0, 8, 16, 24])
-    def test_vs_interpret(self, shift):
+    # the JAX kernels' block (ids kept as the shift alone), then the tile
+    @pytest.mark.parametrize("shift,n,block", [
+        *(pytest.param(s, 4096, 1024, id=str(s)) for s in _SHIFTS),
+        *(pytest.param(s, n, TILE, id=f"{n}-{TILE}-{s}")
+          for n in (2 * TILE, 4 * TILE) for s in _SHIFTS),
+    ])
+    def test_vs_interpret(self, shift, n, block):
         rng = np.random.default_rng(77 + shift)
-        n = 4096
         keys = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
         keys[: n // 2] &= 0x0F0F0F0F                  # many equal digits
-        hist = ops.radix_hist(t(keys.view(np.int32)), shift)
+        hist = ops.radix_hist(t(keys.view(np.int32)), shift, block=block)
+        eq(hist, jref.radix_hist_ref(jnp.asarray(keys), shift, block))
         base = digit_major_bases(hist)
         eq(base, _digit_major_bases(jnp.asarray(hist.numpy())))
-        got = ops.radix_pos(t(keys.view(np.int32)), base, shift)
+        got = ops.radix_pos(t(keys.view(np.int32)), base, shift, block=block)
         eq(got, radix_pos_pallas(jnp.asarray(keys), jnp.asarray(base.numpy()),
-                                 shift, interpret=True))
+                                 shift, block=block, interpret=True))
+        # a stable counting pass: positions are a permutation that orders
+        # the digits and keeps equal digits in input order
+        d = (keys >> shift) & 0xFF
+        eq(got, np.argsort(np.argsort(d, kind="stable"), kind="stable"))
 
 
 def _sorts(operands, num_keys, key_bits):
-    """Every port sort path on the same inputs."""
+    """Every port sort path on the same inputs: the tile pipeline at the
+    JAX kernels' block and at the sort engine's tile."""
     ops_t = tuple(t(np.asarray(a).view(np.int32)) for a in operands)
     return {
         "plain": radix_sort_plain(ops_t, num_keys, key_bits),
-        "blocked": radix_sort_blocked(ops_t, num_keys, key_bits),
+        "blocked": radix_sort_blocked(ops_t, num_keys, key_bits, block=1024),
+        "tiled": radix_sort_blocked(ops_t, num_keys, key_bits),
         "radix": ops.local_sort(ops_t, num_keys, engine=ops.RADIX,
                                 key_bits=key_bits),
         "compare": ops.local_sort(ops_t, num_keys, engine=ops.COMPARE),
@@ -197,6 +213,42 @@ class TestRadixSort:
         for got in _sorts((keys, pay), 1, (12,)).values():
             eq(got[0], keys)
             eq(got[1], pay)  # stable: untouched
+
+    @pytest.mark.parametrize("n", [TILE + 5, 2 * TILE - 1])
+    def test_tile_pads_stay_last(self, n):
+        """n not a multiple of the tile, and real keys equal to the
+        field-limited pad: the appended pads must sort after them."""
+        rng = np.random.default_rng(n)
+        hi = rng.integers(0, 1 << 5, n).astype(np.uint32)
+        lo = rng.integers(0, 1 << 12, n).astype(np.uint32)
+        hi[::3], lo[::3] = (1 << 5) - 1, (1 << 12) - 1   # saturated keys
+        pay = np.arange(n, dtype=np.int32)
+        jargs = (jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(pay))
+        want = jref.radix_sort_ref(jargs, 2)
+        got_t = radix_sort_blocked(
+            tuple(t(a.view(np.int32)) for a in (hi, lo, pay)), 2, (5, 12),
+            block=TILE)
+        for got in (got_t, *_sorts((hi, lo, pay), 2, (5, 12)).values()):
+            for g, w in zip(got, want):
+                eq(g, w)
+
+    @pytest.mark.parametrize("extra", [17, -1])
+    @pytest.mark.parametrize("block", TILES)
+    def test_block_changes_no_result(self, block, extra):
+        """Both tiles the kernels take give the same sort, through the tile
+        pipeline and through ``ops.radix_sort``'s ``block``; n is a few keys
+        past a tile edge, or one short of one (a tile less one key of
+        pads)."""
+        rng = np.random.default_rng(block + extra)
+        n = 3 * block + extra
+        keys = t(rng.integers(0, 1 << 20, n).astype(np.int32))
+        pay = t(np.arange(n, dtype=np.int32))
+        want = radix_sort_plain((keys, pay), 1, (20,))
+        for got in (radix_sort_blocked((keys, pay), 1, (20,), block=block),
+                    ops.radix_sort((keys, pay), num_keys=1, key_bits=(20,),
+                                   block=block)):
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
 
     def test_full_width_keys_sort_unsigned(self):
         """Words with the top bit set (negative as int32) sort last in
