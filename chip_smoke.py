@@ -14,14 +14,21 @@ script exits nonzero and prints no final result:
   1  every kernel against its plain PyTorch version on the card (exact
      equality: all outputs are integers), timed beside its bound and,
      where one exists, a single PyTorch library call; torch.profiler gives
-     each kernel's device time alone
+     each kernel's device time alone.  The fused query kernels first on a
+     2-bit index at n = 2^20 (raw and bit-packed SA values, 512-symbol
+     blocks, and unpacked at r = 64 and 128)
   2  the main path, DNA at n = 2^28: build_index -> linear SA check on the
      card -> 1024 count + 1024 locate (k=16) requests through FMQueryServer,
      counts checked by brute-force substring match, every located position
-     by direct compare; then a second build timed stage by stage, and
-     build, count and locate traced with torch.profiler (device time by
-     kernel, device-busy share)
-  3  the same for proteins at n = 2^24 (sigma 23: the unpacked rank kernel)
+     by direct compare, one fused query launch per served batch and no
+     single-batch rank launch; then a second build timed stage by stage,
+     and build, count and locate traced with torch.profiler (device time by
+     kernel, device-busy share).  On the built index the fused query kernel
+     against its plain version (the requests as served, edge patterns, k =
+     0, 1, 16, 64), its time per length bucket beside its bound and
+     dependent steps, and the earlier one-rank-launch-per-step design
+     against it in turns
+  3  the same for proteins at n = 2^24 (sigma 23: the unpacked layout)
   4  cross-device parity at n = 2^16 for dna, proteins and english: the CPU
      build (plain versions) and the CUDA build (kernels) must agree bit for
      bit (SA, BWT, every FMIndex field, counts, locates), for the fast and
@@ -559,13 +566,14 @@ def phase_build_kernels(dna_toks) -> dict:
 # phases 2-3: the main path at full size
 # --------------------------------------------------------------------------
 
-def sample_patterns(toks, count: int, seed: int):
+def sample_patterns(toks, count: int, seed: int, lo: int = 3, hi: int = 32):
+    """``count`` substrings of ``toks`` of lengths uniform in [lo, hi]."""
     import numpy as np
 
     rng = np.random.default_rng(np.random.SeedSequence([seed, 0x5E7]))
     out = []
     for _ in range(count):
-        L = int(rng.integers(3, 33))
+        L = int(rng.integers(lo, hi + 1))
         st = int(rng.integers(0, len(toks) - L))
         out.append(toks[st: st + L].copy())
     return out
@@ -653,6 +661,7 @@ def profiled(fn) -> dict:
     dev_us = sum(r[0] for r in rows)
     return {"wall_s": wall, "device_s": dev_us / 1e6,
             "device_busy_share": dev_us / (wall * 1e6),
+            "device_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:48], "device_ms": d / 1e3, "calls": c}
                     for d, k, c in rows[:12]]}
 
@@ -691,8 +700,9 @@ def stage_times(toks, sample_rate: int, sa_sample_rate: int) -> dict:
 
 
 def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool):
-    """One main path; returns its launches and, with ``keep``, what later
-    phases compare against (the index, its requests and answers)."""
+    """One main path; returns its launches, with ``keep`` what later phases
+    compare against (the index, its requests and answers), and the fused
+    query kernel's parity and times on the path's index."""
     import torch
 
     from repro_torch.configs.bwt_index import CONFIG as icfg
@@ -727,6 +737,16 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool):
         qps[kind_] = (server.stats.queries - q0) / (server.stats.seconds - s0)
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the serving part of the path: one fused launch per (kind, bucket)
+    # batch, no single-batch rank kernel
+    serve = {k: launches[k] - build_launches[k] for k in launches}
+    batches = server.stats.batches
+    qname = query_fns(index.fm)[0]
+    require(serve[qname] == batches,
+            f"phase {phase}: {serve[qname]} {qname} launches for {batches} "
+            f"batches")
+    require(serve["rank_packed"] == 0 and serve["rank_select"] == 0,
+            f"phase {phase}: a rank kernel launched while serving: {serve}")
 
     # after the counted run, so these launches are not counted
     extra = {
@@ -736,6 +756,11 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool):
         "profile_count": profiled(lambda: server.count(pats)),
         "profile_locate": profiled(lambda: server.locate(pats)),
     }
+
+    fq = {"name": qname, "index": f"{kind} n={n}"}
+    fq["max_abs_err"] = check_queries(index.fm, query_cases(
+        index.fm, toks, pats, phase), fq["index"])
+    fq.update(query_timing(index.fm, toks, pats, phase))
 
     s, _ = prepare_tokens(toks, 64)
     s_dev = torch.as_tensor(s, device="cuda")
@@ -750,7 +775,9 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool):
           "count_qps": qps["count"], "locate_qps": qps["locate"],
           "locate_k": LOCATE_K, "requests": {"count": 1024, "locate": 1024},
           "peak_mem_gib": peak_gib, "launches_build": build_launches,
-          "launches": launches, "sa_check": "pass",
+          "launches": launches, "launches_serve": serve,
+          "serve_batches": batches, "fm_query": fq,
+          "sa_check": "pass",
           "count_check": "64 brute force + 1024 locate-consistent",
           "locate_check": f"{sum(len(p) for p in located)} positions",
           **extra})
@@ -759,7 +786,285 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool):
                 build_s=build_s) if keep else None
     del index
     torch.cuda.empty_cache()
-    return launches, kept
+    return launches, kept, fq
+
+
+# --------------------------------------------------------------------------
+# the fused query kernels: parity, times, bounds (phases 1-3)
+# --------------------------------------------------------------------------
+
+def query_fns(fm):
+    """(kernel name, wrapper, plain version, single-batch rank kernel
+    wrapper) of the index's layout."""
+    from repro_torch.kernels import fm_query as fq
+    from repro_torch.kernels import rank_select as rk
+
+    if fm.bits:
+        return ("fm_query_packed", fq.fm_query_packed,
+                fq.fm_query_packed_plain, rk.rank_packed)
+    return ("fm_query_unpacked", fq.fm_query_unpacked,
+            fq.fm_query_unpacked_plain, rk.rank_select)
+
+
+def pad_patterns(pats, L: int, device, B: int | None = None):
+    """int32[B, L] PAD-padded patterns (rows past len(pats) all PAD)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.fm_index import PAD
+
+    out = np.full((B or len(pats), L), PAD, np.int32)
+    for i, p in enumerate(pats):
+        out[i, : len(p)] = p
+    return torch.from_numpy(out).to(device)
+
+
+def flush_buckets(pats, device):
+    """The requests grouped as ``FMQueryServer.flush`` groups them under
+    the config's buckets: one PAD-padded batch per length bucket, its rows
+    rounded up to a power of two."""
+    from repro_torch.configs.bwt_index import CONFIG as icfg
+
+    groups = {}
+    for p in pats:
+        L = next(b for b in icfg.serve_length_buckets if len(p) <= b)
+        groups.setdefault(L, []).append(p)
+    return [pad_patterns(ps, L, device, min(1 << (len(ps) - 1).bit_length(),
+                                            icfg.serve_max_batch))
+            for L, ps in sorted(groups.items())]
+
+
+def edge_patterns(toks, sigma: int, seed: int):
+    """All-PAD, every length-1 pattern, lengths 64 and 128 from the text,
+    the sentinel 0, symbols at and past sigma and a negative one inside a
+    pattern, a PAD inside a pattern, and random (absent) patterns."""
+    import numpy as np
+
+    from repro_torch.core.fm_index import PAD
+
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0xED6]))
+
+    def cut(L):
+        st = int(rng.integers(0, len(toks) - L))
+        return toks[st: st + L].copy()
+
+    out = [np.zeros(0, np.int32), np.array([0], np.int32)]
+    out += [np.array([c], np.int32) for c in range(1, sigma)]
+    out += [cut(64), cut(64), cut(128), cut(128)]
+    for bad in (0, sigma, sigma + 5, 999, -2, PAD):
+        p = cut(12)
+        p[5] = bad
+        out.append(p)
+    out += [rng.integers(1, sigma, 40).astype(np.int32) for _ in range(8)]
+    return out
+
+
+def query_cases(fm, toks, pats, seed: int):
+    """(what, patterns, k): the requests batched as the server batches
+    them, for count and locate, and the edge patterns at k = 0, 1, 16, 64
+    (64 is past the occurrences of every long pattern)."""
+    cases = []
+    for P in flush_buckets(pats, fm.device):
+        cases += [(f"requests m={P.shape[1]}", P, k) for k in (0, LOCATE_K)]
+    E = pad_patterns(edge_patterns(toks, fm.sigma, seed), 128, fm.device)
+    return cases + [("edge", E, k) for k in (0, 1, LOCATE_K, 64)]
+
+
+def check_queries(fm, cases, what: str) -> int:
+    """Every case through the layout's fused kernel and its plain version
+    on the card: sp, ep and the positions must be equal; returns the max
+    abs error (0)."""
+    name, kern, plain, _ = query_fns(fm)
+    err = 0
+    for case, P, k in cases:
+        got, want = kern(fm, P, k), plain(fm, P, k)
+        tag = f"{name} {what} {case} k={k}"
+        err = max(err, same(got[0], want[0], f"{tag} sp"),
+                  same(got[1], want[1], f"{tag} ep"))
+        if k:
+            err = max(err, same(got[2], want[2], f"{tag} positions"))
+    return err
+
+
+def small_index_checks() -> tuple[dict, list]:
+    """The fused kernels against their plain versions on a 2-bit index at
+    n = 2^20 over tokens {1, 2, 3}, with raw and bit-packed SA values;
+    on the same BWT also with 512-symbol blocks (rows of 32 packed words)
+    and unpacked at r = 64 and 128.  Returns (max error per kernel, the
+    layouts checked)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import alphabet as al
+    from repro_torch.core.bwt import bwt_from_sa
+    from repro_torch.core.fm_index import build_fm_index
+    from repro_torch.core.suffix_array import suffix_array_fast
+
+    rng = np.random.default_rng(np.random.SeedSequence([20, 0x2B1]))
+    toks = rng.integers(1, 4, 1 << 20).astype(np.int32)
+    s = al.append_sentinel(toks)
+    sigma = al.sigma_of(s)
+    s_dev = torch.as_tensor(s, device="cuda")
+    sa, _ = suffix_array_fast(s_dev, sigma, local_sort="auto")
+    bwt, row = bwt_from_sa(s_dev, sa)
+    pats = sample_patterns(toks, 1024, seed=7)
+    errs = {"fm_query_packed": 0, "fm_query_unpacked": 0}
+    layouts = []
+    for r, pack in ((64, None), (512, None), (64, False), (128, False)):
+        for compress in (False, True):
+            fm = build_fm_index(bwt, row, sigma, r, sa=sa, sa_sample_rate=32,
+                                pack=pack, compress_sa=compress)
+            require((fm.sa_val_bits > 0) == compress, "SA value encoding")
+            name = query_fns(fm)[0]
+            what = (f"sigma={sigma} r={r} bits={fm.bits} "
+                    f"val_bits={fm.sa_val_bits}")
+            errs[name] = max(errs[name], check_queries(
+                fm, query_cases(fm, toks, pats, r), what))
+            layouts.append(f"{name}: {what}")
+    return errs, layouts
+
+
+def query_bytes(fm, P, k: int) -> tuple[int, int]:
+    """(bytes, walk steps) of one fused query launch on patterns ``P``,
+    replayed in plain PyTorch: the 32-byte sectors of every index word the
+    queries need (a rank: its checkpoint word and the block's symbols below
+    the cut; an LF step: also the symbol at the cut; a walk step: the mark
+    word and its rank; a marked row: its value), plus the patterns, C and
+    the outputs; and the walk's dependent steps (iterations with a live
+    lane)."""
+    import torch
+
+    from repro_torch.kernels._bits import popcount32, u32
+    from repro_torch.kernels.fm_query import interval_step, packed_symbol
+    from repro_torch.kernels.rank_select import (
+        rank_packed_plain,
+        rank_select_plain,
+    )
+
+    dev = P.device
+    sigma, r = fm.sigma, fm.sample_rate
+    B, m = P.shape
+    words = {}
+
+    def add(array, idx):
+        words.setdefault(array, []).append(idx.long().reshape(-1))
+
+    def occ(c, p, live, symbol_too=False):
+        blk = torch.clamp(p // r, max=fm.n_blocks - 1)
+        cut = p - blk * r
+        lb, lc, lcut = blk[live].long(), c[live].long(), cut[live].long()
+        if fm.bits:
+            fpw, wid = 32 // fm.bits, fm.fused.shape[1]
+            need = lcut // fpw + 1 if symbol_too else (lcut + fpw - 1) // fpw
+            w = torch.arange(wid - sigma, device=dev)
+            add("fused", lb * wid + lc)
+            add("fused", (lb[:, None] * wid + sigma + w)[
+                w[None, :] < need[:, None]])
+            return rank_packed_plain(fm.fused, blk, c, cut, bits=fm.bits,
+                                     sigma=sigma)
+        need = lcut + 1 if symbol_too else lcut
+        j = torch.arange(r, device=dev)
+        add("occ_samples", lb * sigma + lc)
+        add("bwt", (lb[:, None] * r + j)[j[None, :] < need[:, None]])
+        return fm.occ_samples[blk.long(), c.long()] + rank_select_plain(
+            fm.bwt.view(fm.n_blocks, r), blk, c, cut)
+
+    sp = torch.zeros(B, dtype=torch.int32, device=dev)
+    ep = torch.full((B,), fm.length, dtype=torch.int32, device=dev)
+    for j in range(m - 1, -1, -1):
+        c = P[:, j].contiguous()
+        live = (c >= 1) & (c < sigma) & (ep > sp)
+        sp, ep = interval_step(c, sp, ep, sigma, lambda cs, p: (
+            fm.c_array[cs.long()] + occ(cs, p, live)))
+    walk = 0
+    if k:
+        rows = sp[:, None] + torch.arange(k, dtype=torch.int32,
+                                          device=dev)[None, :]
+        valid = (rows < ep[:, None]).reshape(-1)
+        rows = torch.where(valid, rows.reshape(-1), 0)
+        done = ~valid
+        for _ in range(fm.sa_sample_rate):
+            live = ~done
+            if not bool(live.any()):
+                break
+            walk += 1
+            w = (rows // 32).long()
+            add("sa_marks", w[live])
+            add("sa_mark_ranks", w[live])
+            word = u32(fm.sa_marks[w])
+            b = (rows % 32).to(torch.int64)
+            marked = ((word >> b) & 1).bool()
+            idx = fm.sa_mark_ranks[w].long() + popcount32(
+                word & ((torch.ones_like(b) << b) - 1))
+            hit = idx[live & marked]
+            if fm.sa_val_bits:
+                bp = hit * fm.sa_val_bits
+                add("sa_vals", torch.cat([bp // 32,
+                                          (bp + fm.sa_val_bits - 1) // 32]))
+            else:
+                add("sa_vals", hit)
+            sym = (packed_symbol(fm.fused, rows // r, rows % r, sigma=sigma,
+                                 bits=fm.bits) if fm.bits
+                   else fm.bwt[rows.long()])
+            nxt = fm.c_array[sym.long()] + occ(sym, rows, live & ~marked,
+                                               symbol_too=True)
+            done = done | marked
+            rows = torch.where(done, rows, nxt)
+    nbytes = sum(sector_bytes(torch.cat(v)) for v in words.values())
+    return nbytes + 4 * (P.numel() + sigma + 2 * B + B * k), walk
+
+
+def query_timing(fm, toks, pats, seed: int) -> dict:
+    """Per length bucket (B = 1024 requests of lengths in the bucket, count
+    and locate): the fused kernel's event and device times beside its
+    bound and dependent steps, the plain version, and the earlier design
+    (the same step loop launching the single-batch rank kernel); then the
+    earlier design against the fused kernel over the flush's own batches,
+    timed in turns (old, new, new, old)."""
+    name, kern, plain, rank_kernel = query_fns(fm)
+    dev = fm.device
+    buckets = []
+    for L, lo in ((8, 3), (16, 9), (32, 17)):
+        P = pad_patterns(sample_patterns(toks, 1024, seed, lo, L), L, dev)
+        for k in (0, LOCATE_K):
+            nbytes, walk = query_bytes(fm, P, k)
+            buckets.append(dict(
+                m=L, B=1024, k=k,
+                ms=time_ms(lambda: kern(fm, P, k), 20),
+                device_ms=kernel_device_ms(lambda: kern(fm, P, k),
+                                           f"{name}_kernel"),
+                plain_ms=time_ms(lambda: plain(fm, P, k), 3),
+                old_ms=time_ms(lambda: plain(fm, P, k, rank=rank_kernel), 3),
+                bound_ms=bound_ms(nbytes), bytes=nbytes,
+                dependent_steps={"search": L, "walk": walk}))
+    reqs = flush_buckets(pats, dev)
+
+    def old():
+        for P in reqs:
+            for k in (0, LOCATE_K):
+                plain(fm, P, k, rank=rank_kernel)
+
+    def new():
+        for P in reqs:
+            for k in (0, LOCATE_K):
+                kern(fm, P, k)
+
+    turns = {"old": [], "new": []}
+    for tag, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
+        turns[tag].append(time_ms(fn, 3))
+    return {"buckets": buckets, "turns_ms": turns,
+            "flush_batches": [list(P.shape) for P in reqs]}
+
+
+def query_row(rec: dict, small_err: int) -> dict:
+    """The kernels-line row of a fused kernel: its locate bucket at m = 32
+    (the largest launch of the main path)."""
+    top = next(b for b in rec["buckets"] if b["m"] == 32 and b["k"])
+    return dict(max_abs_err=max(rec["max_abs_err"], small_err),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], library_ms=None,
+                device_ms=top["device_ms"],
+                shape=f"{rec['index']}: locate B=1024, m=32, k={LOCATE_K}")
 
 
 # --------------------------------------------------------------------------
@@ -1002,13 +1307,17 @@ def main(argv=None) -> int:
                                             row["max_abs_err"])
         rows.update(built)
         emit({"phase": 1, "kernels": rows})
+        small_errs, layouts = small_index_checks()
+        emit({"phase": 1, "fm_query_max_abs_err": small_errs,
+              "fm_query_layouts": layouts})
 
     main_launches = {name: 0 for name in _build.KERNELS}
     path_launches = {}
     build_kernels = ("radix_hist", "radix_pos", "rerank_scan",
                      "char_histogram")
-    paths = {2: ("dna", args.dna_log2n, ("rank_packed", *build_kernels)),
-             3: ("proteins", args.proteins_log2n, ("rank_select",
+    paths = {2: ("dna", args.dna_log2n, ("fm_query_packed",
+                                         *build_kernels)),
+             3: ("proteins", args.proteins_log2n, ("fm_query_unpacked",
                                                    *build_kernels))}
     kept = None
     for phase, (kind, log2n, needed) in paths.items():
@@ -1020,8 +1329,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             toks = corpus(kind, 1 << log2n)
             gen_s = time.perf_counter() - t0
-        launches, k = phase_main(kind, toks, gen_s, phase, keep=kind == "dna")
+        launches, k, fq = phase_main(kind, toks, gen_s, phase,
+                                     keep=kind == "dna")
         kept = k or kept
+        if rows:
+            rows[fq["name"]] = query_row(fq, small_errs[fq["name"]])
         for name in needed:
             require(launches[name] > 0,
                     f"phase {phase}: kernel {name} never launched")
@@ -1067,6 +1379,8 @@ def main(argv=None) -> int:
             "radix_pos": "src/repro/kernels/radix_sort.py:54",
             "rerank_scan": "src/repro/kernels/rerank_scan.py:54",
             "char_histogram": "src/repro/kernels/char_histogram.py:30",
+            "fm_query_packed": "src/repro/kernels/rank_select.py:133",
+            "fm_query_unpacked": "src/repro/kernels/rank_select.py:179",
         }
         emit({"kernels": [
             {"name": name, "route": "cuda", "source": src.format(name),

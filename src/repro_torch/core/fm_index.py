@@ -7,19 +7,20 @@ package's ``FMIndex``, so the two can be compared field by field):
 * ``C``            int32[sigma]  # chars strictly smaller (exclusive cumsum)
 * ``occ_samples``  int32[n_blocks + 1, sigma]  checkpointed exclusive Occ
 * ``fused``        int32[n_blocks, sigma + r/fpw]  (small alphabets only)
-  per-block [Occ checkpoint | bit-packed words], what the packed rank
-  kernel reads (``kernels/rank_select.py``)
+  per-block [Occ checkpoint | bit-packed words], what the packed rank and
+  query kernels read (``kernels/rank_select.py``, ``kernels/fm_query.py``)
 * ``sa_marks/sa_mark_ranks/sa_vals``  SA sample for locate(): rows whose SA
   value is a multiple of ``sa_sample_rate`` are marked in a bitvector (with
   per-word popcount checkpoints) and their values stored in row order,
   optionally bit-packed as ``val // s`` at ``sa_val_bits`` bits.
 
 rank(c, p) = occ_samples[p // r, c] + count of c in bwt[(p//r)*r : p].
-All rank queries and the symbol counts of ``C`` go through ``kernels/ops``
-(CUDA kernels for CUDA tensors, plain versions for CPU tensors).  The
-build is onehot-free: block counts come from one ``bincount`` over
-``block * sigma + symbol`` instead of an n x sigma one-hot, with
-bit-identical output.
+count/locate answer a whole batch through one fused query kernel per call
+(``kernels/fm_query``), ``occ_batch`` one batch of rank queries; they and
+the symbol counts of ``C`` go through ``kernels/ops`` (CUDA kernels for
+CUDA tensors, plain versions for CPU tensors).  The build is onehot-free:
+block counts come from one ``bincount`` over ``block * sigma + symbol``
+instead of an n x sigma one-hot, with bit-identical output.
 """
 
 from __future__ import annotations
@@ -30,10 +31,9 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..kernels._bits import i32, popcount32, u32
+from ..kernels._bits import i32, popcount32
+from ..kernels.fm_query import PAD, unpack_sa_value
 from ..kernels.rank_select import pack_words, packed_bits
-
-PAD = -1  # query padding token
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,22 +84,6 @@ def pack_sa_values(q: torch.Tensor, bits: int) -> torch.Tensor:
     words.index_add_(0, w, lo & 0xFFFFFFFF)
     words.index_add_(0, w + 1, lo >> 32)
     return i32(words)
-
-
-def unpack_sa_value(words: torch.Tensor, idx: torch.Tensor,
-                    bits: int) -> torch.Tensor:
-    """Decode packed value ``idx`` from a ``pack_sa_values`` bitstream
-    (out-of-range idx of garbage lanes clamp in bounds and decode
-    garbage, like the raw ``vals[clip(idx)]`` path)."""
-    # idx * bits can overflow int32 at corpus scale; split the product
-    base = (idx // 32) * bits
-    rem = (idx % 32) * bits
-    w = torch.clamp(base + rem // 32, 0, words.shape[0] - 2).long()
-    off = (rem % 32).to(torch.int64)
-    lo = u32(words[w]) >> off
-    hi = torch.where(off > 0, (u32(words[w + 1]) << ((32 - off) & 31))
-                     & 0xFFFFFFFF, 0)
-    return ((lo | hi) & ((1 << bits) - 1)).to(torch.int32)
 
 
 def sample_arrays_from_rows(rows: torch.Tensor, vals: torch.Tensor, n: int,
@@ -259,37 +243,19 @@ def occ_batch(index: FMIndex, c: torch.Tensor, p: torch.Tensor):
     return base + ops.rank_unpacked(blocks, blk, c, cut)
 
 
-def _interval_step(c, sp, ep, sigma: int, rank):
-    """One backward-search transition.  ``rank(c_safe, p)`` maps a
-    symbol/position pair to ``C[c] + Occ(c, p)``.  PAD steps are no-ops;
-    an empty interval stays empty; an out-of-alphabet symbol empties it."""
-    in_alphabet = (c >= 1) & (c < sigma)
-    valid = in_alphabet & (ep > sp)
-    c_safe = torch.where(in_alphabet, c, 0)
-    nsp = rank(c_safe, sp)
-    nep = rank(c_safe, ep)
-    return (
-        torch.where(valid, nsp, sp),
-        torch.where(valid, nep,
-                    torch.where((c != PAD) & ~in_alphabet, sp, ep)),
-    )
+def _fm_query(index: FMIndex, patterns: torch.Tensor, k: int):
+    """(sp, ep, positions int32[B, k]) from the fused query kernel of the
+    index's layout."""
+    if index.bits:
+        return ops.fm_query_packed(index, patterns, k)
+    return ops.fm_query_unpacked(index, patterns, k)
 
 
 def backward_search_batch(index: FMIndex, patterns: torch.Tensor):
     """(sp, ep) suffix-array intervals for int32[B, m] PAD-padded
-    patterns, right to left (PADs sit on the right, so they come first and
-    are skipped).  Each step issues one batched rank call per interval end,
-    so the whole batch shares kernel launches."""
-    B, m = patterns.shape
-
-    def rank(c, p):
-        return index.c_array[c.long()] + occ_batch(index, c, p)
-
-    sp = torch.zeros(B, dtype=torch.int32, device=patterns.device)
-    ep = torch.full((B,), index.n, dtype=torch.int32, device=patterns.device)
-    for j in range(m - 1, -1, -1):
-        sp, ep = _interval_step(patterns[:, j].contiguous(), sp, ep,
-                                index.sigma, rank)
+    patterns, right to left: the whole batch in one fused query launch
+    (``kernels/fm_query``)."""
+    sp, ep, _ = _fm_query(index, patterns, 0)
     return sp, ep
 
 
@@ -299,86 +265,16 @@ def count(index: FMIndex, patterns: torch.Tensor) -> torch.Tensor:
     return torch.clamp(ep - sp, min=0)
 
 
-def sample_lookup(marks, mark_ranks, vals, rows, *, val_bits: int = 0,
-                  val_scale: int = 1, idx_offset=0):
-    """(marked, value) of the SA sample at each row (value garbage when
-    unmarked); ``val_bits`` > 0 decodes the bit-packed value stream."""
-    w = (rows // 32).long()
-    b = (rows % 32).to(torch.int64)
-    word = u32(marks[w])
-    marked = ((word >> b) & 1).bool()
-    below = popcount32(word & ((torch.ones_like(b) << b) - 1))
-    idx = mark_ranks[w] + below.to(torch.int32) + idx_offset
-    if val_bits:
-        val = unpack_sa_value(vals, idx, val_bits) * val_scale
-    else:
-        val = vals[torch.clamp(idx, 0, vals.shape[0] - 1).long()]
-    return marked, val
-
-
-def _sample_lookup(index: FMIndex, rows):
-    return sample_lookup(index.sa_marks, index.sa_mark_ranks, index.sa_vals,
-                         rows, val_bits=index.sa_val_bits,
-                         val_scale=index.sa_sample_rate)
-
-
-def packed_symbol(fused, blk, j, *, sigma: int, bits: int):
-    """Decode symbol ``j`` of fused row ``blk`` from the packed words."""
-    fpw = 32 // bits
-    word = u32(fused[blk.long(), (sigma + j // fpw).long()])
-    sh = ((j % fpw) * bits).to(torch.int64)
-    return ((word >> sh) & ((1 << bits) - 1)).to(torch.int32)
-
-
-def bwt_symbol(index: FMIndex, rows):
-    """bwt[rows] batched, extracted from the packed words when bit-packed,
-    so the locate walk touches only the compact layout."""
-    if not index.bits:
-        return index.bwt[rows.long()]
-    r = index.sample_rate
-    return packed_symbol(index.fused, rows // r, rows % r,
-                         sigma=index.sigma, bits=index.bits)
-
-
-def _locate_walk(n_steps: int, rows, valid, lookup, lf_next):
-    """The locate LF-walk: each lane walks ``rows`` toward its nearest
-    SA-sampled row; ``lookup(rows)`` -> (marked, sampled value),
-    ``lf_next(rows)`` -> LF-mapped rows.  Returns flat positions (garbage
-    where ``~valid``)."""
-    pos = torch.zeros_like(rows)
-    steps = torch.zeros_like(rows)
-    done = ~valid
-    for _ in range(n_steps):
-        marked, val = lookup(rows)
-        pos = torch.where(marked & ~done, val + steps, pos)
-        done = done | marked
-        rows = torch.where(done, rows, lf_next(rows))
-        steps = steps + torch.where(done, 0, 1).to(steps.dtype)
-    return pos
-
-
 def locate(index: FMIndex, patterns: torch.Tensor, k: int):
     """First-k occurrence positions per pattern via the SA sample.
 
     patterns int32[B, m] PAD-padded.  Returns (positions int32[B, k] sorted
     ascending with ``n`` filling unused slots, counts int32[B] clipped to
-    k).  Each of the B*k candidate rows LF-walks (<= sa_sample_rate - 1
-    steps, each one batched rank call) to its nearest marked row."""
+    k).  One fused query launch runs the search and LF-walks each of the
+    B*k candidate rows (<= sa_sample_rate - 1 steps) to its nearest marked
+    row; only the per-row sort and the count clamp stay here."""
     if index.sa_sample_rate == 0:
         raise ValueError("index built without sa= — locate unavailable")
-    sp, ep = backward_search_batch(index, patterns)
-    B = sp.shape[0]
-    rows = sp[:, None] + torch.arange(k, dtype=torch.int32,
-                                      device=sp.device)[None, :]
-    valid = (rows < ep[:, None]).reshape(-1)
-    rows = torch.where(valid, rows.reshape(-1), 0)
-
-    def lf_next(rows):
-        c = bwt_symbol(index, rows)
-        return index.c_array[c.long()] + occ_batch(index, c, rows)
-
-    pos = _locate_walk(index.sa_sample_rate, rows, valid,
-                       lambda rows: _sample_lookup(index, rows), lf_next)
-    out = torch.where(valid, pos, index.n).view(B, k)
+    sp, ep, pos = _fm_query(index, patterns, k)
     counts = torch.clamp(ep - sp, min=0, max=k)
-    return torch.sort(out, dim=1).values, counts
+    return torch.sort(pos, dim=1).values, counts

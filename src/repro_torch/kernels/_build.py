@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("rank_packed", "rank_select", "radix_hist", "radix_pos",
-           "rerank_scan", "char_histogram")
+           "rerank_scan", "char_histogram", "fm_query_packed",
+           "fm_query_unpacked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +43,12 @@ SIGNATURES = {
     "radix_pos": [_P, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_P],
     "rerank_scan": [_P, _P, _I, _P, _P, _P, _I, _P],
     "char_histogram": [_P, _I, _I, _P, _P],
+    # layout, n, C, SA sample (marks, ranks, vals, n_vals, rate, val_bits),
+    # patterns, B, m, k, sp, ep, positions, stream
+    "fm_query_packed": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
+                        _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "fm_query_unpacked": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
+                          _I, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -66,7 +73,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library of kernel ``name``, named by a hash of its source, every
+    shared header (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.name.encode() + header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -125,14 +136,14 @@ def launch(name: str, *args) -> None:
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous int32 CUDA tensor on one
     device (what every kernel here takes)."""
-    dev = tensors[0].device
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{name}: tensors must share one CUDA device")
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: expected int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    dev = tensors[0].device
+    if any(t.device != dev or t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{name}: tensors must share one CUDA device")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -16,14 +16,20 @@
 // scale it is ~250 MB here, far beyond shared memory, so each query gets
 // one thread that gathers its own row from global memory / L2.  The row's
 // words are XOR-ed against c replicated into every field, a per-field zero
-// test leaves the LSB of each matching field set, the words wholly below
-// the cutoff plus the partial word are counted with __popc, and the
-// checkpoint row[c] is added.  No shared memory, no synchronisation.
+// test leaves the LSB of each matching field set, the cutoff mask keeps the
+// fields below the cut, __popc counts them, and the checkpoint row[c] is
+// added (packed_rank in rank_common.cuh, shared with fm_query_packed.cu).
+// No shared memory, no synchronisation.  The serving path no longer calls
+// this kernel once per pattern position: fm_query_packed.cu answers a whole
+// batch in one launch.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "rank_common.cuh"
+
+template <int BITS>
 __global__ void rank_packed_kernel(const uint32_t* __restrict__ fused,
-                                   int wid, int sigma, int bits,
+                                   int wid, int sigma,
                                    const int* __restrict__ blk,
                                    const int* __restrict__ sym,
                                    const int* __restrict__ cut,
@@ -31,23 +37,7 @@ __global__ void rank_packed_kernel(const uint32_t* __restrict__ fused,
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= B) return;
   const uint32_t* row = fused + (size_t)blk[q] * (size_t)wid;
-  const uint32_t c = (uint32_t)sym[q];
-  const int fpw = 32 / bits;
-  const int W = wid - sigma;
-  const int full = cut[q] / fpw;              // words wholly below the cut
-  const int rem = cut[q] - full * fpw;        // fields of the partial word
-  const uint32_t rep = bits == 2 ? 0x55555555u : 0x11111111u;
-  const uint32_t pat = c * rep;
-  int cnt = 0;
-  for (int w = 0; w < W && w <= full; ++w) {
-    const uint32_t sel =
-        w < full ? 0xFFFFFFFFu : ((1u << (bits * rem)) - 1u);
-    const uint32_t x = row[sigma + w] ^ pat;
-    uint32_t t = x | (x >> 1);
-    if (bits == 4) t |= t >> 2;
-    cnt += __popc(((t & rep) ^ rep) & sel);
-  }
-  out[q] = (int)row[c] + cnt;
+  out[q] = packed_rank<BITS>(row, sigma, wid - sigma, (uint32_t)sym[q], cut[q]);
 }
 
 extern "C" int rank_packed_launch(const void* fused, int wid, int sigma,
@@ -56,10 +46,16 @@ extern "C" int rank_packed_launch(const void* fused, int wid, int sigma,
                                   void* stream) {
   if (B > 0) {
     const int threads = 256;
-    rank_packed_kernel<<<(B + threads - 1) / threads, threads, 0,
-                         (cudaStream_t)stream>>>(
-        (const uint32_t*)fused, wid, sigma, bits, (const int*)blk,
-        (const int*)sym, (const int*)cut, (int*)out, B);
+    const int grid = (B + threads - 1) / threads;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (bits == 2)
+      rank_packed_kernel<2><<<grid, threads, 0, st>>>(
+          (const uint32_t*)fused, wid, sigma, (const int*)blk,
+          (const int*)sym, (const int*)cut, (int*)out, B);
+    else
+      rank_packed_kernel<4><<<grid, threads, 0, st>>>(
+          (const uint32_t*)fused, wid, sigma, (const int*)blk,
+          (const int*)sym, (const int*)cut, (int*)out, B);
   }
   return (int)cudaGetLastError();
 }

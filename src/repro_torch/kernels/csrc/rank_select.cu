@@ -12,13 +12,17 @@
 // is launch-bound.
 //
 // Design: the TPU kernel ran one query per grid step over a block fetched
-// by scalar prefetch.  Here a warp answers one query: each lane loads one
-// symbol of a 32-symbol slice (one coalesced 128-byte transaction), the
-// warp votes with __ballot_sync on (symbol == c and position < cut), and
-// __popc of the vote adds the slice's count.  The loop stops at the cutoff,
-// which is uniform across the warp, so no lane diverges from the vote.
+// by scalar prefetch.  Here a warp answers one query: each lane loads
+// symbols of 32-symbol slices (coalesced 128-byte transactions, four
+// slices in flight), the warp votes with __ballot_sync on (symbol == c and
+// position < cut), and __popc of the vote adds the slice's count
+// (group_counts in rank_common.cuh, shared with fm_query_unpacked.cu).  The
+// serving path no longer calls this kernel once per pattern position:
+// fm_query_unpacked.cu answers a whole batch in one launch.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "rank_common.cuh"
 
 __global__ void rank_select_kernel(const int* __restrict__ blocks, int r,
                                    const int* __restrict__ blk,
@@ -30,15 +34,11 @@ __global__ void rank_select_kernel(const int* __restrict__ blocks, int r,
   const int lane = threadIdx.x & 31;
   if (q >= B) return;  // uniform per warp: blockDim is a multiple of 32
   const int* row = blocks + (size_t)blk[q] * (size_t)r;
-  const int c = sym[q];
-  const int stop = min(cut[q], r);
-  int cnt = 0;
-  for (int j0 = 0; j0 < stop; j0 += 32) {
-    const int j = j0 + lane;
-    const bool hit = j < stop && row[j] == c;
-    cnt += __popc(__ballot_sync(0xFFFFFFFFu, hit));
-  }
-  if (lane == 0) out[q] = cnt;
+  const int* blks[1] = {row};
+  const int cuts[1] = {min(cut[q], r)};
+  int cnt[1];
+  group_counts<32, 1>(blks, cuts, r, sym[q], true, cnt);
+  if (lane == 0) out[q] = cnt[0];
 }
 
 extern "C" int rank_select_launch(const void* blocks, int r, const void* blk,

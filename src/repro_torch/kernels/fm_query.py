@@ -1,0 +1,226 @@
+"""Fused FM-index queries: the backward search of a whole (B, m) batch of
+PAD-padded patterns and, for locate, the LF-walk of every candidate row to
+its SA sample, in one kernel launch per batch (``csrc/fm_query_packed.cu``
+for the fused packed rows, ``csrc/fm_query_unpacked.cu`` for int32 blocks
+plus ``occ_samples``).
+
+The JAX package runs the same steps as a ``lax.scan`` (search) and a
+``fori_loop`` (walk) over batched rank calls inside one jitted program.
+The plain versions here are that step loop in eager PyTorch, one batched
+rank call per step: over ``rank_packed_plain`` / ``rank_select_plain`` by
+default, or over any function with their signature (``rank=``; passing the
+single-batch rank kernels times the port's earlier one-launch-per-step
+design).  They call no kernel of their own, on any device.
+
+Each wrapper takes an FM index (``core.fm_index.FMIndex`` or any object
+with its fields), int32[B, m] patterns and ``k`` (0 = search only) and
+returns ``(sp, ep, positions)``: the suffix-array interval of every pattern
+and int32[B, k] unsorted positions, ``n`` in the slots past the pattern's
+occurrences.  CPU tensors take the plain version; CUDA tensors launch the
+kernel or raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._bits import popcount32, u32
+from .rank_select import rank_packed_plain, rank_select_plain
+
+PAD = -1  # query padding token
+
+
+def unpack_sa_value(words: torch.Tensor, idx: torch.Tensor,
+                    bits: int) -> torch.Tensor:
+    """Decode packed value ``idx`` from a ``pack_sa_values`` bitstream
+    (out-of-range idx of garbage lanes clamp in bounds and decode
+    garbage, like the raw ``vals[clip(idx)]`` path)."""
+    # idx * bits can overflow int32 at corpus scale; split the product
+    base = (idx // 32) * bits
+    rem = (idx % 32) * bits
+    w = torch.clamp(base + rem // 32, 0, words.shape[0] - 2).long()
+    off = (rem % 32).to(torch.int64)
+    lo = u32(words[w]) >> off
+    hi = torch.where(off > 0, (u32(words[w + 1]) << ((32 - off) & 31))
+                     & 0xFFFFFFFF, 0)
+    return ((lo | hi) & ((1 << bits) - 1)).to(torch.int32)
+
+
+def sample_lookup(marks, mark_ranks, vals, rows, *, val_bits: int = 0,
+                  val_scale: int = 1, idx_offset=0):
+    """(marked, value) of the SA sample at each row (value garbage when
+    unmarked); ``val_bits`` > 0 decodes the bit-packed value stream."""
+    w = (rows // 32).long()
+    b = (rows % 32).to(torch.int64)
+    word = u32(marks[w])
+    marked = ((word >> b) & 1).bool()
+    below = popcount32(word & ((torch.ones_like(b) << b) - 1))
+    idx = mark_ranks[w] + below.to(torch.int32) + idx_offset
+    if val_bits:
+        val = unpack_sa_value(vals, idx, val_bits) * val_scale
+    else:
+        val = vals[torch.clamp(idx, 0, vals.shape[0] - 1).long()]
+    return marked, val
+
+
+def packed_symbol(fused, blk, j, *, sigma: int, bits: int):
+    """Decode symbol ``j`` of fused row ``blk`` from the packed words."""
+    fpw = 32 // bits
+    word = u32(fused[blk.long(), (sigma + j // fpw).long()])
+    sh = ((j % fpw) * bits).to(torch.int64)
+    return ((word >> sh) & ((1 << bits) - 1)).to(torch.int32)
+
+
+def interval_step(c, sp, ep, sigma: int, rank):
+    """One backward-search transition.  ``rank(c_safe, p)`` maps a
+    symbol/position pair to ``C[c] + Occ(c, p)``.  PAD steps are no-ops;
+    an empty interval stays empty; an out-of-alphabet symbol empties it."""
+    in_alphabet = (c >= 1) & (c < sigma)
+    valid = in_alphabet & (ep > sp)
+    c_safe = torch.where(in_alphabet, c, 0)
+    nsp = rank(c_safe, sp)
+    nep = rank(c_safe, ep)
+    return (
+        torch.where(valid, nsp, sp),
+        torch.where(valid, nep,
+                    torch.where((c != PAD) & ~in_alphabet, sp, ep)),
+    )
+
+
+def locate_walk(n_steps: int, rows, valid, lookup, lf_next):
+    """The locate LF-walk: each lane walks ``rows`` toward its nearest
+    SA-sampled row; ``lookup(rows)`` -> (marked, sampled value),
+    ``lf_next(rows)`` -> LF-mapped rows.  Returns flat positions (garbage
+    where ``~valid``)."""
+    pos = torch.zeros_like(rows)
+    steps = torch.zeros_like(rows)
+    done = ~valid
+    for _ in range(n_steps):
+        marked, val = lookup(rows)
+        pos = torch.where(marked & ~done, val + steps, pos)
+        done = done | marked
+        rows = torch.where(done, rows, lf_next(rows))
+        steps = steps + torch.where(done, 0, 1).to(steps.dtype)
+    return pos
+
+
+def _query_steps(fm, patterns, k: int, occ, symbol):
+    """The plain step loop over ``occ(c, p)`` (exclusive rank) and
+    ``symbol(rows)`` (bwt[rows])."""
+    B, m = patterns.shape
+
+    def rank(c, p):
+        return fm.c_array[c.long()] + occ(c, p)
+
+    sp = torch.zeros(B, dtype=torch.int32, device=patterns.device)
+    ep = torch.full((B,), fm.length, dtype=torch.int32,
+                    device=patterns.device)
+    for j in range(m - 1, -1, -1):      # PADs sit on the right: first
+        sp, ep = interval_step(patterns[:, j].contiguous(), sp, ep,
+                               fm.sigma, rank)
+    if not k:
+        return sp, ep, sp.new_empty((B, 0))
+    rows = sp[:, None] + torch.arange(k, dtype=torch.int32,
+                                      device=sp.device)[None, :]
+    valid = (rows < ep[:, None]).reshape(-1)
+    rows = torch.where(valid, rows.reshape(-1), 0)
+    pos = locate_walk(
+        fm.sa_sample_rate, rows, valid,
+        lambda rows: sample_lookup(fm.sa_marks, fm.sa_mark_ranks, fm.sa_vals,
+                                   rows, val_bits=fm.sa_val_bits,
+                                   val_scale=fm.sa_sample_rate),
+        lambda rows: rank(symbol(rows), rows))
+    return sp, ep, torch.where(valid, pos, fm.length).view(B, k)
+
+
+def _blocks(fm, p):
+    """(block, cutoff) of positions p; p = n_blocks*r folds into the last
+    block (cutoff r)."""
+    r = fm.sample_rate
+    blk = torch.clamp(p // r, max=fm.n_blocks - 1)
+    return blk, p - blk * r
+
+
+def fm_query_packed_plain(fm, patterns, k: int = 0, *,
+                          rank=rank_packed_plain):
+    """The plain version of ``fm_query_packed``: one batched ``rank`` call
+    (``rank_packed``'s signature) per interval end and step."""
+    def occ(c, p):
+        blk, cut = _blocks(fm, p)
+        return rank(fm.fused, blk, c, cut, bits=fm.bits, sigma=fm.sigma)
+
+    r = fm.sample_rate
+    return _query_steps(fm, patterns, k, occ, lambda rows: packed_symbol(
+        fm.fused, rows // r, rows % r, sigma=fm.sigma, bits=fm.bits))
+
+
+def fm_query_unpacked_plain(fm, patterns, k: int = 0, *,
+                            rank=rank_select_plain):
+    """The plain version of ``fm_query_unpacked``: the checkpoint gather
+    plus one batched ``rank`` call (``rank_select``'s signature) per
+    interval end and step."""
+    blocks = fm.bwt.view(fm.n_blocks, fm.sample_rate)
+
+    def occ(c, p):
+        blk, cut = _blocks(fm, p)
+        return (fm.occ_samples[blk.long(), c.long()]
+                + rank(blocks, blk, c, cut))
+
+    return _query_steps(fm, patterns, k, occ, lambda rows: fm.bwt[rows.long()])
+
+
+def _sample_args(fm, k: int, name: str):
+    """(tensors, C arguments) of the SA sample a launch reads: marks, mark
+    ranks, values, value words, stride, value bits (nothing for k = 0)."""
+    if not k:
+        return (), (None, None, None, 0, 0, 0)
+    if fm.sa_sample_rate == 0 or fm.sa_marks is None:
+        raise ValueError(f"{name}: index built without an SA sample")
+    tensors = (fm.sa_marks, fm.sa_mark_ranks, fm.sa_vals)
+    return tensors, (*(t.data_ptr() for t in tensors), fm.sa_vals.shape[0],
+                     fm.sa_sample_rate, fm.sa_val_bits)
+
+
+def _launch(name, fm, patterns, k, tensors, layout_args):
+    """Check the CUDA arguments, allocate the outputs and launch ``name``
+    once for the whole batch."""
+    sample, sample_args = _sample_args(fm, k, name)
+    _build.check_cuda(name, *tensors, fm.c_array, *sample, patterns)
+    if patterns.dim() != 2 or k < 0:
+        raise ValueError(f"{name}: patterns must be int32[B, m], k >= 0")
+    B, m = patterns.shape
+    dev = patterns.device
+    sp = torch.empty(B, dtype=torch.int32, device=dev)
+    ep = torch.empty(B, dtype=torch.int32, device=dev)
+    pos = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B:
+        _build.launch(name, *layout_args, fm.length, fm.c_array.data_ptr(),
+                      *sample_args, patterns.data_ptr(), B, m, k,
+                      sp.data_ptr(), ep.data_ptr(), pos.data_ptr())
+    return sp, ep, pos
+
+
+def fm_query_packed(fm, patterns, k: int = 0):
+    """(sp, ep, positions) over the fused packed rows (``fm.bits`` 2 or
+    4); the plain version for CPU tensors, one kernel launch otherwise."""
+    fused = fm.fused
+    if fm.bits not in (2, 4) or fused is None or fm.sigma > 1 << fm.bits:
+        raise ValueError(f"fm_query_packed: no packed layout "
+                         f"(bits={fm.bits}, sigma={fm.sigma})")
+    if _build.on_cpu(fused, fm.c_array, patterns):
+        return fm_query_packed_plain(fm, patterns, k)
+    return _launch("fm_query_packed", fm, patterns, k, (fused,), (
+        fused.data_ptr(), fused.shape[1], fused.shape[0], fm.sigma, fm.bits,
+        fm.sample_rate))
+
+
+def fm_query_unpacked(fm, patterns, k: int = 0):
+    """(sp, ep, positions) over int32 blocks plus ``occ_samples``; the
+    plain version for CPU tensors, one kernel launch otherwise."""
+    if _build.on_cpu(fm.bwt, fm.occ_samples, fm.c_array, patterns):
+        return fm_query_unpacked_plain(fm, patterns, k)
+    return _launch("fm_query_unpacked", fm, patterns, k,
+                   (fm.bwt, fm.occ_samples), (
+                       fm.bwt.data_ptr(), fm.occ_samples.data_ptr(),
+                       fm.n_blocks, fm.sigma, fm.sample_rate))

@@ -2,9 +2,10 @@
 signatures (minus the merge-walk ``rank_walkers``).
 
 The kernel wrappers (``rank_packed``, ``rank_select``, ``radix_hist``,
-``radix_pos``, ``rerank_scan``, ``char_histogram``) dispatch on their
-tensors' device: CPU tensors take the plain PyTorch version, CUDA tensors
-launch the hand-written kernel (or raise).  No argument or environment variable reroutes a CUDA tensor to
+``radix_pos``, ``rerank_scan``, ``char_histogram``, ``fm_query_packed``,
+``fm_query_unpacked``) dispatch on their tensors' device: CPU tensors take
+the plain PyTorch version, CUDA tensors launch the hand-written kernel (or
+raise).  No argument or environment variable reroutes a CUDA tensor to
 plain code.  Launches are counted in ``_build.LAUNCHES``.
 """
 
@@ -14,6 +15,7 @@ import torch
 
 from . import char_histogram as _char_histogram
 from . import rerank_scan as _rerank_scan
+from .fm_query import fm_query_packed, fm_query_unpacked  # noqa: F401
 from .radix_hist import TILE
 from .radix_hist import radix_hist  # noqa: F401  (re-export)
 from .radix_sort import radix_pos  # noqa: F401  (re-export)
