@@ -14,9 +14,14 @@ script exits nonzero and prints no final result:
   1  every kernel against its plain PyTorch version on the card (exact
      equality: all outputs are integers), timed beside its bound and,
      where one exists, a single PyTorch library call; torch.profiler gives
-     each kernel's device time alone.  The fused query kernels first on a
-     2-bit index at n = 2^20 (raw and bit-packed SA values, 512-symbol
-     blocks, and unpacked at r = 64 and 128)
+     each kernel's device time alone, per launch it recorded.  rerank_scan
+     on an edge sweep (tile edges, aliased and misaligned operands, runs
+     of whole tiles, INT32_MAX tails) and timed on the q-gram words (also
+     aliased), the seed builder's first-round pairs, all-equal pairs at
+     2^28 and 2^14 pairs, each beside a streaming torch.add of the same
+     bytes.  The fused query kernels first on a 2-bit index at n = 2^20
+     (raw and bit-packed SA values, 512-symbol blocks, and unpacked at
+     r = 64 and 128)
   2  the main path, DNA at n = 2^28: build_index -> linear SA check on the
      card -> 1024 count + 1024 locate (k=16) requests through FMQueryServer,
      counts checked by brute-force substring match, every located position
@@ -44,8 +49,10 @@ Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore) and read just after it.  Then a
 ``kernels`` line (launches on the main paths of phases 2-3 and on each
 path, parity error, times and bounds), the card's name and power limit
-and, last, the ``{"ok": true, ...}`` device line.  Exits nonzero without a
-result when no CUDA device is present.
+and, last, the ``{"ok": true, ...}`` device line.  A kernel time under its
+bytes bound (faster than the card's HBM peak) fails the run as a broken
+measurement.  Exits nonzero without a result when no CUDA device is
+present.
 """
 
 from __future__ import annotations
@@ -63,6 +70,9 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 LOCATE_K = 16
+# the build profiles list these rows: the re-rank kernel beside the memsets
+# (its scratch's among them)
+BUILD_WATCH = ("rerank_kernel", "Memset")
 ROOT = Path(__file__).resolve().parent
 
 
@@ -117,32 +127,74 @@ def same(a, b, what: str) -> int:
 # phase 1: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def kernel_device_split(fn, kernel: str, reps: int = 20) -> dict:
-    """Mean device milliseconds per call of each CUDA kernel whose
-    ``__global__`` name contains ``kernel`` (a wrapper may launch several
-    passes) over ``reps`` calls, from torch.profiler: the kernels alone,
-    without host gaps between launches."""
+def per_call_ms(rows, reps: int) -> dict:
+    """Per-call device milliseconds of each profiler row ``(name, self
+    device microseconds, recorded launches)``: the row's total over its own
+    count of recorded launches, not over ``reps``.  Each kernel name of a
+    run of ``reps`` calls (one launch per call) must have been recorded
+    between ``reps // 2`` and ``reps`` times: a profile that dropped a few
+    records still gives a true per-call time, while one that lost most of
+    them or counted launches twice fails here."""
+    out = {}
+    for name, total_us, count in rows:
+        require(reps // 2 <= count <= reps,
+                f"profiler row {name!r}: {count} launches recorded for "
+                f"{reps} calls (expected {reps // 2} to {reps})")
+        out[name] = {"ms": total_us / count / 1e3, "launches": count}
+    require(len(out) >= 1, "no profiler rows")
+    return out
+
+
+def check_reading(name: str, device_ms: float, bound: float,
+                  ms: float | None = None, shape: str = "") -> None:
+    """Refuse a time under the bytes bound: a kernel cannot move its bytes
+    faster than the card's HBM peak, so such a reading is a broken
+    measurement, not a result."""
+    for what, t in (("device_ms", device_ms), ("ms", ms)):
+        if t is not None:
+            require(t >= bound, f"{name} ({shape}): {what} {t} is under its "
+                                f"bytes bound {bound} ms (above the HBM peak)")
+
+
+def kernel_device_split(fn, kernel, reps: int = 20,
+                        attempts: int = 3) -> dict:
+    """Device milliseconds per call and recorded launches of each device
+    row (kernel, memset, copy) whose name contains ``kernel`` (a string, or
+    a tuple of them), over ``reps`` calls after one warm-up, from
+    torch.profiler: the kernels alone, without host gaps between launches.
+    The profiler on the card sometimes loses records, down to a whole
+    kernel's; such a profile is taken again, up to ``attempts`` times, and
+    the last one must pass ``per_call_ms``'s count check."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = {}
-    for e in prof.key_averages():
-        if kernel in e.key and e.self_device_time_total > 0:
-            hits[e.key[:48]] = (hits.get(e.key[:48], 0.0)
-                                + e.self_device_time_total / reps / 1e3)
-    require(len(hits) >= 1, f"no profiler rows for {kernel}")
-    return hits
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0
+                and any(k in e.key for k in names)]
+        if (all(any(k in r[0] for r in rows) for k in names)
+                and all(reps // 2 <= r[2] <= reps for r in rows)):
+            break
+    missing = [k for k in names if not any(k in r[0] for r in rows)]
+    require(not missing, f"no profiler rows for {missing} in {attempts} "
+                         f"profiles")
+    return per_call_ms(rows, reps)
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
+def kernel_device_ms(fn, kernel, reps: int = 20) -> float:
     """The summed device time per call of ``kernel_device_split``."""
-    return sum(kernel_device_split(fn, kernel, reps).values())
+    split = kernel_device_split(fn, kernel, reps)
+    return sum(r["ms"] for r in split.values())
 
 
 def phase_kernels(log2n_dna: int):
@@ -458,20 +510,66 @@ def hist_row(tokens, sigma: int, what: str) -> dict:
         shape=f"{what}: tokens[{tokens.numel()}], sigma={sigma}")
 
 
+def check_rerank(r1, r2, what: str) -> tuple[int, int]:
+    """rerank_scan against its plain version on the card: ranks and group
+    count must be equal; returns (max abs error (0), groups)."""
+    from repro_torch.kernels.rerank_scan import rerank_scan, rerank_scan_plain
+
+    got_r, got_g = rerank_scan(r1, r2)
+    want_r, want_g = rerank_scan_plain(r1, r2)
+    err = same(got_r, want_r, f"rerank_scan ranks {what}")
+    require(int(got_g) == int(want_g),
+            f"rerank_scan groups {what}: {int(got_g)} != {int(want_g)}")
+    return err, int(want_g)
+
+
+def rerank_shape(r1, r2, what: str, reps: int = 20) -> dict:
+    """One timed shape of rerank_scan: exact parity with its plain version,
+    event time, device time of its one kernel (the scratch memset listed
+    beside it), the bytes bound (12n, or 8n when ``r2`` is ``r1``) and
+    ``ceiling_ms``, the event time of ``torch.add(r1, r2, out=buf)``: a
+    streaming pass over the same bytes, the rate this card really gives (a
+    yardstick only; no PyTorch call computes re-rank)."""
+    import torch
+
+    from repro_torch.kernels.rerank_scan import rerank_scan
+
+    n = r1.shape[0]
+    aliased = r1.data_ptr() == r2.data_ptr()
+    err, groups = check_rerank(r1, r2, what)
+
+    def call():
+        rerank_scan(r1, r2)
+
+    split = kernel_device_split(call, ("rerank_kernel", "Memset"), reps)
+    kern = [k for k in split if "rerank_kernel" in k]
+    require(len(kern) == 1, f"rerank_scan {what}: kernels {sorted(split)}")
+    buf = torch.empty_like(r1)
+    rec = dict(n=n, aliased=aliased, groups=groups, max_abs_err=err,
+               ms=time_ms(call, reps), device_ms=split[kern[0]]["ms"],
+               bound_ms=bound_ms((8 if aliased else 12) * n + 4),
+               ceiling_ms=time_ms(lambda: torch.add(r1, r2, out=buf), reps),
+               profiler_rows=split, shape=what)
+    check_reading("rerank_scan", rec["device_ms"], rec["bound_ms"],
+                  rec["ms"], what)
+    return rec
+
+
 def phase_build_kernels(dna_toks) -> dict:
     """rerank_scan and char_histogram against their plain versions: at the
     main path's shapes (the sorted q-gram key words and the prepared text of
-    DNA 2^28) and on edge sweeps."""
+    DNA 2^28, the seed builder's first-round pairs) and on edge sweeps."""
     import torch
 
     from repro_torch.core import keypack
     from repro_torch.core.pipeline import prepare_tokens
+    from repro_torch.core.suffix_array import initial_ranks, shifted_ranks
     from repro_torch.kernels import ops
     from repro_torch.kernels.char_histogram import (
         char_histogram,
         char_histogram_plain,
     )
-    from repro_torch.kernels.rerank_scan import rerank_scan, rerank_scan_plain
+    from repro_torch.kernels.rerank_scan import TILE, rerank_scan_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -481,26 +579,30 @@ def phase_build_kernels(dna_toks) -> dict:
         return torch.randint(lo, hi, (n,), generator=g, device=dev,
                              dtype=torch.int64).to(torch.int32)
 
-    def check_rerank(r1, r2, what) -> int:
-        got_r, got_g = rerank_scan(r1, r2)
-        want_r, want_g = rerank_scan_plain(r1, r2)
-        err = same(got_r, want_r, f"rerank_scan ranks {what}")
-        require(int(got_g) == int(want_g),
-                f"rerank_scan groups {what}: {int(got_g)} != {int(want_g)}")
-        return err
+    def at_offset(a, off: int):
+        """``a`` copied to a contiguous slice starting ``off`` words into
+        its buffer (a start that is only 4-byte aligned for off 1-3)."""
+        buf = torch.empty(a.shape[0] + off, dtype=a.dtype, device=dev)
+        buf[off:] = a
+        return buf[off:]
 
     # -- rerank_scan: edge sweep ---------------------------------------------
     rerr, cases = 0, 0
-    for n in (1, 2, 2047, 2048, 2049, 5000, (1 << 20) + 3):
+    for n in (1, 2, 2047, 2048, 2049, 5000, TILE - 1, TILE, TILE + 1,
+              3 * TILE + 5, (1 << 20) + 3):
         rand = torch.sort(rint(0, 50, n)).values
+        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+        step = torch.arange(n, device=dev)
         sweep = {
-            "all_equal": (torch.zeros(n, dtype=torch.int32, device=dev),) * 2,
-            "all_distinct": (torch.arange(n, dtype=torch.int32, device=dev),
-                             torch.zeros(n, dtype=torch.int32, device=dev)),
-            "random_sorted": (rand, torch.zeros_like(rand)),
-            # runs of 3000 cross every 2048-pair tile edge
-            "long_runs": ((torch.arange(n, device=dev) // 3000).to(
-                torch.int32), torch.zeros(n, dtype=torch.int32, device=dev)),
+            "all_equal": (zeros, zeros.clone()),
+            "all_distinct": (step.to(torch.int32), zeros),
+            "random_sorted": (rand, zeros),
+            # runs of 97 start inside the row before a tile, runs of 3000
+            # cross every 2048-pair edge, runs of 3 tiles leave whole tiles
+            # without a head
+            "short_runs": ((step // 97).to(torch.int32), zeros),
+            "long_runs": ((step // 3000).to(torch.int32), zeros),
+            "runs_3_tiles": ((step // (3 * TILE)).to(torch.int32), zeros),
         }
         r1, r2 = rand.clone(), rint(-1, 3, n)
         key = r1.long() * 8 + r2.long() + 1          # lexicographic order
@@ -509,10 +611,33 @@ def phase_build_kernels(dna_toks) -> dict:
         tail = torch.arange(n, dtype=torch.int32, device=dev)
         tail[-3:] = big
         sweep["int32_max_tail"] = (tail, tail.clone())
+        if n > TILE:                     # an INT32_MAX group across an edge
+            edge = torch.arange(n, dtype=torch.int32, device=dev)
+            edge[TILE - 2:] = big
+            sweep["int32_max_tile_edge"] = (edge, edge.clone())
         for name, (a, b) in sweep.items():
-            rerr = max(rerr, check_rerank(a.contiguous(), b.contiguous(),
-                                          f"{name} n={n}"))
-            cases += 1
+            rerr = max(rerr, check_rerank(a, b, f"{name} n={n}")[0])
+            # r2 aliasing r1 (the fast rounds' re-rank by r1 alone)
+            rerr = max(rerr, check_rerank(a, a, f"{name} aliased n={n}")[0])
+            cases += 2
+        # starts at storage offsets 1-3 (only 4-byte aligned), one operand
+        # or both, and aliased
+        a, b = sweep["random_pairs"]
+        for off in (1, 2, 3):
+            ma, mb = at_offset(a, off), at_offset(b, (off + 1) % 4)
+            for x, y, tag in ((ma, b, "r1"), (a, mb, "r2"), (ma, mb, "both"),
+                              (ma, ma, "aliased")):
+                rerr = max(rerr, check_rerank(
+                    x, y, f"random_pairs offset {off} ({tag}) n={n}")[0])
+                cases += 1
+    # all-equal 2^24: every tile but the first has no head and looks back
+    # to tile 0
+    n = 1 << 24
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    for b in (zeros.clone(), zeros):
+        rerr = max(rerr, check_rerank(zeros, b, f"all_equal n={n}")[0])
+        cases += 1
+    del zeros, sweep, rand, step, key, order, r1, r2, tail, a, b, ma, mb
 
     # -- rerank_scan: the q-gram init's sorted key words (DNA 2^28) ----------
     s, sigma = prepare_tokens(dna_toks, 64)
@@ -525,26 +650,52 @@ def phase_build_kernels(dna_toks) -> dict:
         (*keys, torch.arange(nq, dtype=torch.int32, device=dev)), 2,
         engine=ops.RADIX, key_bits=(min(32, fpw * bits),) * 2)
     del keys
-    rerr = max(rerr, check_rerank(k0, k1, f"q-gram words n={nq}"))
+    tag = f"DNA n={len(dna_toks)}"
+    shapes = {
+        "qgram_words": rerank_shape(k0, k1, f"sorted q-gram words k0,k1[{nq}] "
+                                            f"({tag})"),
+        "qgram_aliased": rerank_shape(k0, k0, f"q-gram word k0 aliased "
+                                              f"[{nq}] ({tag})"),
+    }
+    plain_ms = time_ms(lambda: rerank_scan_plain(k0, k1), 3)
+    del k0, k1
+    torch.cuda.empty_cache()
+    # -- the seed builder's first-round pairs: groups span many tiles -------
+    rank = initial_ranks(s_dev, sigma)
+    r2 = shifted_ranks(rank, 1)
+    perm = torch.sort(r2, stable=True).indices
+    perm = perm[torch.sort(rank[perm], stable=True).indices]
+    p1, p2 = rank[perm], r2[perm]
+    del rank, r2, perm
+    torch.cuda.empty_cache()
+    shapes["seed_round1"] = rerank_shape(
+        p1, p2, f"seed builder round-1 pairs [{nq}] ({tag})")
+    del p1, p2
+    zeros = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    shapes["all_equal"] = rerank_shape(zeros, zeros.clone(),
+                                       f"all-equal pairs [{1 << 28}]")
+    del zeros
+    small = torch.sort(rint(0, 1 << 12, 1 << 14)).values
+    shapes["small"] = rerank_shape(small, rint(0, 4, 1 << 14),
+                                   f"random pairs [{1 << 14}] (fast-round "
+                                   f"scale)")
+    for rec in shapes.values():
+        rerr = max(rerr, rec["max_abs_err"])
+    main = shapes["qgram_words"]
+    rows = {"rerank_scan": dict(
+        max_abs_err=rerr, ms=main["ms"], plain_ms=plain_ms,
+        bound_ms=main["bound_ms"], library_ms=None,
+        device_ms=main["device_ms"], ceiling_ms=main["ceiling_ms"],
+        groups=main["groups"], sweep_cases=cases, tile=TILE, shapes=shapes,
+        shape=main["shape"])}
+    torch.cuda.empty_cache()
+
     # -- radix hist / pos at the q-gram init's real first pass -------------
     qkeys, q3 = qgram_operands(s_dev, sigma)
-    rows = {"radix_qgram": radix_rows(
-        qkeys, q3, f"DNA n={len(dna_toks)} q-gram word 1 [{qkeys.shape[0]}]")}
+    rows["radix_qgram"] = radix_rows(
+        qkeys, q3, f"DNA n={len(dna_toks)} q-gram word 1 [{qkeys.shape[0]}]")
     del qkeys, q3
     torch.cuda.empty_cache()
-    rows["rerank_scan"] = dict(
-        max_abs_err=rerr,
-        ms=time_ms(lambda: rerank_scan(k0, k1), 20),
-        plain_ms=time_ms(lambda: rerank_scan_plain(k0, k1), 3),
-        bound_ms=bound_ms(12 * nq + 4),
-        library_ms=None,
-        device_ms_by_pass=kernel_device_split(lambda: rerank_scan(k0, k1),
-                                              "rerank_"),
-        groups=int(rerank_scan(k0, k1)[1]), sweep_cases=cases,
-        shape=f"sorted q-gram words k0,k1[{nq}] (DNA n={len(dna_toks)})")
-    rows["rerank_scan"]["device_ms"] = sum(
-        rows["rerank_scan"]["device_ms_by_pass"].values())
-    del k0, k1
 
     # -- char_histogram: sigma sweep with out-of-range values, then the text -
     herr = 0
@@ -636,11 +787,12 @@ def check_answers(toks_dev, pats, counts, located, n_brute: int) -> None:
             "a located position does not hold its pattern")
 
 
-def profiled(fn) -> dict:
+def profiled(fn, watch=()) -> dict:
     """Run ``fn`` once under torch.profiler (CPU + CUDA activities): wall
     seconds, device-busy share (summed self device time over wall; the
-    profiler's own host overhead inflates the wall) and the top device
-    time by kernel/op name."""
+    profiler's own host overhead inflates the wall), the top device time
+    by kernel/op name and, under ``watched``, every device row whose name
+    contains one of ``watch``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -663,7 +815,9 @@ def profiled(fn) -> dict:
             "device_busy_share": dev_us / (wall * 1e6),
             "device_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:48], "device_ms": d / 1e3, "calls": c}
-                    for d, k, c in rows[:12]]}
+                    for d, k, c in rows[:12]],
+            "watched": [{"name": k[:48], "device_ms": d / 1e3, "calls": c}
+                        for d, k, c in rows if any(w in k for w in watch)]}
 
 
 def stage_times(toks, sample_rate: int, sa_sample_rate: int) -> dict:
@@ -752,7 +906,8 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool):
     extra = {
         "stages_s": stage_times(toks, 64, 32),
         "profile_build": profiled(lambda: build_index(
-            toks, sample_rate=64, sa_sample_rate=32, device="cuda")),
+            toks, sample_rate=64, sa_sample_rate=32, device="cuda"),
+            watch=BUILD_WATCH),
         "profile_count": profiled(lambda: server.count(pats)),
         "profile_locate": profiled(lambda: server.locate(pats)),
     }
@@ -1153,7 +1308,7 @@ def phase_seed(dna_toks, kept) -> dict:
            "identical_to_fast": True,
            "profile_build": profiled(lambda: build_index(
                dna_toks, sample_rate=64, sa_sample_rate=32, fast=False,
-               device="cuda"))}
+               device="cuda"), watch=BUILD_WATCH)}
     del seed
     torch.cuda.empty_cache()
     return out
@@ -1371,6 +1526,10 @@ def main(argv=None) -> int:
     del kept
 
     if rows and {2, 3} <= phases:
+        for name in _build.KERNELS:
+            r = rows[name]
+            check_reading(name, r["device_ms"], r["bound_ms"], r["ms"],
+                          r["shape"])
         src = "src/repro_torch/kernels/csrc/{}.cu"
         replaces = {
             "rank_packed": "src/repro/kernels/rank_select.py:133",

@@ -138,11 +138,13 @@ def _qgram_init(s, fpw: int, bits: int, words: int, engine: str):
     one = torch.ones(1, dtype=torch.bool, device=s.device)
     head = torch.cat([one, neq])
     # re-rank by the whole key: the pair (k0, k1), or (k0, k0) for one
-    # word; more words fold in from the last, since a slot's flag depends
-    # only on whether its key differs from its predecessor's
-    ranks_sorted = ks[-1]
-    for k in ks[-2::-1] or ks:
-        ranks_sorted = kernel_ops.rerank_scan(k, ranks_sorted)[0]
+    # word; more words fold in from the first, since a slot's flag depends
+    # only on whether its key differs from its predecessor's.  Each fold
+    # keeps its pairs sorted (head positions rise with the key), which the
+    # re-rank kernel needs
+    ranks_sorted = ks[0]
+    for k in ks[1:] or ks:
+        ranks_sorted = kernel_ops.rerank_scan(ranks_sorted, k)[0]
     succ_head = torch.cat([head[1:], one])
     active_sorted = ~(head & succ_head)
     rank = torch.empty(n, dtype=torch.int32, device=s.device)

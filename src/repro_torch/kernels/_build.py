@@ -41,7 +41,7 @@ SIGNATURES = {
     "rank_select": [_P, _I, _P, _P, _P, _P, _I, _P],
     "radix_hist": [_P, _I, _I, _I, _P, _P],
     "radix_pos": [_P, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_P],
-    "rerank_scan": [_P, _P, _I, _P, _P, _P, _I, _P],
+    "rerank_scan": [_P, _P, _I, _P, _P, _I, _P],
     "char_histogram": [_P, _I, _I, _P, _P],
     # layout, n, C, SA sample (marks, ranks, vals, n_vals, rate, val_bits),
     # patterns, B, m, k, sp, ep, positions, stream

@@ -1,6 +1,7 @@
 """The paper's Re-rank step on sorted rank pairs: the head position of
 each equal-pair group and the number of groups.  Plain PyTorch version +
-CUDA kernel (``csrc/rerank_scan.cu``).
+CUDA kernel (``csrc/rerank_scan.cu``: one pass with a decoupled look-back,
+one launch after one memset of its scratch).
 """
 
 from __future__ import annotations
@@ -9,7 +10,8 @@ import torch
 
 from . import _build
 
-TILE = 2048   # pairs per block of the kernel's tile pass (THREADS * ITEMS)
+TILE = 4096      # pairs per tile of the kernel (WARPS * WARP_SPAN)
+HEAD_INTS = 4    # scratch before the status words: counter, num_groups, pad
 
 
 def rerank_scan_plain(r1: torch.Tensor, r2: torch.Tensor):
@@ -32,8 +34,10 @@ def rerank_scan_plain(r1: torch.Tensor, r2: torch.Tensor):
 
 def rerank_scan(r1: torch.Tensor, r2: torch.Tensor):
     """Re-rank of sorted int32 pairs; the plain version for CPU tensors,
-    the CUDA kernel otherwise.  ``num_groups`` stays on the device: read it
-    only where the caller needs it on the host."""
+    the CUDA kernel otherwise.  Equal pairs must be adjacent, as any sorted
+    order makes them: the kernel finds the head of a group that starts
+    before its tile by probing earlier pairs.  ``num_groups`` stays on the
+    device: read it only where the caller needs it on the host."""
     if _build.on_cpu(r1, r2):
         return rerank_scan_plain(r1, r2)
     _build.check_cuda("rerank_scan", r1, r2)
@@ -43,11 +47,12 @@ def rerank_scan(r1: torch.Tensor, r2: torch.Tensor):
     if n >= 1 << 31:
         raise ValueError(f"rerank_scan: {n} pairs exceed int32 indexing")
     ranks = torch.empty(n, dtype=torch.int32, device=r1.device)
-    groups = torch.empty((), dtype=torch.int32, device=r1.device)
-    if n:
-        scratch = torch.empty(3 * (-(-n // TILE)), dtype=torch.int32,
-                              device=r1.device)
-        _build.launch("rerank_scan", r1.data_ptr(), r2.data_ptr(), n,
-                      ranks.data_ptr(), groups.data_ptr(),
-                      scratch.data_ptr(), scratch.numel())
-    return ranks, groups
+    if not n:
+        return ranks, torch.zeros((), dtype=torch.int32, device=r1.device)
+    # the tile counter, num_groups and one 64-bit status word per tile,
+    # zeroed by the C entry; num_groups is returned as a view of it
+    scratch = torch.empty(HEAD_INTS + 2 * (-(-n // TILE)), dtype=torch.int32,
+                          device=r1.device)
+    _build.launch("rerank_scan", r1.data_ptr(), r2.data_ptr(), n,
+                  ranks.data_ptr(), scratch.data_ptr(), scratch.numel())
+    return ranks, scratch[1]

@@ -224,6 +224,41 @@ class TestSuffixArray:
                         keypack.qgram_rounds_skipped(stats.q) if qgram
                         else 0)
 
+    @pytest.mark.parametrize("builder", ["fast_1", "fast_2", "fast_3",
+                                         "seed"])
+    def test_rerank_calls_take_adjacent_equal_pairs(self, builder,
+                                                    monkeypatch):
+        """Every Re-rank call of a build (q-gram init with one, two or
+        three key words, the fast rounds, the seed rounds) passes pairs in
+        which equal pairs are adjacent: the CUDA kernel finds the head of a
+        group that starts before its tile by probing earlier pairs, so it
+        relies on that order."""
+        calls = []
+
+        def checked(r1, r2, *, block=512):
+            a = r1.numpy().astype(np.int64)
+            b = r2.numpy().astype(np.int64)
+            runs = 1 + int(np.count_nonzero((a[1:] != a[:-1])
+                                            | (b[1:] != b[:-1])))
+            assert runs == len({*zip(a.tolist(), b.tolist())})
+            calls.append(len(a))
+            return rerank(r1, r2, block=block)
+
+        rerank = ops.rerank_scan
+        monkeypatch.setattr(ops, "rerank_scan", checked)
+        rng = np.random.default_rng(9)
+        toks = rng.integers(1, 4, 3000).astype(np.int32)
+        toks[1000:1400] = 1             # keys equal in their first words
+        s = torch.from_numpy(al.append_sentinel(toks))
+        sigma = al.sigma_of(s.numpy())
+        want = isa_prefix_doubling(s, sigma)
+        if builder == "seed":
+            got = want
+        else:
+            got, _ = build_isa_fast(s, sigma, qgram_words=int(builder[-1]))
+        assert torch.equal(got, want)
+        assert len(calls) >= 3
+
     def test_bwt_oracles(self):
         for sigma_hi in (4, 20):
             rng = np.random.default_rng(sigma_hi)
