@@ -44,13 +44,30 @@ script exits nonzero and prints no final result:
      copy without the layout (the derived-layout branch) must equal the
      built index and answer phase 2's requests identically; then the
      serving launcher with --ckpt-dir and --restore (proteins, n = 2^24)
+  7  the rebuild-free BWT merge: the merge_walk kernel against its plain
+     walks on small walks (about 2^12 steps; pairwise and k-way, packed and
+     unpacked, k = 2, 3, 8, 33; a 1100-segment run against the rebuild),
+     then three merges of documents prepared as segment appends (r = 64,
+     SA stride 32): (a) DNA k-way over eight documents of 2^20, 2^19 x 2,
+     2^18 x 2 and 2^17 x 3 tokens, (b) the pairwise fold of the same eight,
+     (c) proteins k-way over 2^19, 2^18 x 2 and 2^17, each run once
+     through the entry points.  Each walk's ins equals the one the
+     suffix arrays of the documents and of the rebuild imply; each merge
+     equals the rebuild of the concatenation in every field and answers
+     1024 count and 1024 locate requests identically; each walk is one
+     merge_walk launch, rank kernels launch only for the fold's batched LF
+     maps; walk time beside its latency bound (one dependent load per
+     step x one load's latency, from scripts/pointer_chase.cu over the
+     left operand's size), precompute, splice + build_fm_index, the
+     rebuild, and the card's merge cost constants
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
-paths, the seed build, each restore) and read just after it.  Then a
-``kernels`` line (launches on the main paths of phases 2-3 and on each
-path, parity error, times and bounds), the card's name and power limit
-and, last, the ``{"ok": true, ...}`` device line.  A kernel time under its
-bytes bound (faster than the card's HBM peak) fails the run as a broken
+paths, the seed build, each restore, each merge of phase 7) and read just
+after it.  Then a ``kernels`` line (launches on the main paths of phases
+2-3 and 7 and on each path, parity error, times and bounds), the card's
+name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
+kernel time under its bound (bytes over the card's HBM peak; for the
+merge walks their dependent loads' latency) fails the run as a broken
 measurement.  Exits nonzero without a result when no CUDA device is
 present.
 """
@@ -74,6 +91,11 @@ LOCATE_K = 16
 # (its scratch's among them)
 BUILD_WATCH = ("rerank_kernel", "Memset")
 ROOT = Path(__file__).resolve().parent
+# the pointer chase that measures one dependent load's latency, the merge
+# walks' bound: its source and its C entry's argument types (next, steps,
+# out, stream)
+CHASE_SRC = ROOT / "scripts" / "pointer_chase.cu"
+CHASE_ARGTYPES = ("c_void_p", "c_int", "c_void_p", "c_void_p")
 
 
 def emit(obj) -> None:
@@ -114,12 +136,13 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def same(a, b, what: str) -> int:
-    """Exact equality of two integer tensors; returns max |a - b| (0)."""
+def same(a, b, what: str, ref: str = "plain") -> int:
+    """Exact equality of two integer tensors, the kernel's ``a`` and the
+    reference ``b``; returns max |a - b| (0)."""
     require(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} != "
                                 f"{tuple(b.shape)}")
     err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
-    require(err == 0, f"{what}: kernel differs from plain (max err {err})")
+    require(err == 0, f"{what}: kernel differs from {ref} (max err {err})")
     return err
 
 
@@ -146,14 +169,16 @@ def per_call_ms(rows, reps: int) -> dict:
 
 
 def check_reading(name: str, device_ms: float, bound: float,
-                  ms: float | None = None, shape: str = "") -> None:
-    """Refuse a time under the bytes bound: a kernel cannot move its bytes
-    faster than the card's HBM peak, so such a reading is a broken
+                  ms: float | None = None, shape: str = "",
+                  bound_by: str = "bytes") -> None:
+    """Refuse a time under its bound: a kernel cannot move its bytes
+    faster than the card's HBM peak, nor run its chain of dependent loads
+    faster than one load's latency each, so such a reading is a broken
     measurement, not a result."""
     for what, t in (("device_ms", device_ms), ("ms", ms)):
         if t is not None:
             require(t >= bound, f"{name} ({shape}): {what} {t} is under its "
-                                f"bytes bound {bound} ms (above the HBM peak)")
+                                f"{bound_by} bound {bound} ms")
 
 
 def kernel_device_split(fn, kernel, reps: int = 20,
@@ -1411,13 +1436,465 @@ def phase_restore(kept, proteins_log2n: int) -> tuple[dict, dict]:
     return out, launches
 
 
+# --------------------------------------------------------------------------
+# phase 7: the rebuild-free BWT merge (k-way walk and pairwise fold)
+# --------------------------------------------------------------------------
+
+MERGE_R, MERGE_SRATE = 64, 32
+# document sizes of a compaction run, as 2^(largest - d) tokens: the largest
+# first (never walked), compact_max_small = 8 segments for DNA
+DNA_RUN = (0, 1, 1, 2, 2, 3, 3, 3)
+PROTEIN_RUN = (0, 1, 1, 2)
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed(fn, device):
+    """(fn(), wall seconds), each end synchronized on a CUDA device."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def start_chase_build():
+    """Start ``nvcc`` on ``CHASE_SRC``, this script's pointer chase (a
+    measurement, not a kernel of the port), beside the kernels' build;
+    returns a function that waits for it and gives its C entry."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "pointer_chase.so"
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(CHASE_SRC)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"pointer chase build failed:\n{log}")
+        fn = ctypes.CDLL(str(out)).pointer_chase_launch
+        fn.argtypes = [getattr(ctypes, t) for t in CHASE_ARGTYPES]
+        fn.restype = ctypes.c_int
+        return fn
+
+    return finish
+
+
+def dependent_load_ns(chase, n: int, steps: int = 1 << 16,
+                      seed: int = 0) -> float:
+    """Nanoseconds of one dependent global load on the card: the one-thread
+    pointer chase ``chase`` (``start_chase_build``) through a random
+    single-cycle permutation of ``n`` int32 words, timed with CUDA events
+    at ``steps`` and ``2 * steps`` loads so the launch cost cancels."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(n, generator=g, device="cuda")
+    nxt = torch.empty(n, dtype=torch.int32, device="cuda")
+    nxt[order] = torch.roll(order, -1).to(torch.int32)
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+
+    def run(s):
+        err = chase(nxt.data_ptr(), s, out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"pointer chase launch failed: CUDA error {err}")
+
+    run(steps)                                       # warm-up
+    ms = []
+    for s in (steps, 2 * steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(s)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return (ms[1] - ms[0]) * 1e6 / steps
+
+
+@contextlib.contextmanager
+def observed_merge(device):
+    """Run the merge entry points as they are while recording what they
+    call in ``core/bwt_merge``: each precompute (``_pairwise_walk_inputs``
+    / ``_kway_walk_inputs``) timed between two synchronizes, and each walk
+    (``merge_walk`` / ``kway_walk``, one kernel launch on the card) timed
+    the same way and, on the card, by CUDA events around it, with its
+    arguments and its ``ins`` kept.  Yields {"pre_s": [seconds],
+    "walks": [{"args", "kw", "ins", "s", "device_ms"}]} in call order; the
+    module's functions are restored on exit."""
+    import torch
+
+    from repro_torch.core import bwt_merge as bm
+
+    cuda = torch.device(device).type == "cuda"
+    seen = {"pre_s": [], "walks": []}
+
+    def precompute(fn):
+        def run(*args, **kw):
+            out, s = timed(lambda: fn(*args, **kw), device)
+            seen["pre_s"].append(s)
+            return out
+        return run
+
+    def walk(fn):
+        def run(*args, **kw):
+            events = None
+            if cuda:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+            _sync(device)
+            t0 = time.perf_counter()
+            if events:
+                events[0].record()
+            ins = fn(*args, **kw)
+            if events:
+                events[1].record()
+            _sync(device)
+            seen["walks"].append(dict(
+                args=args, kw=kw, ins=ins, s=time.perf_counter() - t0,
+                device_ms=events[0].elapsed_time(events[1]) if events
+                else None))
+            return ins
+        return run
+
+    wraps = {"_pairwise_walk_inputs": precompute,
+             "_kway_walk_inputs": precompute,
+             "merge_walk": walk, "kway_walk": walk}
+    saved = {name: getattr(bm, name) for name in wraps}
+    for name, wrap in wraps.items():
+        setattr(bm, name, wrap(saved[name]))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(bm, name, fn)
+
+
+def prepared_indexes(docs, sigma_decl: int, device):
+    """Each document prepared as a segment append prepares it
+    (``prepare_tokens(d, r, sigma_declared)``) and built on ``device``:
+    (prepared texts, sigma, FM indexes, their full suffix arrays)."""
+    from repro_torch.core.pipeline import build_index_prepared, prepare_tokens
+
+    preps, sig = [], None
+    for d in docs:
+        s, sig = prepare_tokens(d, MERGE_R, sigma_decl)
+        preps.append(s)
+    built = [build_index_prepared(s, sig, sample_rate=MERGE_R,
+                                  sa_sample_rate=MERGE_SRATE, device=device)
+             for s in preps]
+    return preps, sig, [b.fm for b in built], [b.sa for b in built]
+
+
+def rebuild(preps, sig: int, device):
+    """The oracle: ``build_index_prepared`` of the concatenated texts (the
+    whole ``SequenceIndex``: its ``fm`` and its full ``sa``)."""
+    import numpy as np
+
+    from repro_torch.core.pipeline import build_index_prepared
+
+    return build_index_prepared(np.concatenate(preps), sig,
+                                sample_rate=MERGE_R,
+                                sa_sample_rate=MERGE_SRATE, device=device)
+
+
+def expected_ins(flavour: str, sas, sa_u, lens) -> list:
+    """Each walk's ``ins`` as the suffix arrays imply it, walk by walk in
+    the entry points' order: a walked suffix's merged row minus its own
+    row.  ``sas`` are the documents' own suffix arrays, ``sa_u`` the
+    rebuild's.  K-way: segment s's row i is the suffix starting at offs[s]
+    + SA_s[i] of the concatenation U, whose rank in SA(U) is its merged
+    row.  Fold (the walk that merges document d into the accumulator of
+    documents d+1 ..): the suffixes of U starting at offs[d] or later are
+    that concatenation's suffixes, the same strings, so SA(U) restricted
+    to them gives both the accumulator's own rows and their merged rows."""
+    import torch
+
+    dev = sa_u.device
+    sa_u = sa_u.long()
+    offs = [0]
+    for n in lens:
+        offs.append(offs[-1] + n)
+
+    def ranks_from(start):
+        """(SA of the suffixes from ``start``, shifted to 0; the rank of
+        each such suffix among them, by position in U)."""
+        sub = sa_u[sa_u >= start]
+        rank = torch.full((offs[-1],), -1, dtype=torch.long, device=dev)
+        rank[sub] = torch.arange(sub.numel(), device=dev)
+        return sub - start, rank
+
+    if flavour == "kway":
+        _, rank = ranks_from(0)
+        return [torch.cat([rank[offs[s] + sas[s].long()]
+                           - torch.arange(lens[s], device=dev)
+                           for s in range(1, len(lens))])]
+    out = []
+    for d in range(len(lens) - 2, -1, -1):
+        own, _ = ranks_from(offs[d + 1])
+        _, rank = ranks_from(offs[d])
+        out.append(rank[offs[d + 1] + own]
+                   - torch.arange(own.numel(), device=dev))
+    return out
+
+
+def merge_walk_parity(device="cuda", log2n: int = 12, ks=(2, 3, 8, 33),
+                      many: int = 1100) -> tuple[int, list, dict]:
+    """``merge_walk`` against its plain walks on the same tensors, on small
+    walks of about 2^log2n steps: the walk each merge entry point launched
+    (``observed_merge``) held against the plain walk of its arguments,
+    pairwise and k-way over ``ks``, packed (DNA, 4-bit) and unpacked
+    (proteins), and each merge equal to the rebuild.  Then a run of
+    ``many`` one- and two-token segments (past 1024 lanes the block kernel
+    strides its threads over the lanes) merged and held against the
+    rebuild.  Returns (max error, cases, the kernel's ms (CUDA events,
+    five calls) and the plain walk's (host clock, the parity call) on the
+    DNA pairwise and k = 8 walks; empty off the card)."""
+    import torch
+
+    from repro_torch.core import bwt_merge as bm
+    from repro_torch.core.fm_index import fm_mismatch
+    from repro_torch.data.corpus import corpus
+    from repro_torch.kernels import merge_walk as mw
+
+    cuda = torch.device(device).type == "cuda"
+    err, cases, times = 0, [], {}
+
+    def walked(merge, preps, sig, plain, what):
+        """The one walk ``merge`` launches, held against ``plain`` on its
+        arguments; the merge held against the rebuild.  (walk, plain s)"""
+        with observed_merge(device) as seen:
+            merged = merge()
+        require(len(seen["walks"]) == 1, f"{what}: one walk per merge")
+        mm = fm_mismatch(merged, rebuild(preps, sig, device).fm)
+        require(mm == [], f"{what}: merge != rebuild: {mm}")
+        w = seen["walks"][0]
+        want, plain_s = timed(lambda: plain(*w["args"], **w["kw"]), device)
+        nonlocal err
+        err = max(err, same(w["ins"], want, what))
+        return w, plain_s
+
+    for kind, sig_decl in (("dna", 6), ("proteins", 22)):
+        preps, sig, (left, right), _ = prepared_indexes(
+            [corpus(kind, 1 << (log2n - 1), seed=1),
+             corpus(kind, 1 << log2n, seed=2)], sig_decl, device)
+        w, plain_s = walked(lambda: bm.merge_fm_indexes(left, right), preps,
+                            sig, mw.merge_walk_plain,
+                            f"merge_walk pairwise {kind}")
+        cases.append(f"pairwise {kind} bits={left.bits} "
+                     f"steps={right.length - 1}")
+        if cuda and kind == "dna":
+            times["pairwise"] = dict(
+                steps=right.length - 1,
+                ms=time_ms(lambda: mw.merge_walk(*w["args"], **w["kw"]), 5),
+                plain_ms=plain_s * 1e3)
+        for k in ks:
+            docs = [corpus(kind, 1 << (log2n - 1), seed=10)] + [
+                corpus(kind, max(64, (1 << log2n) // (k - 1)), seed=11 + i)
+                for i in range(k - 1)]
+            preps, sig, fms, _ = prepared_indexes(docs, sig_decl, device)
+            w, plain_s = walked(lambda: bm.merge_kway(fms), preps, sig,
+                                mw.kway_walk_plain,
+                                f"merge_walk k-way {kind} k={k}")
+            steps = bm.kway_walk_steps(f.length for f in fms)
+            cases.append(f"k-way {kind} k={k} steps={steps}")
+            if cuda and kind == "dna" and k == 8:
+                times["kway"] = dict(
+                    k=k, steps=steps,
+                    ms=time_ms(lambda: mw.kway_walk(*w["args"], **w["kw"]),
+                               5),
+                    plain_ms=plain_s * 1e3)
+    # four distinct tiny documents, cycled: the built indexes are reused
+    tiny = [[1], [2], [3], [1, 2]]
+    preps, sig, fms, _ = prepared_indexes(tiny, 6, device)
+    run = [i % 4 for i in range(many)]
+    mm = fm_mismatch(bm.merge_kway([fms[i] for i in run]),
+                     rebuild([preps[i] for i in run], sig, device).fm)
+    require(mm == [], f"k-way over {many} segments != rebuild: {mm}")
+    cases.append(f"k-way dna-like k={many} vs rebuild")
+    return err, cases, times
+
+
+def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
+              device="cuda", latency_ns=None) -> tuple[dict, dict]:
+    """One merge path at real scale: documents of 2^(log2n - d) tokens for
+    d in ``shape``, merged k-way or by the pairwise fold (the accumulator
+    starts from the last document, each earlier one merges in on its
+    left) through the entry points, once, launches counted around the
+    merge alone and its stages observed (``observed_merge``: precompute
+    and walk times; splice + ``build_fm_index`` is the rest of the
+    merge's time).  Then the rebuild of the concatenation and the checks:
+    each walk's ``ins`` equal to the one the suffix arrays imply
+    (``expected_ins``), the merge equal to the rebuild in every field,
+    1024 count and 1024 locate (k = 16) answers equal, one walk launch per
+    walk, and rank launches only for the pairwise precomputes.  With
+    ``latency_ns(n)`` (ns of one dependent load over n words) each walk
+    gets its bound, steps x latency (one dependent row fetch per step,
+    either flavour), and a walk under it fails.  Returns (record,
+    launches)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bwt_merge as bm
+    from repro_torch.core.fm_index import count, fm_mismatch, locate
+    from repro_torch.data.corpus import corpus
+    from repro_torch.kernels import _build
+
+    docs = [corpus(kind, 1 << (log2n - d), seed=100 + i)
+            for i, d in enumerate(shape)]
+    preps, sig, fms, sas = prepared_indexes(docs, sig_decl, device)
+    lens = [f.length for f in fms]
+    bits = fms[0].bits
+
+    def fold():
+        acc = fms[-1]
+        for left in reversed(fms[:-1]):
+            acc = bm.merge_fm_indexes(left, acc)
+        return acc
+
+    merge = (lambda: bm.merge_kway(fms)) if flavour == "kway" else fold
+    with observed_merge(device) as seen:
+        _build.reset_launches()
+        merged, merge_s = timed(merge, device)
+        launches = dict(_build.LAUNCHES)
+
+    cuda = torch.device(device).type == "cuda"
+    n_walks = 1 if flavour == "kway" else len(fms) - 1
+    rank = "rank_packed" if bits else "rank_select"
+    want = {"merge_walk": n_walks, "char_histogram": n_walks,
+            rank: 0 if flavour == "kway" else n_walks,
+            ("rank_select" if bits else "rank_packed"): 0}
+    for name, n in want.items():
+        got = launches[name]
+        require(got == (n if cuda else 0),
+                f"{kind} {flavour}: {got} {name} launches, want {n}")
+    walks = seen["walks"]
+    require(len(walks) == n_walks == len(seen["pre_s"]),
+            f"{kind} {flavour}: {len(walks)} walks observed, want {n_walks}")
+
+    built, rebuild_s = timed(lambda: rebuild(preps, sig, device), device)
+    err = 0
+    for i, (w, ins) in enumerate(zip(walks, expected_ins(flavour, sas,
+                                                         built.sa, lens))):
+        err = max(err, same(w["ins"], ins, f"{kind} {flavour} walk {i}",
+                            ref="the rebuild's suffix arrays"))
+    mm = fm_mismatch(merged, built.fm)
+    require(mm == [], f"{kind} {flavour}: merge != rebuild: {mm}")
+    pats = sample_patterns(np.concatenate(docs), 1024, seed=70)
+    P = pad_patterns(pats, 32, device)
+    require(torch.equal(count(merged, P), count(built.fm, P)),
+            f"{kind} {flavour}: counts differ from the rebuild")
+    for a, b in zip(locate(merged, P, LOCATE_K),
+                    locate(built.fm, P, LOCATE_K)):
+        require(torch.equal(a, b),
+                f"{kind} {flavour}: locates differ from the rebuild")
+
+    if flavour == "kway":
+        shapes = [(lens[0], bm.kway_walk_steps(lens), sum(lens))]
+    else:   # walk j merges document k-2-j into the accumulator after it
+        shapes = [(lens[d], sum(lens[d + 1:]) - 1, sum(lens[d:]))
+                  for d in range(len(lens) - 2, -1, -1)]
+    stages = []
+    for (left_n, steps, merged_n), w, pre_s in zip(shapes, walks,
+                                                   seen["pre_s"]):
+        st = dict(left_n=left_n, steps=steps, merged_n=merged_n,
+                  precompute_s=pre_s, walk_s=w["s"],
+                  walk_device_ms=w["device_ms"],
+                  us_per_step=w["s"] * 1e6 / max(steps, 1))
+        if latency_ns is not None:
+            lat = latency_ns(left_n)
+            st["latency_ns"] = lat
+            st["bound_s"] = steps * lat / 1e9
+            for t in (st["walk_s"] * 1e3, st["walk_device_ms"]):
+                if t is not None:
+                    require(t >= st["bound_s"] * 1e3,
+                            f"{kind} {flavour}: walk {t} ms is under its "
+                            f"latency bound {st['bound_s'] * 1e3} ms")
+        stages.append(st)
+    N = sum(lens)
+    total = {k: sum(st[k] for st in stages)
+             for k in ("steps", "precompute_s", "walk_s")}
+    splice_s = merge_s - total["precompute_s"] - total["walk_s"]
+    rec = {"kind": kind, "flavour": flavour, "k": len(fms), "sigma": sig,
+           "bits": bits, "doc_tokens": [len(d) for d in docs],
+           "prepared": lens, "merged_n": N, "merge_s": merge_s,
+           "rebuild_s": rebuild_s, "merge_over_rebuild": merge_s / rebuild_s,
+           "stages": stages, **total, "splice_build_s": splice_s,
+           "walk_us_per_step": total["walk_s"] * 1e6 / total["steps"],
+           "splice_ns_per_token": splice_s * 1e9
+           / sum(st["merged_n"] for st in stages),
+           "sort_ns_per_token_log2n": rebuild_s * 1e9 / (N * math.log2(N)),
+           "launches": launches, "fm_mismatch": [], "ins_max_abs_err": err,
+           "answers": "1024 count + 1024 locate identical to the rebuild"}
+    if cuda:
+        rec["walk_device_ms"] = sum(st["walk_device_ms"] for st in stages)
+    if latency_ns is not None:
+        rec["bound_s"] = sum(st["bound_s"] for st in stages)
+    return rec, launches
+
+
+def phase_merge(log2n: int, chase):
+    """Phase 7: the walk kernel against its plain versions, then merges
+    (a) DNA k-way, (b) DNA pairwise fold of the same eight documents, (c)
+    proteins k-way, with ``chase`` (``start_chase_build``) for the latency
+    bound.  Returns (record, launches per path, the merge_walk row of the
+    kernels line)."""
+    import functools
+
+    err, cases, small = merge_walk_parity()
+    latency_ns = functools.lru_cache(maxsize=None)(
+        functools.partial(dependent_load_ns, chase))
+
+    runs, launches = {}, {}
+    for name, args in (("dna_kway", ("dna", 6, log2n, DNA_RUN, "kway")),
+                       ("dna_fold", ("dna", 6, log2n, DNA_RUN, "pairwise")),
+                       ("proteins_kway", ("proteins", 22, log2n - 1,
+                                          PROTEIN_RUN, "kway"))):
+        runs[name], launches[f"merge_{name}"] = merge_run(
+            *args, latency_ns=latency_ns)
+    a, b, c = runs["dna_kway"], runs["dna_fold"], runs["proteins_kway"]
+    costs = {"pairwise_step_ns": b["walk_s"] * 1e9 / b["steps"],
+             "kway_step_ns": a["walk_s"] * 1e9 / a["steps"],
+             "kway_step_ns_proteins": c["walk_s"] * 1e9 / c["steps"],
+             "token_ns": a["splice_ns_per_token"],
+             "token_ns_fold": b["splice_ns_per_token"],
+             "sort_ns_per_token_log2n": a["sort_ns_per_token_log2n"]}
+    # walk (a) on the merge path: its time (synchronized host clock), its
+    # device time (CUDA events), its ins against the suffix arrays' (every
+    # walk of (a)-(c)) and against the plain walks (the small walks)
+    row = dict(max_abs_err=max(err, *(r["ins_max_abs_err"]
+                                      for r in runs.values())),
+               ms=a["walk_s"] * 1e3, device_ms=a["walk_device_ms"],
+               plain_ms=small["kway"]["plain_ms"],
+               bound_ms=a["bound_s"] * 1e3, bound_by="latency",
+               library_ms=None,
+               shape=f"DNA k-way walk, k=8, {a['steps']} steps",
+               plain_shape=f"DNA k-way walk, k=8, "
+               f"{small['kway']['steps']} steps")
+    rec = {"walk_parity": {"max_abs_err": err, "cases": cases},
+           "small_walks": small, "runs": runs, "cost_constants": costs}
+    return rec, launches, row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
     ap.add_argument("--parity-log2n", type=int, default=16)
+    ap.add_argument("--merge-log2n", type=int, default=20,
+                    help="phase 7: log2 of the largest DNA document")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1435,7 +1912,11 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     t0 = time.perf_counter()
-    _build.build_all()
+    finish_chase = start_chase_build() if 7 in phases else None
+    try:
+        _build.build_all()
+    finally:
+        chase = finish_chase() if finish_chase else None
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
@@ -1525,11 +2006,20 @@ def main(argv=None) -> int:
         emit({"phase": 6, **rec})
     del kept
 
-    if rows and {2, 3} <= phases:
+    if 7 in phases:
+        rec, launches, rows["merge_walk"] = phase_merge(args.merge_log2n,
+                                                        chase)
+        for path, counts in launches.items():
+            path_launches[path] = counts
+            for name, v in counts.items():
+                main_launches[name] += v
+        emit({"phase": 7, **rec})
+
+    if {1, 2, 3, 7} <= phases:
         for name in _build.KERNELS:
             r = rows[name]
             check_reading(name, r["device_ms"], r["bound_ms"], r["ms"],
-                          r["shape"])
+                          r["shape"], r.get("bound_by", "bytes"))
         src = "src/repro_torch/kernels/csrc/{}.cu"
         replaces = {
             "rank_packed": "src/repro/kernels/rank_select.py:133",
@@ -1540,18 +2030,23 @@ def main(argv=None) -> int:
             "char_histogram": "src/repro/kernels/char_histogram.py:30",
             "fm_query_packed": "src/repro/kernels/rank_select.py:133",
             "fm_query_unpacked": "src/repro/kernels/rank_select.py:179",
+            "merge_walk": "src/repro/kernels/rank_select.py:133",
         }
         emit({"kernels": [
             {"name": name, "route": "cuda", "source": src.format(name),
              "replaces": replaces[name], "launches": main_launches[name],
              "max_abs_err": rows[name]["max_abs_err"],
              "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
-             "bound_ms": rows[name]["bound_ms"], "bound_by": "bytes",
+             "bound_ms": rows[name]["bound_ms"],
+             "bound_by": rows[name].get("bound_by", "bytes"),
              "library_ms": rows[name]["library_ms"],
              "device_ms": rows[name]["device_ms"],
              "launches_by_path": {p: v[name]
                                   for p, v in path_launches.items()},
-             "shape": rows[name]["shape"]}
+             "shape": rows[name]["shape"],
+             # merge_walk's plain walks run on small walks only
+             **{k: rows[name][k] for k in ("plain_shape",)
+                if k in rows[name]}}
             for name in _build.KERNELS]})
     print(card, flush=True)
     reduced = {k: v for k, v in vars(args).items()

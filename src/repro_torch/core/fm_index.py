@@ -123,15 +123,31 @@ def build_sa_samples(sa: torch.Tensor, sa_sample_rate: int, *,
                                    sa_sample_rate, compress=compress)
 
 
-def decode_sa_values(fm: FMIndex) -> np.ndarray:
-    """Raw SA-sample values of an index in row order (host numpy),
-    undoing the optional bit-packing."""
+def sa_values(fm: FMIndex) -> torch.Tensor:
+    """Raw int32 SA-sample values of an index in row order, on its device,
+    undoing the optional bit-packing.  The sampled values are exactly
+    {0, s, 2s, ...} below the text length, so the count is implied."""
     nvals = -(-fm.length // fm.sa_sample_rate)
     if fm.sa_val_bits:
         idx = torch.arange(nvals, dtype=torch.int32, device=fm.device)
         return (unpack_sa_value(fm.sa_vals, idx, fm.sa_val_bits)
-                * fm.sa_sample_rate).cpu().numpy()
-    return fm.sa_vals[:nvals].cpu().numpy()
+                * fm.sa_sample_rate)
+    return fm.sa_vals[:nvals]
+
+
+def decode_sa_values(fm: FMIndex) -> np.ndarray:
+    """``sa_values`` as host numpy."""
+    return sa_values(fm).cpu().numpy()
+
+
+def sample_marked_rows(fm: FMIndex) -> torch.Tensor:
+    """Sorted int64 row indices carrying an SA sample, on the index's
+    device: the set bits of the ``sa_marks`` bitvector below the text
+    length."""
+    # an arithmetic shift of the int32 words still brings bit b to bit 0
+    bit = torch.arange(32, dtype=torch.int32, device=fm.device)
+    bits = ((fm.sa_marks[:, None] >> bit) & 1).reshape(-1)[: fm.length]
+    return torch.nonzero(bits).flatten()
 
 
 FM_ARRAY_FIELDS = ("bwt", "row", "c_array", "occ_samples", "fused",
@@ -278,3 +294,58 @@ def locate(index: FMIndex, patterns: torch.Tensor, k: int):
     sp, ep, pos = _fm_query(index, patterns, k)
     counts = torch.clamp(ep - sp, min=0, max=k)
     return torch.sort(pos, dim=1).values, counts
+
+
+def _next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def stack_rank_arrays(fms: list[FMIndex], *, seg_pad: int | None = None,
+                      blocks_pad: int | None = None):
+    """Bucket-stack the rank-addressable arrays of same-layout indexes on
+    their device: ``(fused, blocks, occ, c_mat, nb_vec, blocks_pad)`` with
+    segment i owning block rows [i*blocks_pad, i*blocks_pad + n_blocks_i).
+
+    Packed layouts fill ``fused`` (zero rows past a segment's blocks);
+    unpacked ones ``blocks`` (PAD-filled) and the flat checkpoints ``occ``
+    int32[S*NB, sigma], so both share the ``seg * blocks_pad + blk``
+    addressing.  Pad segments get ``nb = 1`` (block ids clamp to 0).
+    ``seg_pad`` / ``blocks_pad`` default to powers of two."""
+    if not fms:
+        raise ValueError("cannot stack an empty run")
+    f0 = fms[0]
+    sig = (f0.sigma, f0.sample_rate, f0.bits)
+    for fm in fms:
+        if (fm.sigma, fm.sample_rate, fm.bits) != sig:
+            raise ValueError(
+                f"mixed layouts {(fm.sigma, fm.sample_rate, fm.bits)} "
+                f"!= {sig}"
+            )
+    sigma, r, bits = sig
+    S = seg_pad or _next_pow2(len(fms))
+    NB = blocks_pad or _next_pow2(max(fm.n_blocks for fm in fms))
+    if S < len(fms) or NB < max(fm.n_blocks for fm in fms):
+        raise ValueError("bucket shape smaller than the run")
+    dev = f0.device
+    fused = blocks = occ = None
+    if bits:
+        fused = torch.zeros((S * NB, f0.fused.shape[1]), dtype=torch.int32,
+                            device=dev)
+        for i, fm in enumerate(fms):
+            fused[i * NB: i * NB + fm.n_blocks] = fm.fused
+    else:
+        blocks = torch.full((S * NB, r), PAD, dtype=torch.int32, device=dev)
+        occ = torch.zeros((S * NB, sigma), dtype=torch.int32, device=dev)
+        for i, fm in enumerate(fms):
+            nb = fm.n_blocks
+            blocks[i * NB: i * NB + nb] = fm.bwt.view(nb, r)
+            occ[i * NB: i * NB + nb] = fm.occ_samples[:-1]
+    c_mat = torch.zeros((S, sigma), dtype=torch.int32, device=dev)
+    for i, fm in enumerate(fms):
+        c_mat[i] = fm.c_array
+    nb_vec = torch.tensor([fm.n_blocks for fm in fms] + [1] * (S - len(fms)),
+                          dtype=torch.int32, device=dev)
+    return fused, blocks, occ, c_mat, nb_vec, NB

@@ -1,7 +1,8 @@
 """Build, load and launch-count the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source has a plain C interface (one ``*_launch``
-function per kernel that returns ``cudaGetLastError()``) and compiles on
+Every ``csrc/*.cu`` source has a plain C interface (a ``<entry>_launch``
+function per entry point, ``<name>_launch`` for the kernel's own, each
+returning ``cudaGetLastError()``) and compiles on
 its own with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`` into ``build/repro_torch_kernels/`` at the repository
 root.  The build happens at first use, never at import: all sources start
@@ -30,12 +31,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("rank_packed", "rank_select", "radix_hist", "radix_pos",
            "rerank_scan", "char_histogram", "fm_query_packed",
-           "fm_query_unpacked")
+           "fm_query_unpacked", "merge_walk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# argtypes of each C entry point: c_void_p for every pointer and the stream
+# argtypes of each C entry point (``<entry>_launch``): c_void_p for every
+# pointer and the stream
 SIGNATURES = {
     "rank_packed": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "rank_select": [_P, _I, _P, _P, _P, _P, _I, _P],
@@ -49,11 +51,20 @@ SIGNATURES = {
                         _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "fm_query_unpacked": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                           _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    # pairwise walk: left rows (fused, blocks, occ, wid, n_blocks), sigma,
+    # bits, r, cA, cB, right (symbol, LF) pairs, nB, ends, ins, stream
+    "merge_walk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                   _P],
+    # k-way walk: stacked rows (fused, blocks, occ, wid, NB), sigma, bits,
+    # r, c_mat, nb, row, last, len, k, ins, stream
+    "merge_walk_kway": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                        _I, _P, _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG: dict[str, str] = {}   # nvcc/ptxas output per kernel (last build)
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[str, object] = {}
 
 
 def reset_launches() -> None:
@@ -115,21 +126,23 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name`` (building first)."""
     if name not in _libs:
         build_all()
-        lib = ctypes.CDLL(str(_target(name)))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[name] = ctypes.CDLL(str(_target(name)))
     return _libs[name]
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry on PyTorch's current stream, raise on
-    a launch error, and count the launch."""
-    fn = getattr(library(name), f"{name}_launch")
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+def launch(name: str, *args, entry: str | None = None) -> None:
+    """Call the C entry ``<entry>_launch`` (default: the kernel's own,
+    ``name``) of kernel ``name``'s library on PyTorch's current stream,
+    raise on a launch error, and count one launch of kernel ``name``."""
+    entry = entry or name
+    if entry not in _entries:
+        fn = getattr(library(name), f"{entry}_launch")
+        fn.argtypes = SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        _entries[entry] = fn
+    err = _entries[entry](*args, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
 
 

@@ -1,5 +1,5 @@
 """Public kernel entry points, with the JAX package's ``kernels/ops.py``
-signatures (minus the merge-walk ``rank_walkers``).
+signatures.
 
 The kernel wrappers (``rank_packed``, ``rank_select``, ``radix_hist``,
 ``radix_pos``, ``rerank_scan``, ``char_histogram``, ``fm_query_packed``,
@@ -102,3 +102,20 @@ def radix_sort(operands, *, num_keys: int, key_bits, block: int = TILE):
 
 # the JAX package's batched unpacked rank: the same kernel wrapper here
 rank_unpacked = rank_select
+
+
+def rank_walkers(fused, blocks, occ, block_idx, c, cutoff, *, bits: int,
+                 sigma: int):
+    """Full Occ(c_i, block_idx_i * r + cutoff_i) on either block layout in
+    one batched call: ``rank_packed`` over ``fused`` rows when ``bits`` >
+    0, else the flat per-block checkpoints ``occ`` int32[n_blocks, sigma]
+    plus the unpacked in-block rank over ``blocks``.  ``block_idx`` may
+    address a stacked multi-segment array (``fm_index.stack_rank_arrays``)
+    with the segment base folded in by the caller.  The BWT merge calls it
+    once per merge for the right operand's LF map; its walks run in the
+    ``merge_walk`` kernel."""
+    if bits:
+        return rank_packed(fused, block_idx, c, cutoff,
+                           bits=bits, sigma=sigma)
+    return occ[block_idx.long(), c.long()] + rank_unpacked(
+        blocks, block_idx, c, cutoff)

@@ -14,8 +14,9 @@ record-only schedule (no triggers) discovers how many times each failpoint
 fires so a sweep can cover all of them.
 
 Failpoint catalog (every name the reference defines; in this package
-``training/checkpoint.py`` hits ``io.write`` and ``io.rename``, and the
-rest wait for the modules that hit them in the reference):
+``training/checkpoint.py`` hits ``io.write`` and ``io.rename``,
+``core/bwt_merge.py`` hits ``merge.mid`` and ``merge.kway``, and the rest
+wait for the modules that hit them in the reference):
 
 =================  ==========================================================
 ``io.write``       before writing a durable artifact file (checkpoint

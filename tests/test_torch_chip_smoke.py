@@ -118,3 +118,101 @@ def test_profiles_that_stay_broken_fail(monkeypatch, rows, match):
     with pytest.raises(AssertionError, match=match):
         chip_smoke.kernel_device_split(lambda: None, "rerank_kernel")
     assert len(taken) == 3
+
+
+def test_merge_walk_parity_runs_on_the_cpu():
+    """Phase 7's parity helper at a tiny size: pairwise and k-way walks on
+    both layouts (plain against plain here), every k-way merge and a
+    40-segment run against the rebuild."""
+    err, cases, times = chip_smoke.merge_walk_parity(
+        "cpu", log2n=7, ks=(2, 3), many=40)
+    assert err == 0 and times == {}
+    assert cases[0] == "pairwise dna bits=4 steps=191"
+    assert sum(c.startswith("k-way proteins") for c in cases) == 2
+    assert cases[-1] == "k-way dna-like k=40 vs rebuild"
+
+
+@pytest.mark.parametrize("kind,sig,log2n,shape,flavour", [
+    ("dna", 6, 9, chip_smoke.DNA_RUN[:4], "kway"),
+    ("dna", 6, 9, chip_smoke.DNA_RUN[:4], "pairwise"),
+    ("proteins", 22, 8, chip_smoke.PROTEIN_RUN, "kway"),
+])
+def test_merge_run_on_the_cpu(kind, sig, log2n, shape, flavour):
+    """Phase 7's merge paths at a tiny size on the CPU: each walk's ins
+    equal to the suffix arrays' (the plain walks here), equal to the
+    rebuild, the same answers, no kernel launched, walk steps as the JAX
+    package counts them, and a latency bound of one load per step."""
+    rec, launches = chip_smoke.merge_run(
+        kind, sig, log2n, shape, flavour, device="cpu",
+        latency_ns=lambda n: 0.0)
+    assert set(launches.values()) == {0}
+    k = len(shape)
+    lens = rec["prepared"]
+    assert rec["k"] == k and rec["merged_n"] == sum(lens)
+    assert len(rec["stages"]) == (1 if flavour == "kway" else k - 1)
+    if flavour == "kway":
+        assert rec["steps"] == sum(lens[1:]) - 1
+    else:   # the fold walks every accumulator: 1, 2, ... k-1 documents
+        assert rec["steps"] == sum(sum(lens[i:]) - 1 for i in range(1, k))
+    assert rec["bound_s"] == 0.0 and rec["fm_mismatch"] == []
+    assert rec["ins_max_abs_err"] == 0
+
+
+@pytest.mark.parametrize("flavour", ["kway", "pairwise"])
+def test_merge_run_refuses_a_wrong_walk(monkeypatch, flavour):
+    """A walk whose ins is off by one in one row fails the run on the
+    suffix arrays' ins, before the spliced index is compared."""
+    from repro_torch.core import bwt_merge as bm
+
+    name = "kway_walk" if flavour == "kway" else "merge_walk"
+    walk = getattr(bm, name)
+
+    def off_by_one(*args, **kw):
+        ins = walk(*args, **kw).clone()
+        ins[len(ins) // 2] += 1
+        return ins
+
+    monkeypatch.setattr(bm, name, off_by_one)
+    with pytest.raises(AssertionError,
+                       match="differs from the rebuild's suffix arrays"):
+        chip_smoke.merge_run("dna", 6, 8, (0, 1, 1), flavour, device="cpu")
+    assert getattr(bm, name) is off_by_one    # observation restored it
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("descending", [False, True])
+def test_expected_ins_by_hand(n, descending):
+    """The suffix arrays' ins on a hand-checkable run of n + 1 one-token
+    documents whose suffixes sort in text order (each walked suffix has
+    every earlier document's before it) or in reverse (every later one's):
+    k-way segment s gets s or n - s; every fold walk's rows all get 1 (the
+    new left document sorts first) or 0."""
+    import torch
+
+    lens = [1] * (n + 1)
+    sas = [torch.zeros(1, dtype=torch.int32)] * (n + 1)
+    sa_u = torch.arange(n + 1, dtype=torch.int32)
+    if descending:
+        sa_u = sa_u.flip(0)
+    (kway,) = chip_smoke.expected_ins("kway", sas, sa_u, lens)
+    assert kway.tolist() == [n - s if descending else s
+                             for s in range(1, n + 1)]
+    fold = chip_smoke.expected_ins("pairwise", sas, sa_u, lens)
+    assert [f.tolist() for f in fold] == [[0 if descending else 1] * (j + 1)
+                                          for j in range(n)]
+
+
+def test_merge_run_refuses_a_walk_under_its_bound():
+    with pytest.raises(AssertionError, match="under its latency bound"):
+        chip_smoke.merge_run("dna", 6, 8, (0, 1), "kway", device="cpu",
+                             latency_ns=lambda n: 1e12)
+
+
+def test_pointer_chase_source_declares_its_signature():
+    """The pointer chase's C entry takes as many parameters as the
+    argument types chip_smoke passes (a file read, no nvcc)."""
+    import re
+
+    src = chip_smoke.CHASE_SRC.read_text()
+    m = re.search(r'extern "C" int pointer_chase_launch\(([^)]*)\)', src)
+    assert m and len(m.group(1).split(",")) == len(chip_smoke.CHASE_ARGTYPES)

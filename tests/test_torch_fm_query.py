@@ -202,6 +202,17 @@ def test_kernel_source_declares_its_signature(name):
     assert "Replaces:" in src and "Bound on the H100" in src
 
 
+@pytest.mark.parametrize("entry", sorted(_build.SIGNATURES))
+def test_every_c_entry_declares_its_signature(entry):
+    """Every ctypes signature, a kernel's own C entry or another entry of
+    its library (``merge_walk_kway``), matches exactly one C entry of the
+    kernel sources in its parameter count."""
+    srcs = [(_build.CSRC / f"{n}.cu").read_text() for n in _build.KERNELS]
+    found = [s for s in srcs if f'extern "C" int {entry}_launch(' in s]
+    assert len(found) == 1
+    assert _launch_params(found[0], entry) == len(_build.SIGNATURES[entry])
+
+
 def test_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     """An edit to a shared header renames every kernel's library, so a
     checkout never reuses one built from the old header."""
