@@ -60,11 +60,29 @@ script exits nonzero and prints no final result:
      step x one load's latency, from scripts/pointer_chase.cu over the
      left operand's size), precompute, splice + build_fm_index, the
      rebuild, and the card's merge cost constants
+  8  the segmented catalog: (a) the DNA corpus of phase 2 split into 16
+     segments as the launcher's --segments does (SegmentedIndex.from_config,
+     the card's config), 1024 count + 1024 locate requests through
+     FMQueryServer: one fm_query_stacked_packed launch per served batch and
+     no other query or rank launch, counts by brute force inside the
+     segments, every located position, every batch equal to the sequential
+     path (one single-index query per segment) and the stacked kernel equal
+     to its plain version, its time beside its bytes bound over n_seg x B
+     lanes and its dependent steps; then phase 7's eight documents appended
+     with maybe_compact after each (the bucket re-stacks at 32 segments,
+     the eighth compacts through the backstop; answers equal across the
+     compaction), forced k-way and rebuild compactions of them on two more
+     catalogs (equal to each other and to the served catalog's), save ->
+     load of the catalog (same catalog, same answers) and a second save
+     after one more append (only the new segment's files written); (b)
+     proteins at n = 2^24 in 4 segments: fm_query_stacked_unpacked, the
+     same serving checks
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
-paths, the seed build, each restore, each merge of phase 7) and read just
-after it.  Then a ``kernels`` line (launches on the main paths of phases
-2-3 and 7 and on each path, parity error, times and bounds), the card's
+paths, the seed build, each restore, each merge of phase 7, each catalog
+of phase 8: its appends and its serving) and read just after it.  Then a
+``kernels`` line (launches on the main paths of phases 2-3, 7 and 8 and on
+each path, parity error, times and bounds), the card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
 kernel time under its bound (bytes over the card's HBM peak; for the
 merge walks their dependent loads' latency) fails the run as a broken
@@ -1886,9 +1904,529 @@ def phase_merge(log2n: int, chase):
     return rec, launches, row
 
 
+# --------------------------------------------------------------------------
+# phase 8: the segmented catalog (stacked queries, compaction, save/load)
+# --------------------------------------------------------------------------
+
+DNA_SEGMENTS = 16        # the launcher's --segments split of the corpus
+PROTEIN_SEGMENTS = 4
+
+
+def bucket_bytes(n_seg: int, max_blocks: int, row_words: int, r: int,
+                 srate: int) -> dict:
+    """The stacked bucket of ``n_seg`` segments whose largest has
+    ``max_blocks`` blocks: ``seg_pad`` and ``blocks_pad`` (powers of two),
+    the bytes of its rows (``row_words`` int32 per block: sigma + packed
+    words, or r + sigma for blocks plus checkpoints) and of its SA sample
+    (marks, their ranks and raw values per segment)."""
+    S = 1 << (n_seg - 1).bit_length()
+    NB = 1 << (max_blocks - 1).bit_length()
+    MW, MV = -(-(NB * r) // 32), -(-(NB * r) // srate)
+    return {"seg_pad": S, "blocks_pad": NB, "rows": 4 * S * NB * row_words,
+            "sa_sample": 4 * S * (2 * MW + MV)}
+
+
+def stacked_bucket_bytes(st) -> dict:
+    """``bucket_bytes``' fields of a built bucket, from its tensors."""
+    rows = sum(t.numel() for t in (st.fused, st.blocks, st.occ)
+               if t is not None)
+    sample = sum(t.numel() for t in (st.sa_marks, st.sa_mark_ranks,
+                                     st.sa_vals) if t is not None)
+    return {"seg_pad": st.seg_pad, "blocks_pad": st.blocks_pad,
+            "rows": 4 * rows, "sa_sample": 4 * sample}
+
+
+def segment_view(st, s: int):
+    """Segment ``s`` of a stacked bucket as an FM index of its own (the
+    fields ``query_bytes`` and the single-index plain versions read):
+    views of its rows, checkpoints, C row and SA sample (raw values)."""
+    import types
+
+    NB, nb = st.blocks_pad, int(st.n_blocks[s])
+    S = st.seg_pad
+    MW = st.sa_marks.shape[0] // S if st.sa_marks is not None else 0
+    MV = st.sa_vals.shape[0] // S if st.sa_vals is not None else 0
+    sample = {}
+    if st.sa_sample_rate:
+        sample = dict(sa_marks=st.sa_marks[s * MW: (s + 1) * MW],
+                      sa_mark_ranks=st.sa_mark_ranks[s * MW: (s + 1) * MW],
+                      sa_vals=st.sa_vals[s * MV: (s + 1) * MV])
+    return types.SimpleNamespace(
+        sigma=st.sigma, sample_rate=st.sample_rate, n_blocks=nb,
+        length=int(st.lengths[s]), bits=st.bits, c_array=st.c_array[s],
+        fused=None if st.fused is None else st.fused[s * NB: s * NB + nb],
+        bwt=(None if st.blocks is None
+             else st.blocks[s * NB: s * NB + nb].reshape(-1)),
+        occ_samples=None if st.occ is None else st.occ[s, :nb],
+        sa_val_bits=0, sa_sample_rate=st.sa_sample_rate, device=st.device,
+        **sample)
+
+
+def stacked_query_bytes(st, P, k: int) -> tuple[int, int]:
+    """(bytes, walk steps) of one stacked query launch on patterns ``P``:
+    ``query_bytes`` of each real segment (its own rows, checkpoints and SA
+    sample; segments own disjoint, sector-aligned slices), the patterns
+    counted once, and the pad segments' output rows; the walk steps are
+    the largest segment's."""
+    total, walk = 0, 0
+    for s in range(st.n_seg):
+        nbytes, w = query_bytes(segment_view(st, s), P, k)
+        total += nbytes - (4 * P.numel() if s else 0)
+        walk = max(walk, w)
+    B = P.shape[0]
+    return total + 4 * (st.seg_pad - st.n_seg) * (2 * B + B * k), walk
+
+
+def stacked_fns(st):
+    """(kernel name, wrapper, plain version) of the bucket's layout."""
+    from repro_torch.kernels import fm_query as fq
+
+    if st.bits:
+        return ("fm_query_stacked_packed", fq.fm_query_stacked_packed,
+                fq.fm_query_stacked_packed_plain)
+    return ("fm_query_stacked_unpacked", fq.fm_query_stacked_unpacked,
+            fq.fm_query_stacked_unpacked_plain)
+
+
+def check_stacked(st, cases, what: str) -> int:
+    """Every case through the bucket's stacked kernel and its plain version
+    on the same tensors: sp, ep and the positions equal; the max abs error
+    (0)."""
+    name, kern, plain = stacked_fns(st)
+    err = 0
+    for case, P, k in cases:
+        got, want = kern(st, P, k), plain(st, P, k)
+        tag = f"{name} {what} {case} k={k}"
+        err = max(err, same(got[0], want[0], f"{tag} sp"),
+                  same(got[1], want[1], f"{tag} ep"),
+                  same(got[2], want[2], f"{tag} positions"))
+    return err
+
+
+def stacked_timing(st, P, k: int) -> dict:
+    """The stacked kernel on one batch: event and device ms beside its
+    bytes bound and dependent steps, and the plain version's ms."""
+    name, kern, plain = stacked_fns(st)
+    nbytes, walk = stacked_query_bytes(st, P, k)
+    return dict(
+        m=P.shape[1], B=P.shape[0], k=k, n_seg=st.n_seg, seg_pad=st.seg_pad,
+        ms=time_ms(lambda: kern(st, P, k), 20),
+        device_ms=kernel_device_ms(lambda: kern(st, P, k), f"{name}_kernel"),
+        plain_ms=time_ms(lambda: plain(st, P, k), 1),
+        bound_ms=bound_ms(nbytes), bytes=nbytes,
+        dependent_steps={"search": P.shape[1], "walk": walk})
+
+
+def catalog_answers(cat, buckets) -> list:
+    """(counts, positions, clipped counts) of every bucket of patterns
+    through the catalog's count and locate (k = LOCATE_K)."""
+    return [(cat.count(P), *cat.locate(P, LOCATE_K)) for P in buckets]
+
+
+def same_answers(a, b, what: str, in_k: bool = False) -> None:
+    """Two catalogs' answers equal: counts, clipped counts and positions
+    (with ``in_k``, positions only of patterns with at most k
+    occurrences: which k of more are reported follows SA order)."""
+    import torch
+
+    for i, ((c0, p0, k0), (c1, p1, k1)) in enumerate(zip(a, b)):
+        require(torch.equal(c0, c1), f"{what}: counts differ (bucket {i})")
+        require(torch.equal(k0, k1),
+                f"{what}: locate counts differ (bucket {i})")
+        keep = c0 <= LOCATE_K if in_k else torch.ones_like(c0, dtype=bool)
+        require(torch.equal(p0[keep], p1[keep]),
+                f"{what}: located positions differ (bucket {i})")
+
+
+def check_catalog_answers(cat, pats, counts, located, n_brute: int) -> None:
+    """Counts of the first ``n_brute`` requests by brute force inside each
+    segment's own tokens (matches never span segments), and every located
+    (global) position of every request holding its pattern."""
+    import numpy as np
+    import torch
+
+    dev = cat.device
+    seg_toks = [torch.as_tensor(s.tokens, device=dev) for s in cat.segments]
+    for i in range(n_brute):
+        p = torch.as_tensor(pats[i], device=dev)
+        L, hits = p.shape[0], 0
+        for t in seg_toks:
+            if t.shape[0] < L:
+                continue
+            hit = torch.ones(t.shape[0] - L + 1, dtype=torch.bool,
+                             device=dev)
+            for j in range(L):
+                hit &= t[j: j + t.shape[0] - L + 1] == p[j]
+            hits += int(hit.sum())
+        require(hits == counts[i], f"catalog count of request {i}: "
+                                   f"{counts[i]} != brute force {hits}")
+    toks = torch.as_tensor(np.concatenate([s.tokens for s in cat.segments]),
+                           device=dev)
+    check_answers(toks, pats, counts, located, n_brute=0)
+
+
+def catalog_path(kind: str, toks, n_seg: int, cfg, device="cuda",
+                 requests: int = 1024, seed: int = 8) -> dict:
+    """One catalog main path: ``SegmentedIndex.from_config`` with
+    ``n_seg`` appends of ``np.array_split(toks, n_seg)`` (the launcher's
+    --segments), then ``requests`` count and ``requests`` locate requests
+    through ``FMQueryServer``, launches counted around it all.  Checks:
+    one stacked launch per served batch and no single-index query or rank
+    launch; counts by brute force inside the segments and every located
+    position; every bucket's answers equal to the sequential path's
+    (``parallel=False``: one single-index query per segment); the stacked
+    kernel equal to its plain version on the served buckets.  Returns the
+    record, with ``catalog``, ``pats``, ``launches`` and the kernel's
+    ``row`` (its timing on the card) beside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.segments import SegmentedIndex
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import FMQueryServer
+
+    cuda = torch.device(device).type == "cuda"
+    _build.reset_launches()
+    cat = SegmentedIndex.from_config(int(toks.max()) + 1, cfg,
+                                     device=device)
+    append_s = []
+    for chunk in np.array_split(toks, n_seg):
+        append_s.append(timed(lambda: cat.append(chunk), device)[1])
+    build_launches = dict(_build.LAUNCHES)
+
+    server = FMQueryServer.from_config(cat, cfg.replace(locate_k=LOCATE_K),
+                                       device=device)
+    pats = sample_patterns(toks, requests, seed=seed)
+    _, stack_s = timed(lambda: server.count(pats[:8]), device)  # stacks
+    server.locate(pats[:8])
+    qps = {}
+    for kind_ in ("count", "locate"):
+        q0, s0 = server.stats.queries, server.stats.seconds
+        if kind_ == "count":
+            counts = [int(x) for x in server.count(pats)]
+        else:
+            located = server.locate(pats)
+        qps[kind_] = (server.stats.queries - q0) / (server.stats.seconds - s0)
+    launches = dict(_build.LAUNCHES)
+    serve = {k: launches[k] - build_launches[k] for k in launches}
+    st = cat._stacked()
+    require(st is not None and st.n_seg == n_seg,
+            f"{kind} catalog: not served through a stacked bucket")
+    name = stacked_fns(st)[0]
+    batches = server.stats.batches
+    require(serve[name] == (batches if cuda else 0),
+            f"{kind} catalog: {serve[name]} {name} launches for {batches} "
+            f"batches")
+    others = {k: v for k, v in serve.items() if k != name and v}
+    require(not others, f"{kind} catalog: other kernels launched while "
+                        f"serving: {others}")
+    want_bytes = bucket_bytes(
+        n_seg, max(s.index.fm.n_blocks for s in cat.segments),
+        st.sample_rate + st.sigma if not st.bits else st.fused.shape[1],
+        st.sample_rate, st.sa_sample_rate)
+    require(stacked_bucket_bytes(st) == want_bytes,
+            f"{kind} catalog: bucket {stacked_bucket_bytes(st)} != "
+            f"{want_bytes}")
+
+    extra = {}
+    if cuda:
+        extra = {"profile_count": profiled(lambda: server.count(pats)),
+                 "profile_locate": profiled(lambda: server.locate(pats))}
+    check_catalog_answers(cat, pats, counts, located, n_brute=16)
+    buckets = flush_buckets(pats, device)
+    stacked = catalog_answers(cat, buckets)
+    cat.parallel = False
+    same_answers(stacked, catalog_answers(cat, buckets),
+                 f"{kind} catalog: stacked against sequential")
+    cat.parallel = cfg.serve_parallel_segments
+    cases = [(f"requests m={P.shape[1]}", P, k) for P in buckets
+             for k in (0, LOCATE_K)]
+    err = check_stacked(st, cases, f"{kind} n={len(toks)}")
+    row = None
+    if cuda:
+        P = pad_patterns(sample_patterns(toks, 1024, seed, 17, 32), 32,
+                         device)
+        t = stacked_timing(st, P, LOCATE_K)
+        row = dict(max_abs_err=err, ms=t["ms"], device_ms=t["device_ms"],
+                   plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                   library_ms=None, dependent_steps=t["dependent_steps"],
+                   shape=f"{kind} n={len(toks)} in {n_seg} segments: locate "
+                         f"B=1024, m=32, k={LOCATE_K}")
+    rec = {"kind": kind, "n": len(toks), "segments": n_seg,
+           "sigma": cat.segments[0].index.sigma, "bits": st.bits,
+           "bucket": want_bytes, "append_s": append_s,
+           "build_s": sum(append_s), "stack_and_first_flush_s": stack_s,
+           "count_qps": qps["count"], "locate_qps": qps["locate"],
+           "requests": {"count": requests, "locate": requests},
+           "serve_batches": batches, "launches_build": build_launches,
+           "launches_serve": serve, "max_abs_err": err,
+           "checks": "stacked == sequential, 16 brute force counts, every "
+                     "located position", **extra}
+    return dict(rec=rec, catalog=cat, pats=pats, launches=launches, row=row)
+
+
+def catalog_two_bit(cfg, device, log2n: int, requests: int,
+                    n_seg: int = 5, seed: int = 9) -> dict:
+    """A small 2-bit catalog (two symbols: with the sentinel and the
+    catalog's reserved pad symbol, each segment's sigma is 4) of
+    ``n_seg`` segments of unequal length, so that pad segments follow the
+    real ones: the 2-bit instantiation of ``fm_query_stacked_packed``
+    against its plain version on every flush bucket (k = 0 and
+    LOCATE_K), and the catalog's answers against the sequential path."""
+    import numpy as np
+
+    from repro_torch.core.segments import SegmentedIndex
+
+    rng = np.random.default_rng(seed)
+    docs = [rng.integers(1, 3, (1 << log2n) - 37 * i).astype(np.int32)
+            for i in range(n_seg)]
+    cat = SegmentedIndex.from_config(3, cfg, device=device)
+    for d in docs:
+        cat.append(d)
+    st = cat._stacked()
+    require(st is not None and st.bits == 2 and st.n_seg == n_seg
+            and st.seg_pad > n_seg,
+            "2-bit catalog: not served through a 2-bit bucket with pad "
+            "segments")
+    pats = sample_patterns(np.concatenate(docs), requests, seed=seed)
+    buckets = flush_buckets(pats, device)
+    err = check_stacked(st, [(f"m={P.shape[1]}", P, k) for P in buckets
+                             for k in (0, LOCATE_K)], "2-bit")
+    stacked = catalog_answers(cat, buckets)
+    cat.parallel = False
+    same_answers(stacked, catalog_answers(cat, buckets),
+                 "2-bit catalog: stacked against sequential")
+    return {"segments": n_seg, "seg_pad": st.seg_pad, "bits": st.bits,
+            "n": sum(len(d) for d in docs), "requests": len(pats),
+            "max_abs_err": err}
+
+
+def catalog_growth(cat, docs, pats, device, requests: int = 1024) -> dict:
+    """The launcher's synchronous --append on a served catalog: each
+    document appended, then ``maybe_compact``.  Answers on patterns from
+    the new documents and the old ones, taken before every
+    ``maybe_compact``, must equal the answers after a compaction (counts
+    and in-k locate sets)."""
+    import numpy as np
+
+    new = sample_patterns(np.concatenate(docs), requests // 2, seed=81)
+    buckets = flush_buckets(new + pats[: requests // 2], device)
+    steps = []
+    for d in docs:
+        _, append_s = timed(lambda: cat.append(d), device)
+        restack = cat._stacked_cache is None
+        before, query_s = timed(lambda: catalog_answers(cat, buckets),
+                                device)
+        merges, compact_s = timed(cat.maybe_compact, device)
+        step = dict(tokens=len(d), append_s=append_s, restacked=restack,
+                    queries_s=query_s, merges=merges, compact_s=compact_s,
+                    segments=len(cat.segments),
+                    seg_pad=cat._stacked().seg_pad)
+        if merges:
+            plan = cat.compact_last_plan
+            step["plan"] = {k: plan[k] for k in ("strategy", "requested",
+                                                 "reason", "est")}
+            same_answers(before, catalog_answers(cat, buckets),
+                         "answers across compaction", in_k=True)
+        steps.append(step)
+    return {"steps": steps, "merges": sum(s["merges"] for s in steps)}
+
+
+def catalog_kway(sigma: int, docs, cfg, device, merged=None) -> dict:
+    """Forced compactions of the same documents on two more catalogs,
+    ``compact(strategy="kway")`` (one k-way walk, no fallback) and
+    ``compact(strategy="rebuild")``: equal in every field and document
+    table, and equal to ``merged`` (the served catalog's compaction of
+    them) when given."""
+    from repro_torch.core.fm_index import fm_mismatch
+    from repro_torch.core.segments import SegmentedIndex
+
+    out = {}
+    for strategy in ("kway", "rebuild"):
+        cat = SegmentedIndex.from_config(sigma, cfg, device=device)
+        for d in docs:
+            cat.append(d)
+        merges, s = timed(lambda: cat.compact(strategy=strategy), device)
+        require(merges == 1 and len(cat.segments) == 1
+                and cat.compact_strategy_counts == {strategy: 1}
+                and cat.compact_fallbacks == 0,
+                f"forced {strategy}: {merges} merges, "
+                f"{cat.compact_strategy_counts}, {cat.compact_fallbacks} "
+                f"fallbacks")
+        out[strategy] = (cat.segments[0], s, cat.compact_last_plan)
+    kway, rebuilt = out["kway"][0], out["rebuild"][0]
+    for what, seg in (("forced k-way", kway), ("the served catalog's "
+                                                "compaction", merged)):
+        if seg is None:
+            continue
+        mm = fm_mismatch(seg.index.fm, rebuilt.index.fm)
+        require(mm == [], f"{what} != the rebuild: {mm}")
+        require(seg.docs == rebuilt.docs,
+                f"{what}: document table differs from the rebuild's")
+    return {"kway_s": out["kway"][1], "rebuild_s": out["rebuild"][1],
+            "walk_steps": out["kway"][2]["actual_walk_steps"],
+            "merged_n": kway.index.fm.length, "fm_mismatch": [],
+            "served_compaction_checked": merged is not None}
+
+
+def catalog_save_load(cat, extra_doc, pats, device) -> dict:
+    """Save the catalog to a temporary directory under build/ (removed
+    afterwards), load it back: the same catalog and the same answers.
+    Then one more append and a second save, which must add only the new
+    segment's files and leave every earlier segment file untouched."""
+    import torch
+
+    from repro_torch.core.segments import SegmentedIndex
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(dir=build, prefix="catalog_"))
+    buckets = flush_buckets(pats, device)
+    try:
+        _, save_s = timed(lambda: cat.save(str(d)), device)
+        nbytes = dir_bytes(d)
+        loaded, load_s = timed(
+            lambda: SegmentedIndex.load(str(d), device=device), device)
+        require(not loaded.degraded and loaded.catalog() == cat.catalog(),
+                "loaded catalog differs")
+        same_answers(catalog_answers(cat, buckets),
+                     catalog_answers(loaded, buckets), "save -> load")
+        del loaded
+
+        def seg_files():
+            return {p.relative_to(d).as_posix(): p.stat().st_mtime_ns
+                    for p in d.rglob("*")
+                    if p.is_file() and p.relative_to(d).parts[0]
+                    .startswith("seg_")}
+
+        before = seg_files()
+        seg = cat.append(extra_doc)
+        _, save2_s = timed(lambda: cat.save(str(d)), device)
+        after = seg_files()
+        name = f"seg_{seg.seg_id:06d}/"
+        added = set(after) - set(before)
+        require(set(before) <= set(after), "second save removed files")
+        require(added and all(p.startswith(name) for p in added),
+                f"second save wrote outside {name}: {sorted(added)}")
+        require(all(after[p] == before[p] for p in before),
+                "second save rewrote an earlier segment's file")
+        return {"save_s": save_s, "bytes_on_disk": nbytes,
+                "load_s": load_s, "second_save_s": save2_s,
+                "second_save_files": len(added)}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_catalog(dna_toks, proteins_log2n: int, merge_log2n: int,
+                  device="cuda", requests: int = 1024):
+    """Phase 8: (a) the DNA corpus in ``DNA_SEGMENTS`` segments
+    (``catalog_path``), then phase 7's eight documents appended with
+    ``maybe_compact`` (``catalog_growth``), forced k-way and rebuild
+    compactions of them on two more catalogs (``catalog_kway``) and save
+    -> load (``catalog_save_load``); (b) proteins in ``PROTEIN_SEGMENTS``
+    segments; (c) a small 2-bit catalog (``catalog_two_bit``).  The
+    config is the card's, with ``segment_min_tokens`` cut
+    to a segment's size when the corpus is (a reduced run) and the
+    documents kept under it.  At full size the eight documents compact
+    exactly once, at the eighth (the ``compact_max_small`` backstop).
+    Returns (record, launches per path, kernels-line rows)."""
+    import torch
+
+    from repro_torch.configs.bwt_index import CONFIG
+    from repro_torch.data.corpus import corpus
+
+    cuda = torch.device(device).type == "cuda"
+    min_tokens = min(CONFIG.segment_min_tokens, len(dna_toks) // DNA_SEGMENTS)
+    cfg = CONFIG.replace(segment_min_tokens=min_tokens)
+    full = min_tokens == CONFIG.segment_min_tokens
+    top = min(merge_log2n, (min_tokens - 1).bit_length() - 1)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    a = catalog_path("dna", dna_toks, DNA_SEGMENTS, cfg, device, requests)
+    cat = a["catalog"]
+    docs = [corpus("dna", 1 << (top - d), seed=100 + i)
+            for i, d in enumerate(DNA_RUN)]
+    growth = catalog_growth(cat, docs, a["pats"], device, requests)
+    require(growth["merges"] >= 1, "growth: the run never compacted")
+    if full:
+        require(growth["merges"] == 1 and growth["steps"][-1]["merges"] == 1
+                and len(cat.segments) == DNA_SEGMENTS + 1,
+                f"growth: {growth['merges']} compactions, "
+                f"{len(cat.segments)} segments")
+    kway = catalog_kway(cat.sigma, docs, cfg, device,
+                        cat.segments[DNA_SEGMENTS] if full else None)
+    io_rec = catalog_save_load(
+        cat, corpus("dna", 1 << (top - 3), seed=200), a["pats"], device)
+    rec_a = {**a["rec"], "growth": growth, "forced_kway": kway,
+             "save_load": io_rec}
+    if cuda:
+        rec_a["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del a["catalog"], cat
+    if cuda:
+        torch.cuda.empty_cache()
+    b = catalog_path("proteins", corpus("proteins", 1 << proteins_log2n),
+                     PROTEIN_SEGMENTS, cfg, device, requests)
+    del b["catalog"]
+    two_bit = catalog_two_bit(cfg, device, min(16, proteins_log2n - 2),
+                              requests // 4)
+    if a["row"] is not None:
+        a["row"]["max_abs_err"] = max(a["row"]["max_abs_err"],
+                                      two_bit["max_abs_err"])
+    launches = {"catalog_dna": a["launches"],
+                "catalog_proteins": b["launches"]}
+    rows = {"fm_query_stacked_packed": a["row"],
+            "fm_query_stacked_unpacked": b["row"]}
+    return ({"dna": rec_a, "proteins": b["rec"], "two_bit": two_bit},
+            launches, rows)
+
+
+# the function of the JAX package each kernel replaces (file:line of the
+# function that reaches pl.pallas_call)
+REPLACES = {
+    "rank_packed": "src/repro/kernels/rank_select.py:133",
+    "rank_select": "src/repro/kernels/rank_select.py:179",
+    "radix_hist": "src/repro/kernels/radix_hist.py:25",
+    "radix_pos": "src/repro/kernels/radix_sort.py:54",
+    "rerank_scan": "src/repro/kernels/rerank_scan.py:54",
+    "char_histogram": "src/repro/kernels/char_histogram.py:30",
+    "fm_query_packed": "src/repro/kernels/rank_select.py:133",
+    "fm_query_unpacked": "src/repro/kernels/rank_select.py:179",
+    "merge_walk": "src/repro/kernels/rank_select.py:133",
+    "fm_query_stacked_packed": "src/repro/kernels/rank_select.py:133",
+    "fm_query_stacked_unpacked": "src/repro/kernels/rank_select.py:179",
+}
+
+
+def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
+    """The ``kernels`` line: one entry per kernel of ``_build.KERNELS``
+    with its source, the TPU kernel it replaces, its launches on the main
+    paths (and per path) and its row's numbers."""
+    from repro_torch.kernels import _build
+
+    src = "src/repro_torch/kernels/csrc/{}.cu"
+    return {"kernels": [
+        {"name": name, "route": "cuda",
+         "source": src.format(_build.KERNELS[name]),
+         "replaces": REPLACES[name], "launches": main_launches[name],
+         "max_abs_err": rows[name]["max_abs_err"],
+         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+         "bound_ms": rows[name]["bound_ms"],
+         "bound_by": rows[name].get("bound_by", "bytes"),
+         "library_ms": rows[name]["library_ms"],
+         "device_ms": rows[name]["device_ms"],
+         "launches_by_path": {p: v[name] for p, v in path_launches.items()},
+         "shape": rows[name]["shape"],
+         # merge_walk's plain walks run on small walks only; the query
+         # kernels' chains of dependent steps
+         **{k: rows[name][k] for k in ("plain_shape", "dependent_steps")
+            if k in rows[name]}}
+        for name in _build.KERNELS]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -1929,7 +2467,7 @@ def main(argv=None) -> int:
     from repro_torch.data.corpus import corpus
 
     t0 = time.perf_counter()
-    dna_toks = corpus("dna", 1 << args.dna_log2n)   # phases 1, 2, 5, 6
+    dna_toks = corpus("dna", 1 << args.dna_log2n)   # phases 1, 2, 5, 6, 8
     dna_gen_s = time.perf_counter() - t0
 
     rows = {}
@@ -2015,39 +2553,28 @@ def main(argv=None) -> int:
                 main_launches[name] += v
         emit({"phase": 7, **rec})
 
-    if {1, 2, 3, 7} <= phases:
+    if 8 in phases:
+        t0 = time.perf_counter()
+        rec, launches, stacked_rows = phase_catalog(
+            dna_toks, args.proteins_log2n, args.merge_log2n)
+        rec["phase_s"] = time.perf_counter() - t0
+        rows.update(stacked_rows)
+        for path, counts in launches.items():
+            path_launches[path] = counts
+            for name, v in counts.items():
+                main_launches[name] += v
+        for path, name in (("catalog_dna", "fm_query_stacked_packed"),
+                           ("catalog_proteins", "fm_query_stacked_unpacked")):
+            require(launches[path][name] > 0,
+                    f"phase 8: kernel {name} never launched on {path}")
+        emit({"phase": 8, **rec})
+
+    if {1, 2, 3, 7, 8} <= phases:
         for name in _build.KERNELS:
             r = rows[name]
             check_reading(name, r["device_ms"], r["bound_ms"], r["ms"],
                           r["shape"], r.get("bound_by", "bytes"))
-        src = "src/repro_torch/kernels/csrc/{}.cu"
-        replaces = {
-            "rank_packed": "src/repro/kernels/rank_select.py:133",
-            "rank_select": "src/repro/kernels/rank_select.py:179",
-            "radix_hist": "src/repro/kernels/radix_hist.py:25",
-            "radix_pos": "src/repro/kernels/radix_sort.py:54",
-            "rerank_scan": "src/repro/kernels/rerank_scan.py:54",
-            "char_histogram": "src/repro/kernels/char_histogram.py:30",
-            "fm_query_packed": "src/repro/kernels/rank_select.py:133",
-            "fm_query_unpacked": "src/repro/kernels/rank_select.py:179",
-            "merge_walk": "src/repro/kernels/rank_select.py:133",
-        }
-        emit({"kernels": [
-            {"name": name, "route": "cuda", "source": src.format(name),
-             "replaces": replaces[name], "launches": main_launches[name],
-             "max_abs_err": rows[name]["max_abs_err"],
-             "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
-             "bound_ms": rows[name]["bound_ms"],
-             "bound_by": rows[name].get("bound_by", "bytes"),
-             "library_ms": rows[name]["library_ms"],
-             "device_ms": rows[name]["device_ms"],
-             "launches_by_path": {p: v[name]
-                                  for p, v in path_launches.items()},
-             "shape": rows[name]["shape"],
-             # merge_walk's plain walks run on small walks only
-             **{k: rows[name][k] for k in ("plain_shape",)
-                if k in rows[name]}}
-            for name in _build.KERNELS]})
+        emit(kernels_line(rows, main_launches, path_launches))
     print(card, flush=True)
     reduced = {k: v for k, v in vars(args).items()
                if v != ap.get_default(k)}

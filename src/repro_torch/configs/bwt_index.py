@@ -29,11 +29,43 @@ class BWTIndexConfig:
     locate_k: int = 16            # occurrences returned per locate query
     serve_length_buckets: tuple[int, ...] = (8, 16, 32, 64)
     serve_max_batch: int = 1024   # micro-batch cap per bucket
+    serve_parallel_segments: bool | None = None  # SegmentedIndex fan-out
+                                  # (None = auto: stacked when >= 2)
 
     # index persistence: the defaults of launch.serve's --ckpt-dir /
     # --ckpt-keep (core/index_io.py checkpoints)
     ckpt_dir: str | None = None   # None = index dies with the process
     ckpt_keep: int = 3            # retained checkpoint steps
+
+    # segmented catalog (core/segments.py, SegmentedIndex.from_config):
+    # segments under segment_min_tokens merge on compact().  The background
+    # policy (maybe_compact, run by launch.serve after each --append) and
+    # its planner as in the reference: "merge" = cost-model pick per run
+    # between the pairwise fold, the k-way walk and the rebuild; a run of
+    # small segments compacts when the cheapest merge estimate is at most
+    # trigger_cost_ratio of the rebuild's, when its rebuild costs no more
+    # than one merge's fixed overhead, or at compact_max_small segments.
+    # compact_trigger_ratio is the reference's legacy knob, kept for the
+    # catalog only.
+    segment_min_tokens: int = 1 << 22
+    compact_strategy: str = "merge"
+    compact_trigger_ratio: float = 0.5
+    compact_max_small: int = 8
+    compact_trigger_cost_ratio: float = 0.75
+    # cost-model constants measured on the card (chip_smoke.py phase 7, run
+    # Z1 in PERF.md; NVIDIA H100 80GB HBM3, power limit 700.00 W): one
+    # pairwise walk step 739.7 ns and one k-way step 1051.2 ns (DNA, packed
+    # rows), 8.49 ns per merged token for the splice and build_fm_index of
+    # walk (a), 0.286 ns per token*log2(n) for the rebuild, and 970 us per
+    # merge for its precompute (0.985 ms for (a)'s k-way stack, 0.954 ms
+    # per pairwise fold of (b)).  With them a walk step costs about 2600
+    # times a rebuild's token*log2(n), so the planner rebuilds every run
+    # under segment_min_tokens.
+    compact_cost_walk_ns: float = 739.7
+    compact_cost_kway_walk_ns: float = 1051.2
+    compact_cost_token_ns: float = 8.49
+    compact_cost_sort_ns: float = 0.286
+    compact_cost_merge_us: float = 970.0
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

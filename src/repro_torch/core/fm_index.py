@@ -349,3 +349,280 @@ def stack_rank_arrays(fms: list[FMIndex], *, seg_pad: int | None = None,
     nb_vec = torch.tensor([fm.n_blocks for fm in fms] + [1] * (S - len(fms)),
                           dtype=torch.int32, device=dev)
     return fused, blocks, occ, c_mat, nb_vec, NB
+
+
+# -- segment-parallel stacked queries ----------------------------------------
+#
+# A SegmentedIndex answers a query by asking every live segment.  The
+# stacked layout pads every segment's rows to one bucket shape (power-of-two
+# block count) and concatenates them row-wise on the segments' device, so
+# the whole catalog answers a served batch in ONE stacked query launch
+# (``kernels/fm_query``); each segment's answer is bit-identical to its own
+# index's.
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedFMIndex:
+    """S per-segment FM-indexes padded to one bucket shape, on one device.
+
+    ``fused`` / ``blocks`` rows of all segments concatenate along axis 0
+    (segment s owns rows [s*blocks_pad, s*blocks_pad + n_blocks[s])), so a
+    lane carrying a segment id addresses the whole catalog.  ``occ`` is
+    int32[S, NB, sigma], contiguous, so the kernels read it as the flat
+    [S*NB, sigma] rows of ``stack_rank_arrays``.  Pad segments have length
+    0 (their search interval starts empty) and ``n_blocks`` 1; pad blocks
+    are never addressed (block ids clamp to the true per-segment count).
+    SA-sample values are stored raw (bit-packed streams are decoded at
+    stack time) so one lookup serves every segment.
+
+    ``stacked_append`` writes into spare capacity IN PLACE: the returned
+    object shares this one's tensors (no reallocation), and this one's
+    ``n_seg`` is stale from then on — keep only the returned object.
+    """
+
+    fused: torch.Tensor | None    # int32[S*NB, sigma + W]     (packed)
+    blocks: torch.Tensor | None   # int32[S*NB, r]             (unpacked)
+    occ: torch.Tensor | None      # int32[S, NB, sigma]        (unpacked)
+    c_array: torch.Tensor         # int32[S, sigma]
+    n_blocks: torch.Tensor        # int32[S] true per-segment block counts
+    lengths: torch.Tensor         # int32[S] true per-segment text lengths
+    sa_marks: torch.Tensor | None       # int32[S*MW] (segment-major)
+    sa_mark_ranks: torch.Tensor | None  # int32[S*MW] per-segment cumsums
+    sa_vals: torch.Tensor | None        # int32[S*MV] raw (decoded) values
+    n_seg: int          # real segment count (<= seg_pad)
+    seg_pad: int        # padded segment count S
+    blocks_pad: int     # padded per-segment block count NB
+    sample_rate: int
+    sigma: int
+    bits: int
+    sa_sample_rate: int  # 0 = no locate
+
+    @property
+    def device(self) -> torch.device:
+        return self.c_array.device
+
+
+def _sample_widths(NB: int, r: int, srate: int) -> tuple[int, int]:
+    """(MW, MV): mark words and value slots per segment of the bucket."""
+    return -(-(NB * r) // 32), -(-(NB * r) // srate)
+
+
+def stack_fm_indexes(fms: list[FMIndex], *, seg_pad: int | None = None,
+                     blocks_pad: int | None = None) -> StackedFMIndex:
+    """Assemble single-device FM-indexes into one stacked bucket layout on
+    their device.
+
+    All indexes must agree on (sigma, sample_rate, bits, sa_sample_rate);
+    raises ``ValueError`` on a mixed catalog (callers fall back to the
+    sequential path).  ``seg_pad`` / ``blocks_pad`` override the
+    power-of-two bucket defaults (must be >= the real sizes)."""
+    if not fms:
+        raise ValueError("cannot stack an empty catalog")
+    f0 = fms[0]
+    sig = (f0.sigma, f0.sample_rate, f0.bits, f0.sa_sample_rate)
+    for fm in fms:
+        if not isinstance(fm, FMIndex):
+            raise ValueError(f"cannot stack {type(fm).__name__}")
+        if (fm.sigma, fm.sample_rate, fm.bits, fm.sa_sample_rate) != sig:
+            raise ValueError(
+                "mixed segment layouts: "
+                f"{(fm.sigma, fm.sample_rate, fm.bits, fm.sa_sample_rate)} "
+                f"!= {sig}"
+            )
+    sigma, r, bits, srate = sig
+    S = seg_pad or _next_pow2(len(fms))
+    NB = blocks_pad or _next_pow2(max(fm.n_blocks for fm in fms))
+    if S < len(fms) or NB < max(fm.n_blocks for fm in fms):
+        raise ValueError("bucket shape smaller than the catalog")
+    dev = f0.device
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    fused = blocks = occ = None
+    if bits:
+        fused = zeros(S * NB, f0.fused.shape[1])
+    else:
+        blocks = torch.full((S * NB, r), PAD, dtype=torch.int32, device=dev)
+        occ = zeros(S, NB, sigma)
+    sa_marks = sa_mark_ranks = sa_vals = None
+    if srate:
+        MW, MV = _sample_widths(NB, r, srate)
+        sa_marks, sa_mark_ranks, sa_vals = (zeros(S * MW), zeros(S * MW),
+                                            zeros(S * MV))
+    st = StackedFMIndex(
+        fused, blocks, occ, zeros(S, sigma),
+        torch.ones(S, dtype=torch.int32, device=dev),  # pads clamp blk to 0
+        zeros(S),                                       # pads: ep == 0
+        sa_marks, sa_mark_ranks, sa_vals, 0, S, NB, r, sigma, bits, srate,
+    )
+    for i, fm in enumerate(fms):
+        _write_segment(st, i, _seg_rows(st, fm))
+    return dataclasses.replace(st, n_seg=len(fms))
+
+
+def _stack_check(st: StackedFMIndex, fm: FMIndex) -> None:
+    """Raise unless ``fm`` fits the stacked bucket layout (same static
+    signature, block count within the bucket, same device)."""
+    if not isinstance(fm, FMIndex):
+        raise ValueError(f"cannot stack {type(fm).__name__}")
+    sig = (st.sigma, st.sample_rate, st.bits, st.sa_sample_rate)
+    if (fm.sigma, fm.sample_rate, fm.bits, fm.sa_sample_rate) != sig:
+        raise ValueError(
+            "segment layout does not match the stacked catalog: "
+            f"{(fm.sigma, fm.sample_rate, fm.bits, fm.sa_sample_rate)} "
+            f"!= {sig}"
+        )
+    if fm.n_blocks > st.blocks_pad:
+        raise ValueError(
+            f"segment blocks {fm.n_blocks} exceed bucket {st.blocks_pad}"
+        )
+    if fm.device != st.device:
+        raise ValueError(f"segment on {fm.device}, catalog on {st.device}")
+
+
+def _seg_rows(st: StackedFMIndex, fm: FMIndex) -> dict:
+    """One segment's per-field row payloads, padded to the bucket shapes:
+    the update unit shared by ``stack_fm_indexes``, ``stacked_append`` and
+    ``stacked_replace_run``."""
+    NB, r, sigma = st.blocks_pad, st.sample_rate, st.sigma
+    dev, nb = st.device, fm.n_blocks
+    out = {}
+    if st.bits:
+        rows = torch.zeros((NB, st.fused.shape[1]), dtype=torch.int32,
+                           device=dev)
+        rows[:nb] = fm.fused
+        out["fused"] = rows
+    else:
+        rows = torch.full((NB, r), PAD, dtype=torch.int32, device=dev)
+        rows[:nb] = fm.bwt.view(nb, r)
+        out["blocks"] = rows
+        occ = torch.zeros((NB, sigma), dtype=torch.int32, device=dev)
+        occ[:nb] = fm.occ_samples[:-1]
+        out["occ"] = occ
+    out["c_array"] = fm.c_array
+    out["n_blocks"] = nb
+    out["lengths"] = fm.length
+    if st.sa_sample_rate:
+        MW, MV = _sample_widths(NB, r, st.sa_sample_rate)
+        marks = torch.zeros(MW, dtype=torch.int32, device=dev)
+        ranks = torch.zeros(MW, dtype=torch.int32, device=dev)
+        vals = torch.zeros(MV, dtype=torch.int32, device=dev)
+        m = fm.sa_marks.shape[0]
+        marks[:m] = fm.sa_marks
+        ranks[:m] = fm.sa_mark_ranks
+        raw = sa_values(fm)
+        vals[: raw.shape[0]] = raw
+        out["sa_marks"], out["sa_mark_ranks"], out["sa_vals"] = (
+            marks, ranks, vals)
+    return out
+
+
+def _write_segment(st: StackedFMIndex, i: int, rows: dict) -> None:
+    """Copy one segment's rows into slot ``i`` of every bucket tensor, in
+    place."""
+    NB = st.blocks_pad
+    for name in ("fused", "blocks"):
+        if name in rows:
+            getattr(st, name)[i * NB: (i + 1) * NB] = rows[name]
+    if "occ" in rows:
+        st.occ[i] = rows["occ"]
+    st.c_array[i] = rows["c_array"]
+    st.n_blocks[i] = rows["n_blocks"]
+    st.lengths[i] = rows["lengths"]
+    if st.sa_sample_rate:
+        MW, MV = _sample_widths(NB, st.sample_rate, st.sa_sample_rate)
+        st.sa_marks[i * MW: (i + 1) * MW] = rows["sa_marks"]
+        st.sa_mark_ranks[i * MW: (i + 1) * MW] = rows["sa_mark_ranks"]
+        st.sa_vals[i * MV: (i + 1) * MV] = rows["sa_vals"]
+
+
+def stacked_append(st: StackedFMIndex, fm: FMIndex) -> StackedFMIndex:
+    """Append one segment into spare bucket capacity, in place.
+
+    Writes the new segment's rows into slot ``n_seg`` of every bucket
+    tensor and returns the catalog with ``n_seg`` bumped.  No tensor is
+    reallocated (every ``data_ptr()`` stays), so ``st`` itself is stale
+    afterwards: keep the returned object only.  Raises ``ValueError``,
+    writing nothing, when the bucket is full or the segment does not fit;
+    callers re-stack."""
+    _stack_check(st, fm)
+    i = st.n_seg
+    if i >= st.seg_pad:
+        raise ValueError(f"stacked catalog full ({i} == seg_pad)")
+    _write_segment(st, i, _seg_rows(st, fm))
+    return dataclasses.replace(st, n_seg=i + 1)
+
+
+def stacked_replace_run(st: StackedFMIndex, start: int, count: int,
+                        fm: FMIndex) -> StackedFMIndex:
+    """Replace segments [start, start+count) with one merged segment.
+
+    The incremental stacked-catalog update after a compaction: later
+    segments shift left on the device through concatenations of the
+    existing slices (new tensors: overlapping in-place moves are refused
+    by torch), bucket shapes stay fixed.  ``st`` stays valid.  Raises
+    ``ValueError`` when the merged segment does not fit the bucket."""
+    _stack_check(st, fm)
+    n = st.n_seg
+    if not (0 <= start and count >= 1 and start + count <= n):
+        raise ValueError(f"bad run [{start}, {start + count}) of {n}")
+    rows = _seg_rows(st, fm)
+    S, NB = st.seg_pad, st.blocks_pad
+
+    def splice(arr, unit, new_rows, fill):
+        head = arr[: start * unit]
+        tail = arr[(start + count) * unit: n * unit]
+        new_rows = torch.as_tensor(new_rows, dtype=arr.dtype,
+                                   device=arr.device).reshape(
+            (-1,) + arr.shape[1:])
+        npad = S * unit - head.shape[0] - new_rows.shape[0] - tail.shape[0]
+        pad = torch.full((npad,) + arr.shape[1:], fill, dtype=arr.dtype,
+                         device=arr.device)
+        return torch.cat([head, new_rows, tail, pad])
+
+    rep = {"n_seg": n - count + 1}
+    if st.bits:
+        rep["fused"] = splice(st.fused, NB, rows["fused"], 0)
+    else:
+        rep["blocks"] = splice(st.blocks, NB, rows["blocks"], PAD)
+        rep["occ"] = splice(st.occ, 1, rows["occ"], 0)
+    rep["c_array"] = splice(st.c_array, 1, rows["c_array"], 0)
+    # pad segments clamp blk to 0 and start with ep == 0 (stack invariant)
+    rep["n_blocks"] = splice(st.n_blocks, 1, rows["n_blocks"], 1)
+    rep["lengths"] = splice(st.lengths, 1, rows["lengths"], 0)
+    if st.sa_sample_rate:
+        MW, MV = _sample_widths(NB, st.sample_rate, st.sa_sample_rate)
+        rep["sa_marks"] = splice(st.sa_marks, MW, rows["sa_marks"], 0)
+        rep["sa_mark_ranks"] = splice(st.sa_mark_ranks, MW,
+                                      rows["sa_mark_ranks"], 0)
+        rep["sa_vals"] = splice(st.sa_vals, MV, rows["sa_vals"], 0)
+    return dataclasses.replace(st, **rep)
+
+
+def _stacked_query(st: StackedFMIndex, patterns: torch.Tensor, k: int):
+    """(sp, ep int32[S, B], positions int32[S, B, k]) from the stacked
+    query kernel of the catalog's layout."""
+    if st.bits:
+        return ops.fm_query_stacked_packed(st, patterns, k)
+    return ops.fm_query_stacked_unpacked(st, patterns, k)
+
+
+def count_stacked(st: StackedFMIndex, patterns: torch.Tensor) -> torch.Tensor:
+    """Per-segment exact-match counts, int32[S, B] for int32[B, m]
+    PAD-padded patterns; row s is bit-identical to ``count`` on segment s
+    alone (pad-segment rows are all zero).  One stacked launch."""
+    sp, ep, _ = _stacked_query(st, patterns, 0)
+    return torch.clamp(ep - sp, min=0)
+
+
+def locate_stacked(st: StackedFMIndex, patterns: torch.Tensor, k: int):
+    """Per-segment first-k locate: (positions int32[S, B, k] segment-local,
+    sorted, filled with the segment length; counts int32[S, B] clipped to
+    k).  Row s is bit-identical to ``locate`` on segment s alone; the
+    caller offsets to global coordinates and merges.  One stacked launch."""
+    if st.sa_sample_rate == 0:
+        raise ValueError("catalog stacked without SA samples — no locate")
+    sp, ep, pos = _stacked_query(st, patterns, k)
+    return (torch.sort(pos, dim=2).values,
+            torch.clamp(ep - sp, min=0, max=k))

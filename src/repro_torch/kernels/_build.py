@@ -29,15 +29,24 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("rank_packed", "rank_select", "radix_hist", "radix_pos",
-           "rerank_scan", "char_histogram", "fm_query_packed",
-           "fm_query_unpacked", "merge_walk")
+# the kernels whose launches are counted, each with the ``csrc`` source
+# (stem) that holds its entry; SOURCES are the files to build
+KERNELS = {
+    "rank_packed": "rank_packed", "rank_select": "rank_select",
+    "radix_hist": "radix_hist", "radix_pos": "radix_pos",
+    "rerank_scan": "rerank_scan", "char_histogram": "char_histogram",
+    "fm_query_packed": "fm_query_packed",
+    "fm_query_unpacked": "fm_query_unpacked", "merge_walk": "merge_walk",
+    "fm_query_stacked_packed": "fm_query_stacked",
+    "fm_query_stacked_unpacked": "fm_query_stacked",
+}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of each C entry point (``<entry>_launch``): c_void_p for every
-# pointer and the stream
+# pointer and the stream, c_longlong for 64-bit strides
 SIGNATURES = {
     "rank_packed": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "rank_select": [_P, _I, _P, _P, _P, _P, _I, _P],
@@ -59,10 +68,19 @@ SIGNATURES = {
     # r, c_mat, nb, row, last, len, k, ins, stream
     "merge_walk_kway": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                         _I, _P, _P],
+    # stacked catalog: layout (fused, wid | blocks, occ), NB, sigma, (bits),
+    # r, n_seg, seg_pad, n_blocks, lengths, C, SA sample (marks, ranks,
+    # vals, MW, MV, rate), patterns, B, m, k, sp, ep, positions, stream
+    "fm_query_stacked_packed": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                _P, _P, _P, _L, _L, _I, _P, _I, _I, _I, _P,
+                                _P, _P, _P],
+    "fm_query_stacked_unpacked": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                                  _P, _P, _P, _L, _L, _I, _P, _I, _I, _I,
+                                  _P, _P, _P, _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
-BUILD_LOG: dict[str, str] = {}   # nvcc/ptxas output per kernel (last build)
+BUILD_LOG: dict[str, str] = {}   # nvcc/ptxas output per source (last build)
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, object] = {}
 
@@ -84,7 +102,7 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    """The library of kernel ``name``, named by a hash of its source, every
+    """The library of source ``name``, named by a hash of the source, every
     shared header (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
@@ -100,7 +118,7 @@ def build_all() -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in KERNELS:
+    for name in SOURCES:
         out = _target(name)
         if out.exists():
             continue
@@ -123,7 +141,7 @@ def build_all() -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name`` (building first)."""
+    """The loaded shared library of source ``name`` (building first)."""
     if name not in _libs:
         build_all()
         _libs[name] = ctypes.CDLL(str(_target(name)))
@@ -136,7 +154,7 @@ def launch(name: str, *args, entry: str | None = None) -> None:
     raise on a launch error, and count one launch of kernel ``name``."""
     entry = entry or name
     if entry not in _entries:
-        fn = getattr(library(name), f"{entry}_launch")
+        fn = getattr(library(KERNELS[name]), f"{entry}_launch")
         fn.argtypes = SIGNATURES[entry]
         fn.restype = ctypes.c_int
         _entries[entry] = fn

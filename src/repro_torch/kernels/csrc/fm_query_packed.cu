@@ -37,89 +37,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "rank_common.cuh"
-
-constexpr int MAX_SIGMA = 16;    // the packed layout's largest alphabet
-
-struct PackedIndex {
-  const uint32_t* fused;  // [n_blocks, wid]
-  int wid, sigma, W, n_blocks, r, n;
-};
-
-// One backward-search step on both interval ends with symbol c in the
-// alphabet: all loads of both rows are issued before any is used.
-template <int BITS>
-__device__ __forceinline__ void search_step(const PackedIndex& ix,
-                                            const int* sC, int c, int& sp,
-                                            int& ep) {
-  const int b0 = min(sp / ix.r, ix.n_blocks - 1);
-  const int b1 = min(ep / ix.r, ix.n_blocks - 1);
-  const int cut0 = sp - b0 * ix.r, cut1 = ep - b1 * ix.r;
-  const uint32_t* row0 = ix.fused + (size_t)b0 * ix.wid;
-  const uint32_t* row1 = ix.fused + (size_t)b1 * ix.wid;
-  const uint32_t pat = (uint32_t)c * Packed<BITS>::REP;
-  const int full0 = cut0 / Packed<BITS>::FPW, full1 = cut1 / Packed<BITS>::FPW;
-  const uint32_t part0 = part_mask<BITS>(cut0), part1 = part_mask<BITS>(cut1);
-  const int base0 = (int)__ldg(row0 + c), base1 = (int)__ldg(row1 + c);
-  int n0 = 0, n1 = 0;
-  for (int w0 = 0; w0 < ix.W; w0 += CHUNK) {
-    uint32_t x0[CHUNK], x1[CHUNK];
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) {
-      const bool in = w0 + i < ix.W;
-      x0[i] = in ? __ldg(row0 + ix.sigma + w0 + i) : 0u;
-      x1[i] = in ? __ldg(row1 + ix.sigma + w0 + i) : 0u;
-    }
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) {
-      n0 += word_count<BITS>(x0[i], w0 + i, pat, full0, part0);
-      n1 += word_count<BITS>(x1[i], w0 + i, pat, full1, part1);
-    }
-  }
-  sp = sC[c] + base0 + n0;
-  ep = sC[c] + base1 + n1;
-}
-
-// LF(row) = C[c] + Occ(c, row) with c = bwt[row], from one fetch of the
-// row (row < n, so its block needs no clamp).  The loads of the first
-// chunk and of every checkpoint are in flight together; rows wider than
-// CHUNK packed words load the rest afterwards.
-template <int BITS>
-__device__ __forceinline__ int lf_step(const PackedIndex& ix, const int* sC,
-                                       int row) {
-  const int blk = row / ix.r, cut = row - blk * ix.r;
-  const uint32_t* rw = ix.fused + (size_t)blk * ix.wid;
-  const int full = cut / Packed<BITS>::FPW;
-  uint32_t ck[MAX_SIGMA], x[CHUNK];
-#pragma unroll
-  for (int i = 0; i < MAX_SIGMA; ++i)
-    ck[i] = i < ix.sigma ? __ldg(rw + i) : 0u;
-#pragma unroll
-  for (int i = 0; i < CHUNK; ++i)
-    x[i] = i < ix.W ? __ldg(rw + ix.sigma + i) : 0u;
-  const uint32_t sw = __ldg(rw + ix.sigma + full);   // the word holding c
-  const uint32_t c =
-      (sw >> (BITS * (cut % Packed<BITS>::FPW))) & Packed<BITS>::FIELD;
-  const uint32_t pat = c * Packed<BITS>::REP, part = part_mask<BITS>(cut);
-  int cnt = 0;
-#pragma unroll
-  for (int i = 0; i < CHUNK; ++i)
-    cnt += word_count<BITS>(x[i], i, pat, full, part);
-  for (int w0 = CHUNK; w0 < ix.W; w0 += CHUNK) {
-    uint32_t y[CHUNK];
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i)
-      y[i] = w0 + i < ix.W ? __ldg(rw + ix.sigma + w0 + i) : 0u;
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i)
-      cnt += word_count<BITS>(y[i], w0 + i, pat, full, part);
-  }
-  uint32_t base = 0;
-#pragma unroll
-  for (int i = 0; i < MAX_SIGMA; ++i)
-    base = i == (int)c ? ck[i] : base;
-  return sC[c] + (int)base + cnt;
-}
+#include "fm_query_common.cuh"
 
 template <int BITS>
 __global__ void fm_query_packed_kernel(PackedIndex ix,
@@ -138,19 +56,8 @@ __global__ void fm_query_packed_kernel(PackedIndex ix,
   if (t >= (long long)B * lanes) return;
   const int b = (int)(t / lanes), j = (int)(t - (long long)b * lanes);
 
-  // -- backward search, right to left (PADs on the right come first) -----
-  const int* pat = patterns + (size_t)b * m;
-  int sp = 0, ep = ix.n;
-  int cn = m > 0 ? __ldg(pat + m - 1) : PAD;
-  for (int q = m - 1; q >= 0; --q) {
-    const int c = cn;
-    if (q > 0) cn = __ldg(pat + q - 1);
-    const bool in_alphabet = c >= 1 && c < ix.sigma;
-    if (in_alphabet && ep > sp)
-      search_step<BITS>(ix, sC, c, sp, ep);
-    else if (c != PAD && !in_alphabet)
-      ep = sp;                      // unknown symbol: empty interval
-  }
+  int sp, ep;
+  packed_search<BITS>(ix, sC, patterns + (size_t)b * m, m, sp, ep);
   if (j == 0) {
     sp_out[b] = sp;
     ep_out[b] = ep;
@@ -158,25 +65,9 @@ __global__ void fm_query_packed_kernel(PackedIndex ix,
   if (k == 0) return;
 
   // -- locate: walk row sp + j to its nearest sampled row ----------------
-  int row = sp + j;
-  int pos = 0;
-  if (row < ep) {
-    for (int steps = 0; steps < sa.rate; ++steps) {
-      const int w = row >> 5, bit = row & 31;
-      const uint32_t mw = __ldg(sa.marks + w);
-      const int mr = __ldg(sa.mark_ranks + w);
-      const int next = lf_step<BITS>(ix, sC, row);
-      const bool marked = (mw >> bit) & 1u;
-      row = marked ? row : next;     // a select: the row's loads stay
-      if (marked) {                  // issued beside the mark word's
-        pos = sa_value(sa, mw, mr, bit) + steps;
-        break;
-      }
-    }
-  } else {
-    pos = ix.n;
-  }
-  pos_out[(size_t)b * k + j] = pos;
+  const int row = sp + j;
+  pos_out[(size_t)b * k + j] =
+      row < ep ? packed_walk<BITS>(ix, sC, sa, row) : ix.n;
 }
 
 extern "C" int fm_query_packed_launch(
@@ -189,7 +80,7 @@ extern "C" int fm_query_packed_launch(
     PackedIndex ix{(const uint32_t*)fused, wid, sigma, wid - sigma,
                    n_blocks, r, n};
     SaSample sa{(const uint32_t*)marks, (const int*)mark_ranks,
-                (const uint32_t*)vals, n_vals, sa_rate, val_bits};
+                (const uint32_t*)vals, n_vals, sa_rate, val_bits, 0};
     const int threads = 128;
     const long long total = (long long)B * (k > 0 ? k : 1);
     const unsigned grid = (unsigned)((total + threads - 1) / threads);

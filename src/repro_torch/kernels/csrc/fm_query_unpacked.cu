@@ -36,39 +36,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "rank_common.cuh"
-
-constexpr int GROUP = 16;        // lanes that share one search
-constexpr int SPAN = 32;         // block symbols a walk lane loads together
-
-struct UnpackedIndex {
-  const int* bwt;   // [n_blocks * r]
-  const int* occ;   // [n_blocks + 1, sigma]
-  int sigma, n_blocks, r, n;
-};
-
-// LF(row) = C[c] + Occ(c, row) with c = bwt[row] (row < n: no clamp).
-__device__ __forceinline__ int lf_step(const UnpackedIndex& ix, const int* sC,
-                                       int row) {
-  const int blk = row / ix.r, cut = row - blk * ix.r;
-  const int* bp = ix.bwt + (size_t)blk * ix.r;
-  int s[SPAN];
-#pragma unroll
-  for (int i = 0; i < SPAN; ++i) s[i] = i < cut ? __ldg(bp + i) : 0;
-  const int c = __ldg(bp + cut);
-  const int base = __ldg(ix.occ + (size_t)blk * ix.sigma + c);
-  int cnt = 0;
-#pragma unroll
-  for (int i = 0; i < SPAN; ++i) cnt += i < cut && s[i] == c;
-  for (int j0 = SPAN; j0 < cut; j0 += SPAN) {
-#pragma unroll
-    for (int i = 0; i < SPAN; ++i)
-      s[i] = j0 + i < cut ? __ldg(bp + j0 + i) : 0;
-#pragma unroll
-    for (int i = 0; i < SPAN; ++i) cnt += j0 + i < cut && s[i] == c;
-  }
-  return sC[c] + base + cnt;
-}
+#include "fm_query_common.cuh"
 
 __global__ void fm_query_unpacked_kernel(UnpackedIndex ix,
                                          const int* __restrict__ C,
@@ -88,31 +56,8 @@ __global__ void fm_query_unpacked_kernel(UnpackedIndex ix,
   const int b = active ? (int)(t / lanes) : B - 1;
   const int j = active ? (int)(t - (long long)b * lanes) : lanes;
 
-  // -- backward search, right to left (PADs on the right come first) -----
-  const int* pat = patterns + (size_t)b * m;
-  int sp = 0, ep = ix.n;
-  int cn = m > 0 ? __ldg(pat + m - 1) : PAD;
-  for (int q = m - 1; q >= 0; --q) {
-    const int c = cn;
-    if (q > 0) cn = __ldg(pat + q - 1);
-    const bool in_alphabet = c >= 1 && c < ix.sigma;
-    const bool valid = in_alphabet && ep > sp;
-    const int b0 = min(sp / ix.r, ix.n_blocks - 1);
-    const int b1 = min(ep / ix.r, ix.n_blocks - 1);
-    const int* blks[2] = {ix.bwt + (size_t)b0 * ix.r,
-                          ix.bwt + (size_t)b1 * ix.r};
-    const int cuts[2] = {sp - b0 * ix.r, ep - b1 * ix.r};
-    const int base0 = valid ? __ldg(ix.occ + (size_t)b0 * ix.sigma + c) : 0;
-    const int base1 = valid ? __ldg(ix.occ + (size_t)b1 * ix.sigma + c) : 0;
-    int cnt[2];
-    group_counts<GROUP, 2>(blks, cuts, ix.r, c, valid, cnt);
-    if (valid) {
-      sp = sC[c] + base0 + cnt[0];
-      ep = sC[c] + base1 + cnt[1];
-    } else if (c != PAD && !in_alphabet) {
-      ep = sp;                      // unknown symbol: empty interval
-    }
-  }
+  int sp, ep;
+  unpacked_search(ix, sC, patterns + (size_t)b * m, m, sp, ep);
   if (active && j == 0) {
     sp_out[b] = sp;
     ep_out[b] = ep;
@@ -120,25 +65,9 @@ __global__ void fm_query_unpacked_kernel(UnpackedIndex ix,
   if (j >= k) return;               // count (k = 0), spare lanes, the tail
 
   // -- locate: walk row sp + j to its nearest sampled row ----------------
-  int row = sp + j;
-  int pos = 0;
-  if (row < ep) {
-    for (int steps = 0; steps < sa.rate; ++steps) {
-      const int w = row >> 5, bit = row & 31;
-      const uint32_t mw = __ldg(sa.marks + w);
-      const int mr = __ldg(sa.mark_ranks + w);
-      const int next = lf_step(ix, sC, row);
-      const bool marked = (mw >> bit) & 1u;
-      row = marked ? row : next;     // a select: the block's loads stay
-      if (marked) {                  // issued beside the mark word's
-        pos = sa_value(sa, mw, mr, bit) + steps;
-        break;
-      }
-    }
-  } else {
-    pos = ix.n;
-  }
-  pos_out[(size_t)b * k + j] = pos;
+  const int row = sp + j;
+  pos_out[(size_t)b * k + j] = row < ep ? unpacked_walk(ix, sC, sa, row)
+                                        : ix.n;
 }
 
 extern "C" int fm_query_unpacked_launch(
@@ -150,7 +79,7 @@ extern "C" int fm_query_unpacked_launch(
   if (B > 0) {
     UnpackedIndex ix{(const int*)bwt, (const int*)occ, sigma, n_blocks, r, n};
     SaSample sa{(const uint32_t*)marks, (const int*)mark_ranks,
-                (const uint32_t*)vals, n_vals, sa_rate, val_bits};
+                (const uint32_t*)vals, n_vals, sa_rate, val_bits, 0};
     const int lanes = (k > 0 ? (k + GROUP - 1) / GROUP : 1) * GROUP;
     const int threads = 128;
     const long long total = (long long)B * lanes;

@@ -117,13 +117,16 @@ __device__ __forceinline__ void group_counts(const int* const* blks,
 // are marked in `marks` (per-word exclusive popcounts in `mark_ranks`);
 // their values sit in row order in `vals`, raw int32 (val_bits = 0) or
 // bit-packed as value / rate at val_bits bits (n_vals words incl. a guard).
+// `off` shifts the value index: a stacked catalog's segment reads its own
+// slice of one value stream (raw values only), the clamp staying global.
 struct SaSample {
   const uint32_t* marks;
   const int* mark_ranks;
   const uint32_t* vals;
-  int n_vals;
+  long long n_vals;
   int rate;
   int val_bits;
+  long long off;
 };
 
 // The sampled SA value of a marked row whose mark word is `mw` and mark
@@ -133,7 +136,7 @@ __device__ __forceinline__ int sa_value(const SaSample& sa, uint32_t mw,
                                         int mr, int b) {
   const int idx = mr + __popc(mw & ((1u << b) - 1u));
   if (!sa.val_bits)
-    return (int)__ldg(sa.vals + min(max(idx, 0), sa.n_vals - 1));
+    return (int)__ldg(sa.vals + min(max(sa.off + idx, 0LL), sa.n_vals - 1));
   const long long bp = (long long)idx * sa.val_bits;
   const long long w = min(max(bp >> 5, 0LL), (long long)sa.n_vals - 2);
   const int off = (int)(bp & 31);

@@ -18,6 +18,14 @@ returns ``(sp, ep, positions)``: the suffix-array interval of every pattern
 and int32[B, k] unsorted positions, ``n`` in the slots past the pattern's
 occurrences.  CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise.
+
+The stacked wrappers (``fm_query_stacked_packed`` / ``_unpacked``, one
+launch of ``csrc/fm_query_stacked.cu``) take a segment catalog's bucket
+(``core.fm_index.StackedFMIndex``) and answer every pattern against every
+segment: ``(sp, ep)`` int32[S, B] and positions int32[S, B, k], row s
+being segment s's own answer (pad segments: zeros).  Their plain versions
+are the JAX package's stacked step loops, one batched rank call per step
+over the flat segment x batch lanes.
 """
 
 from __future__ import annotations
@@ -224,3 +232,150 @@ def fm_query_unpacked(fm, patterns, k: int = 0):
                    (fm.bwt, fm.occ_samples), (
                        fm.bwt.data_ptr(), fm.occ_samples.data_ptr(),
                        fm.n_blocks, fm.sigma, fm.sample_rate))
+
+
+# -- the stacked catalog: every pattern against every segment ---------------
+
+def _stacked_steps(st, patterns, k: int, occ, symbol):
+    """The plain stacked step loop over ``occ(seg, c, p)`` (exclusive rank
+    inside segment ``seg``) and ``symbol(seg, rows)``, on flat lanes
+    ``seg * B + b`` (search) and ``(seg * B + b) * k + j`` (walk), every
+    bucket segment included."""
+    S, (B, m) = st.seg_pad, patterns.shape
+    dev = patterns.device
+    seg = torch.arange(S, device=dev).repeat_interleave(B)
+
+    def rank(c, p):
+        return st.c_array[seg, c.long()] + occ(seg, c, p)
+
+    sp = torch.zeros(S * B, dtype=torch.int32, device=dev)
+    ep = st.lengths.repeat_interleave(B)
+    for j in range(m - 1, -1, -1):      # PADs sit on the right: first
+        sp, ep = interval_step(patterns[:, j].repeat(S), sp, ep, st.sigma,
+                               rank)
+    if not k:
+        return sp.view(S, B), ep.view(S, B), sp.new_empty((S, B, 0))
+    seg = torch.arange(S, device=dev).repeat_interleave(B * k)
+    rows = sp[:, None] + torch.arange(k, dtype=torch.int32,
+                                      device=dev)[None, :]
+    valid = (rows < ep[:, None]).reshape(-1)
+    rows = torch.where(valid, rows.reshape(-1), 0)
+    # per-segment SA-sample strides in the flat (segment-major) arrays:
+    # pseudo-row seg*MW*32 + row lands on segment seg's mark words, and
+    # idx_offset shifts into its slice of the value stream (int64: the
+    # products pass 2^31 at catalog scale)
+    MW = st.sa_marks.shape[0] // S
+    MV = st.sa_vals.shape[0] // S
+
+    def lookup(rows):
+        return sample_lookup(st.sa_marks, st.sa_mark_ranks, st.sa_vals,
+                             seg * (MW * 32) + rows, idx_offset=seg * MV)
+
+    def lf_next(rows):
+        c = symbol(seg, rows)
+        return st.c_array[seg, c.long()] + occ(seg, c, rows)
+
+    pos = locate_walk(st.sa_sample_rate, rows, valid, lookup, lf_next)
+    fill = st.lengths.repeat_interleave(B * k)
+    return (sp.view(S, B), ep.view(S, B),
+            torch.where(valid, pos, fill).view(S, B, k))
+
+
+def _stacked_blocks(st, seg, p):
+    """(bucket row, cutoff) of positions p inside segments seg; block ids
+    clamp to each segment's true block count."""
+    r = st.sample_rate
+    blk = torch.minimum(p // r, st.n_blocks[seg] - 1)
+    return seg * st.blocks_pad + blk, blk, p - blk * r
+
+
+def fm_query_stacked_packed_plain(st, patterns, k: int = 0):
+    """The plain version of ``fm_query_stacked_packed``: one batched
+    ``rank_packed_plain`` call per interval end and step over all lanes."""
+    r = st.sample_rate
+
+    def occ(seg, c, p):
+        row, _, cut = _stacked_blocks(st, seg, p)
+        return rank_packed_plain(st.fused, row, c, cut, bits=st.bits,
+                                 sigma=st.sigma)
+
+    def symbol(seg, rows):
+        return packed_symbol(st.fused, seg * st.blocks_pad + rows // r,
+                             rows % r, sigma=st.sigma, bits=st.bits)
+
+    return _stacked_steps(st, patterns, k, occ, symbol)
+
+
+def fm_query_stacked_unpacked_plain(st, patterns, k: int = 0):
+    """The plain version of ``fm_query_stacked_unpacked``: the checkpoint
+    gather plus one batched ``rank_select_plain`` call per interval end and
+    step over all lanes."""
+    r = st.sample_rate
+
+    def occ(seg, c, p):
+        row, blk, cut = _stacked_blocks(st, seg, p)
+        return (st.occ[seg, blk.long(), c.long()]
+                + rank_select_plain(st.blocks, row, c, cut))
+
+    def symbol(seg, rows):
+        return st.blocks[(seg * st.blocks_pad + rows // r).long(),
+                         (rows % r).long()]
+
+    return _stacked_steps(st, patterns, k, occ, symbol)
+
+
+def _stacked_launch(name, st, patterns, k, tensors, layout_args):
+    """Check the CUDA arguments, allocate the [S, B] / [S, B, k] outputs
+    and launch ``name`` once for the whole catalog and batch."""
+    sample, MW, MV = (), 0, 0
+    if k:
+        if st.sa_sample_rate == 0 or st.sa_marks is None:
+            raise ValueError(f"{name}: catalog stacked without SA samples")
+        sample = (st.sa_marks, st.sa_mark_ranks, st.sa_vals)
+        MW = st.sa_marks.shape[0] // st.seg_pad
+        MV = st.sa_vals.shape[0] // st.seg_pad
+    _build.check_cuda(name, *tensors, st.n_blocks, st.lengths, st.c_array,
+                      *sample, patterns)
+    if patterns.dim() != 2 or k < 0:
+        raise ValueError(f"{name}: patterns must be int32[B, m], k >= 0")
+    S, (B, m) = st.seg_pad, patterns.shape
+    dev = patterns.device
+    sp = torch.empty((S, B), dtype=torch.int32, device=dev)
+    ep = torch.empty((S, B), dtype=torch.int32, device=dev)
+    pos = torch.empty((S, B, k), dtype=torch.int32, device=dev)
+    if B:
+        ptrs = [t.data_ptr() for t in sample] or [None] * 3
+        _build.launch(name, *layout_args, st.n_seg, S, st.n_blocks.data_ptr(),
+                      st.lengths.data_ptr(), st.c_array.data_ptr(), *ptrs,
+                      MW, MV, st.sa_sample_rate if k else 0,
+                      patterns.data_ptr(), B, m, k, sp.data_ptr(),
+                      ep.data_ptr(), pos.data_ptr())
+    return sp, ep, pos
+
+
+def fm_query_stacked_packed(st, patterns, k: int = 0):
+    """(sp, ep, positions) of every pattern in every segment of a packed
+    bucket (``st.bits`` 2 or 4); the plain version for CPU tensors, one
+    kernel launch otherwise."""
+    fused = st.fused
+    if st.bits not in (2, 4) or fused is None or st.sigma > 1 << st.bits:
+        raise ValueError(f"fm_query_stacked_packed: no packed layout "
+                         f"(bits={st.bits}, sigma={st.sigma})")
+    if _build.on_cpu(fused, st.c_array, patterns):
+        return fm_query_stacked_packed_plain(st, patterns, k)
+    return _stacked_launch("fm_query_stacked_packed", st, patterns, k,
+                           (fused,), (fused.data_ptr(), fused.shape[1],
+                                      st.blocks_pad, st.sigma, st.bits,
+                                      st.sample_rate))
+
+
+def fm_query_stacked_unpacked(st, patterns, k: int = 0):
+    """(sp, ep, positions) of every pattern in every segment of an
+    unpacked bucket; the plain version for CPU tensors, one kernel launch
+    otherwise."""
+    if _build.on_cpu(st.blocks, st.occ, st.c_array, patterns):
+        return fm_query_stacked_unpacked_plain(st, patterns, k)
+    return _stacked_launch("fm_query_stacked_unpacked", st, patterns, k,
+                           (st.blocks, st.occ), (
+                               st.blocks.data_ptr(), st.occ.data_ptr(),
+                               st.blocks_pad, st.sigma, st.sample_rate))

@@ -3,7 +3,8 @@ signatures.
 
 The kernel wrappers (``rank_packed``, ``rank_select``, ``radix_hist``,
 ``radix_pos``, ``rerank_scan``, ``char_histogram``, ``fm_query_packed``,
-``fm_query_unpacked``) dispatch on their tensors' device: CPU tensors take
+``fm_query_unpacked``, ``fm_query_stacked_packed``,
+``fm_query_stacked_unpacked``) dispatch on their tensors' device: CPU tensors take
 the plain PyTorch version, CUDA tensors launch the hand-written kernel (or
 raise).  No argument or environment variable reroutes a CUDA tensor to
 plain code.  Launches are counted in ``_build.LAUNCHES``.
@@ -16,6 +17,10 @@ import torch
 from . import char_histogram as _char_histogram
 from . import rerank_scan as _rerank_scan
 from .fm_query import fm_query_packed, fm_query_unpacked  # noqa: F401
+from .fm_query import (  # noqa: F401  (re-export)
+    fm_query_stacked_packed,
+    fm_query_stacked_unpacked,
+)
 from .radix_hist import TILE
 from .radix_hist import radix_hist  # noqa: F401  (re-export)
 from .radix_sort import radix_pos  # noqa: F401  (re-export)

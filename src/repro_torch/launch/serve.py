@@ -1,6 +1,7 @@
-"""Serving launcher: build (or restore) a single-device FM index over a
-synthetic corpus and serve batched count queries and a locate batch;
-optionally checkpoint the built index so later launches skip the build.
+"""Serving launcher: build (or restore) a single-device FM index, or a
+segmented catalog, over a synthetic corpus and serve batched count queries
+and a locate batch; optionally checkpoint it so later launches skip the
+build.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --kind dna --n 65536
     PYTHONPATH=src python -m repro_torch.launch.serve --n 4096 --device cpu
@@ -11,13 +12,24 @@ optionally checkpoint the built index so later launches skip the build.
     PYTHONPATH=src python -m repro_torch.launch.serve --kind dna \
         --ckpt-dir idx --restore
 
-Segmented catalogs, appends, the async frontend and fault schedules are
-not ported yet: argparse rejects their flags.
+    # segmented catalog: build + save, then restore and append new text
+    # (each append followed by the background compaction policy)
+    PYTHONPATH=src python -m repro_torch.launch.serve --kind dna \
+        --n 65536 --segments 4 --ckpt-dir cat
+    PYTHONPATH=src python -m repro_torch.launch.serve --ckpt-dir cat \
+        --restore --append new_tokens.npy
+
+Appends run synchronously, as in the reference's path without
+``--serve-async``.  The async frontend and fault schedules are not ported
+yet: argparse rejects ``--serve-async``, ``--queue-depth``,
+``--max-wait-ms``, ``--slo-p99-ms*``, ``--locate-frac`` and
+``--fault-schedule``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -42,9 +54,23 @@ def main(argv=None):
                     help="checkpoint steps to retain under --ckpt-dir")
     ap.add_argument("--restore", action="store_true",
                     help="restore from --ckpt-dir instead of building")
+    ap.add_argument("--segments", type=int, default=0,
+                    help="build a segmented catalog of this many segments "
+                         "(0 = monolithic index); saved under --ckpt-dir "
+                         "as a SegmentedIndex catalog")
+    ap.add_argument("--append", action="append", default=[],
+                    metavar="TOKENS_FILE",
+                    help="append tokens (.npy, or .npz with a 'tokens' "
+                         "array) to the built or restored segmented "
+                         "catalog; repeatable.  Each append runs the "
+                         "background compaction policy; the catalog is "
+                         "re-saved to --ckpt-dir")
     args = ap.parse_args(argv)
     if args.restore and not args.ckpt_dir:
         ap.error("--restore requires --ckpt-dir")
+    if args.segments > args.n:
+        ap.error(f"--segments {args.segments} exceeds --n {args.n} "
+                 "(every segment needs at least one token)")
 
     from ..core.fm_index import PAD
     from ..core.index_io import (
@@ -54,6 +80,7 @@ def main(argv=None):
         save_index,
     )
     from ..core.pipeline import build_index
+    from ..core.segments import SegmentedIndex, unstored_knobs
     from ..data.corpus import corpus
     from ..devices import resolve_device
 
@@ -63,7 +90,34 @@ def main(argv=None):
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    if args.restore:
+    def load_tokens(path):
+        if path.endswith(".npz"):
+            with np.load(path) as z:
+                return np.asarray(z["tokens"], np.int32)
+        return np.asarray(np.load(path), np.int32)
+
+    appended = [load_tokens(p) for p in args.append]
+    catalog_json = (os.path.join(args.ckpt_dir, "catalog.json")
+                    if args.ckpt_dir else None)
+
+    if args.restore and catalog_json and os.path.exists(catalog_json):
+        t0 = time.perf_counter()
+        # the catalog stores no cost model or fan-out: take the config's
+        index = SegmentedIndex.load(args.ckpt_dir, device=dev,
+                                    **unstored_knobs(icfg))
+        for q in index.quarantined:
+            print(f"WARNING: segment {q['seg_id']} quarantined "
+                  f"({q['reason']}); serving degraded")
+        if not index.segments:
+            ap.error(f"catalog under {args.ckpt_dir} has no healthy "
+                     "segments left to serve")
+        toks = np.concatenate([s.tokens for s in index.segments])
+        args.n = len(toks)
+        sync()
+        print(f"restored segmented catalog ({len(index.segments)} segments, "
+              f"{index.total_tokens} tokens, sigma={index.sigma}) on {dev} "
+              f"in {time.perf_counter() - t0:.3f}s")
+    elif args.restore:
         t0 = time.perf_counter()
         info = describe_index(args.ckpt_dir)
         # query patterns must be sampled from the corpus the index was
@@ -77,6 +131,17 @@ def main(argv=None):
         sync()
         print(f"restored {info.kind} index (n={info.length}, "
               f"sigma={info.sigma}, bits={info.bits}) on {dev} in "
+              f"{time.perf_counter() - t0:.3f}s")
+    elif args.segments > 0:
+        toks = corpus(args.kind, args.n)
+        t0 = time.perf_counter()
+        index = SegmentedIndex.from_config(int(toks.max()) + 1, icfg,
+                                           device=dev)
+        for chunk in np.array_split(toks, args.segments):
+            index.append(chunk)
+        sync()
+        print(f"segmented catalog built over {len(toks)} tokens "
+              f"({args.segments} segments) on {dev} in "
               f"{time.perf_counter() - t0:.3f}s")
     else:
         toks = corpus(args.kind, args.n)
@@ -95,13 +160,35 @@ def main(argv=None):
             print(f"checkpointed to {args.ckpt_dir} step {step} in "
                   f"{time.perf_counter() - t0:.3f}s")
 
+    segmented = isinstance(index, SegmentedIndex)
+    if appended and not segmented:
+        ap.error("--append requires a segmented catalog "
+                 "(--segments N, or --restore of one)")
+    for extra in appended:
+        t0 = time.perf_counter()
+        index.append(extra)
+        merges = index.maybe_compact()
+        sync()
+        print(f"appended {len(extra)} tokens ({merges} compactions, "
+              f"{len(index.segments)} segments) in "
+              f"{time.perf_counter() - t0:.3f}s")
+    if segmented and args.ckpt_dir:
+        t0 = time.perf_counter()
+        index.save(args.ckpt_dir)
+        print(f"segmented catalog saved to {args.ckpt_dir} in "
+              f"{time.perf_counter() - t0:.3f}s")
+
+    # query patterns come from every text source, so appended segments
+    # are exercised beside the old ones
+    sources = [toks] + appended
     rng = np.random.default_rng(0)
 
     def sample():
-        hi = min(args.pattern_len, len(toks) - 1)
+        src = sources[int(rng.integers(len(sources)))]
+        hi = min(args.pattern_len, len(src) - 1)
         L = int(rng.integers(3, hi)) if hi > 3 else max(1, hi)
-        st = int(rng.integers(0, max(1, len(toks) - L)))
-        return toks[st: st + L]
+        st = int(rng.integers(0, max(1, len(src) - L)))
+        return src[st: st + L]
 
     def batch():
         pats = np.full((args.batch, args.pattern_len), PAD, np.int32)
@@ -129,7 +216,9 @@ def main(argv=None):
     found = int(counts.sum())
     print(f"locate batch of {args.batch} (k={args.locate_k}): {found} "
           f"positions in {(time.perf_counter() - t0) * 1e3:.1f}ms")
-    return {"total_hits": total, "located": found, "n": args.n}
+    return {"total_hits": total, "located": found,
+            "n": args.n + sum(len(a) for a in appended),
+            "segments": len(index.segments) if segmented else 0}
 
 
 if __name__ == "__main__":

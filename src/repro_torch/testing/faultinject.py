@@ -15,8 +15,9 @@ fires so a sweep can cover all of them.
 
 Failpoint catalog (every name the reference defines; in this package
 ``training/checkpoint.py`` hits ``io.write`` and ``io.rename``,
-``core/bwt_merge.py`` hits ``merge.mid`` and ``merge.kway``, and the rest
-wait for the modules that hit them in the reference):
+``core/journal.py`` ``io.write``, ``io.fsync``, ``io.rename`` and
+``restore.checksum``, ``core/bwt_merge.py`` ``merge.mid`` and
+``merge.kway``; ``worker.flush`` waits for the serving frontend):
 
 =================  ==========================================================
 ``io.write``       before writing a durable artifact file (checkpoint

@@ -181,8 +181,11 @@ class TestSuffixArray:
         assert cap > n_active
         buf = torch.full((cap,), n, dtype=torch.int32)
         buf[:n_active] = pos
+        # copies: jnp.asarray may alias the numpy buffer, and the
+        # reference runs asynchronously while _fast_round writes rank in
+        # place
         want_rank, want_active, want_still = j_fast_round(n, cap, "compare")(
-            jnp.asarray(rank.numpy()), jnp.asarray(buf.numpy()),
+            jnp.asarray(rank.numpy().copy()), jnp.asarray(buf.numpy().copy()),
             jnp.int32(n_active), jnp.int32(q))
         got_active, got_still = _fast_round(rank, buf, n_active, q, cap=cap,
                                             engine="compare")

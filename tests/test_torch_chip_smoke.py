@@ -216,3 +216,115 @@ def test_pointer_chase_source_declares_its_signature():
     src = chip_smoke.CHASE_SRC.read_text()
     m = re.search(r'extern "C" int pointer_chase_launch\(([^)]*)\)', src)
     assert m and len(m.group(1).split(",")) == len(chip_smoke.CHASE_ARGTYPES)
+
+
+# -- phase 8: the segmented catalog --------------------------------------
+
+def test_bucket_bytes_at_the_catalog_scale():
+    """Phase 8's buckets: DNA 2^28 in 16 segments (2^18 + 1 blocks each,
+    15-word fused rows at r = 64, SA stride 32) is 0.50 GB of rows and
+    0.20 GB of SA sample; a 17th segment doubles it (1.4 GB); proteins
+    2^24 in 4 segments (r + sigma = 87 words per block)."""
+    dna = chip_smoke.bucket_bytes(16, (1 << 18) + 1, 15, 64, 32)
+    assert dna == {"seg_pad": 16, "blocks_pad": 1 << 19,
+                   "rows": 503_316_480, "sa_sample": 201_326_592}
+    grown = chip_smoke.bucket_bytes(17, (1 << 18) + 1, 15, 64, 32)
+    assert grown["seg_pad"] == 32
+    assert grown["rows"] + grown["sa_sample"] == 1_409_286_144
+    assert chip_smoke.bucket_bytes(4, (1 << 16) + 1, 64 + 23, 64, 32) == {
+        "seg_pad": 4, "blocks_pad": 1 << 17, "rows": 182_452_224,
+        "sa_sample": 12_582_912}
+
+
+def _small_catalog(pack, n_seg=3, seg_pad=None, compress_sa=False):
+    import torch  # noqa: F401
+
+    from repro_torch.core.fm_index import stack_fm_indexes
+    from repro_torch.core.pipeline import build_index
+    from repro_torch.data.corpus import corpus
+
+    fms = [build_index(corpus("dna", 300 + 70 * i, seed=i), sample_rate=16,
+                       sa_sample_rate=8, sigma=6, pack=pack,
+                       compress_sa=compress_sa, device="cpu").fm
+           for i in range(n_seg)]
+    return fms, stack_fm_indexes(fms, seg_pad=seg_pad)
+
+
+@pytest.mark.parametrize("pack", [None, False])
+def test_built_bucket_matches_its_arithmetic(pack):
+    fms, st = _small_catalog(pack)
+    row_words = st.fused.shape[1] if st.bits else 16 + st.sigma
+    assert chip_smoke.stacked_bucket_bytes(st) == chip_smoke.bucket_bytes(
+        3, max(f.n_blocks for f in fms), row_words, 16, 8)
+
+
+@pytest.mark.parametrize("pack", [None, False])
+def test_stacked_bound_sums_the_segments(pack):
+    """The stacked kernel's bytes bound over n_seg x B lanes: each
+    segment's own bytes (``query_bytes`` of its view, equal to its index's
+    with raw SA values), the patterns once, pad rows' outputs; its walk is
+    the longest segment's."""
+    from repro_torch.data.corpus import corpus
+
+    fms, st = _small_catalog(pack, seg_pad=4)
+    toks = corpus("dna", 300, seed=0)
+    P = chip_smoke.pad_patterns(chip_smoke.sample_patterns(toks, 40, 1),
+                                32, "cpu")
+    for k in (0, 4):
+        per = [chip_smoke.query_bytes(f, P, k) for f in fms]
+        views = [chip_smoke.query_bytes(chip_smoke.segment_view(st, s), P, k)
+                 for s in range(3)]
+        assert views == per
+        B = P.shape[0]
+        want = (sum(b for b, _ in per) - 2 * 4 * P.numel()
+                + 4 * (2 * B + B * k))
+        assert chip_smoke.stacked_query_bytes(st, P, k) == (
+            want, max(w for _, w in per))
+
+
+def test_phase_catalog_runs_on_the_cpu():
+    """Phase 8 at a tiny size on the CPU (plain versions, no launch): the
+    catalog's checks pass (the 2-bit catalog's too), segment_min_tokens shrinks with the corpus, the
+    growth compacts and the save -> load and second save pass."""
+    from repro_torch.data.corpus import corpus
+
+    rec, launches, rows = chip_smoke.phase_catalog(
+        corpus("dna", 1 << 13), 11, 9, device="cpu", requests=32)
+    dna, prot = rec["dna"], rec["proteins"]
+    assert dna["segments"] == 16 and prot["segments"] == 4
+    assert dna["bits"] == 4 and prot["bits"] == 0
+    assert dna["max_abs_err"] == prot["max_abs_err"] == 0
+    two_bit = rec["two_bit"]
+    assert two_bit["bits"] == 2 and two_bit["max_abs_err"] == 0
+    assert two_bit["seg_pad"] > two_bit["segments"]
+    assert dna["growth"]["merges"] >= 1
+    assert dna["forced_kway"]["fm_mismatch"] == []
+    assert dna["save_load"]["second_save_files"] >= 1
+    assert all(set(v.values()) == {0} for v in launches.values())
+    assert rows == {"fm_query_stacked_packed": None,
+                    "fm_query_stacked_unpacked": None}
+
+
+def test_kernels_line_lists_every_kernel_with_every_key():
+    from repro_torch.kernels import _build
+
+    rows = {name: dict(max_abs_err=0, ms=1.0, plain_ms=2.0, bound_ms=0.5,
+                       library_ms=None, device_ms=0.9, shape="s")
+            for name in _build.KERNELS}
+    rows["fm_query_stacked_packed"]["dependent_steps"] = {"search": 32,
+                                                         "walk": 32}
+    launches = {name: 1 for name in _build.KERNELS}
+    line = chip_smoke.kernels_line(rows, launches, {"catalog_dna": launches})
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [k["name"] for k in line["kernels"]] == list(_build.KERNELS)
+    for entry in line["kernels"]:
+        assert keys <= set(entry)
+        assert (chip_smoke.ROOT / entry["source"]).is_file()
+        assert entry["replaces"].startswith("src/repro/kernels/")
+    stacked = {k["name"]: k for k in line["kernels"]
+               if "stacked" in k["name"]}
+    assert {k["source"] for k in stacked.values()} == {
+        "src/repro_torch/kernels/csrc/fm_query_stacked.cu"}
+    assert stacked["fm_query_stacked_packed"]["dependent_steps"] == {
+        "search": 32, "walk": 32}

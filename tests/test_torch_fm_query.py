@@ -195,9 +195,10 @@ def _launch_params(src: str, name: str) -> int:
 
 @pytest.mark.parametrize("name", _build.KERNELS)
 def test_kernel_source_declares_its_signature(name):
-    """Every kernel source exists and its C entry takes as many parameters
-    as the ctypes signature passes (file reads only, no nvcc)."""
-    src = (_build.CSRC / f"{name}.cu").read_text()
+    """Every kernel's source exists and its C entry takes as many
+    parameters as the ctypes signature passes (file reads only, no
+    nvcc)."""
+    src = (_build.CSRC / f"{_build.KERNELS[name]}.cu").read_text()
     assert _launch_params(src, name) == len(_build.SIGNATURES[name])
     assert "Replaces:" in src and "Bound on the H100" in src
 
@@ -207,7 +208,7 @@ def test_every_c_entry_declares_its_signature(entry):
     """Every ctypes signature, a kernel's own C entry or another entry of
     its library (``merge_walk_kway``), matches exactly one C entry of the
     kernel sources in its parameter count."""
-    srcs = [(_build.CSRC / f"{n}.cu").read_text() for n in _build.KERNELS]
+    srcs = [(_build.CSRC / f"{n}.cu").read_text() for n in _build.SOURCES]
     found = [s for s in srcs if f'extern "C" int {entry}_launch(' in s]
     assert len(found) == 1
     assert _launch_params(found[0], entry) == len(_build.SIGNATURES[entry])
@@ -219,9 +220,9 @@ def test_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     for f in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    before = {name: _build._target(name) for name in _build.KERNELS}
+    before = {name: _build._target(name) for name in _build.SOURCES}
     header = tmp_path / "rank_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    after = {name: _build._target(name) for name in _build.KERNELS}
-    assert all(before[n] != after[n] for n in _build.KERNELS)
-    assert len(set(after.values())) == len(_build.KERNELS)
+    after = {name: _build._target(name) for name in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    assert len(set(after.values())) == len(_build.SOURCES)

@@ -122,7 +122,7 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert out["total_hits"] > 0 and out["located"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--segments", "2"], ["--serve-async"]])
+@pytest.mark.parametrize("flag", [["--queue-depth", "8"], ["--serve-async"]])
 def test_serve_launcher_unported_flags_raise(flag):
     with pytest.raises(SystemExit):                 # argparse: unknown flag
         serve.main(["--n", "1000", "--device", "cpu", *flag])

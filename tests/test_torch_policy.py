@@ -45,7 +45,7 @@ def test_port_files_found():
             "chip_smoke.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" /
                              "csrc").glob("*.cu")} == {
-        f"{k}.cu" for k in _build.KERNELS}
+        f"{k}.cu" for k in _build.SOURCES}
 
 
 @pytest.fixture
