@@ -77,11 +77,40 @@ script exits nonzero and prints no final result:
      after one more append (only the new segment's files written); (b)
      proteins at n = 2^24 in 4 segments: fm_query_stacked_unpacked, the
      same serving checks
+  9  the async frontend (serving/frontend.py) on the card: (a) phase 2's
+     DNA index (parked on the host through phases 7-8) behind
+     FMQueryServer.from_config and AsyncQueryFrontend.from_config, 16,384
+     requests per scenario (lengths 3-32 from the text, 20% locate, k =
+     16): a closed loop of 64 client threads, an open loop at 70% of its
+     qps, an unpaced burst into a 64-deep queue (max_wait_ms 0.5) that
+     must shed; a profiled closed-loop window (device-busy share, given
+     only when the profiler saw every launch the wrapper counted) and the
+     sync flush of the same requests; (c) faults: worker.flush armed at
+     its first hit (only that flush's futures fail, one worker restart),
+     deadline_ms=0 behind a full batch (DeadlineExceeded), stop() with
+     requests pending (every future resolves); (b) the DNA corpus as a
+     16-segment catalog: the closed loop, then an open loop while
+     fe.append adds phase 7's eight documents one by one (each request
+     equal to the direct answer of a catalog state between the appends
+     resolved at its submission and those submitted at its answer;
+     requests after an append see its text); (d) launch.serve
+     --serve-async --segments 4 --append --ckpt-dir at n = 2^24 and the
+     saved catalog reloaded; (e) dedup: DNA 2^24 with its first 2^20
+     tokens planted again, duplicate_window_mask (window 32, batch 4096)
+     flagging both copies, 1024 windows against brute force, and
+     contamination_report on 1024 sequences.  Every answer equals the
+     direct index call (made before a frontend starts or after it stops);
+     each served bucket chunk is one fm_query_packed or
+     fm_query_stacked_packed launch and no rank kernel launches; a future
+     that raises or a worker restart outside (c) fails the run; per-bucket
+     p50/p99 print beside the SLOs (a p99 over its SLO is a finding, not a
+     failure)
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore, each merge of phase 7, each catalog
-of phase 8: its appends and its serving) and read just after it.  Then a
-``kernels`` line (launches on the main paths of phases 2-3, 7 and 8 and on
+of phase 8: its appends and its serving, each frontend scenario of phase
+9, its launcher call and its dedup) and read just after it.  Then a
+``kernels`` line (launches on the main paths of phases 2-3 and 7-9 and on
 each path, parity error, times and bounds), the card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
 kernel time under its bound (bytes over the card's HBM peak; for the
@@ -200,7 +229,7 @@ def check_reading(name: str, device_ms: float, bound: float,
 
 
 def kernel_device_split(fn, kernel, reps: int = 20,
-                        attempts: int = 3) -> dict:
+                        attempts: int = 5) -> dict:
     """Device milliseconds per call and recorded launches of each device
     row (kernel, memset, copy) whose name contains ``kernel`` (a string, or
     a tuple of them), over ``reps`` calls after one warm-up, from
@@ -2065,6 +2094,23 @@ def check_catalog_answers(cat, pats, counts, located, n_brute: int) -> None:
     check_answers(toks, pats, counts, located, n_brute=0)
 
 
+def catalog_config(n: int, merge_log2n: int):
+    """(cfg, full, top, docs) of the DNA corpus of ``n`` tokens as a
+    catalog of ``DNA_SEGMENTS`` segments: the card's config with
+    ``segment_min_tokens`` cut to a segment's size when the corpus is (a
+    reduced run; ``full`` says it is not), and phase 7's eight documents,
+    the largest 2^top tokens, kept under it."""
+    from repro_torch.configs.bwt_index import CONFIG
+    from repro_torch.data.corpus import corpus
+
+    min_tokens = min(CONFIG.segment_min_tokens, n // DNA_SEGMENTS)
+    cfg = CONFIG.replace(segment_min_tokens=min_tokens)
+    top = min(merge_log2n, (min_tokens - 1).bit_length() - 1)
+    docs = [corpus("dna", 1 << (top - d), seed=100 + i)
+            for i, d in enumerate(DNA_RUN)]
+    return cfg, min_tokens == CONFIG.segment_min_tokens, top, docs
+
+
 def catalog_path(kind: str, toks, n_seg: int, cfg, device="cuda",
                  requests: int = 1024, seed: int = 8) -> dict:
     """One catalog main path: ``SegmentedIndex.from_config`` with
@@ -2332,21 +2378,15 @@ def phase_catalog(dna_toks, proteins_log2n: int, merge_log2n: int,
     Returns (record, launches per path, kernels-line rows)."""
     import torch
 
-    from repro_torch.configs.bwt_index import CONFIG
     from repro_torch.data.corpus import corpus
 
     cuda = torch.device(device).type == "cuda"
-    min_tokens = min(CONFIG.segment_min_tokens, len(dna_toks) // DNA_SEGMENTS)
-    cfg = CONFIG.replace(segment_min_tokens=min_tokens)
-    full = min_tokens == CONFIG.segment_min_tokens
-    top = min(merge_log2n, (min_tokens - 1).bit_length() - 1)
+    cfg, full, top, docs = catalog_config(len(dna_toks), merge_log2n)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     a = catalog_path("dna", dna_toks, DNA_SEGMENTS, cfg, device, requests)
     cat = a["catalog"]
-    docs = [corpus("dna", 1 << (top - d), seed=100 + i)
-            for i, d in enumerate(DNA_RUN)]
     growth = catalog_growth(cat, docs, a["pats"], device, requests)
     require(growth["merges"] >= 1, "growth: the run never compacted")
     if full:
@@ -2379,6 +2419,739 @@ def phase_catalog(dna_toks, proteins_log2n: int, merge_log2n: int,
             "fm_query_stacked_unpacked": b["row"]}
     return ({"dna": rec_a, "proteins": b["rec"], "two_bit": two_bit},
             launches, rows)
+
+
+# --------------------------------------------------------------------------
+# phase 9: the async frontend, the launcher's --serve-async, dedup
+# --------------------------------------------------------------------------
+
+FRONTEND_REQUESTS = 1 << 14    # per scenario
+FRONTEND_CLIENTS = 64          # closed-loop client threads
+LOCATE_FRAC = 0.2              # share of locate requests (k = LOCATE_K)
+OVERLOAD_QUEUE = 64            # the overload scenario's admission bound
+RESULT_TIMEOUT_S = 120
+# the build kernels a live append (and a compaction by rebuild) launches
+BUILD_KERNELS = ("radix_hist", "radix_pos", "rerank_scan", "char_histogram")
+
+
+def frontend_requests(toks, count: int, seed: int):
+    """``count`` (pattern, kind) requests: substrings of ``toks`` of
+    lengths 3-32, each a locate with probability ``LOCATE_FRAC``."""
+    import numpy as np
+
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0xF9]))
+    pats = sample_patterns(toks, count, seed, hi=min(32, len(toks) - 1))
+    return [(p, "locate" if rng.random() < LOCATE_FRAC else "count")
+            for p in pats]
+
+
+def direct_answers(index, reqs, device, batch: int = 1024):
+    """(counts int64[N], positions int64[N, LOCATE_K]) of the requests'
+    patterns by direct ``index.count`` / ``index.locate`` calls, ``batch``
+    patterns at a time: called before a frontend starts or after it
+    stops, never while its worker dispatches."""
+    import numpy as np
+
+    pats = [p for p, _ in reqs]
+    L = max(len(p) for p in pats)
+    counts, pos = [], []
+    for lo in range(0, len(pats), batch):
+        P = pad_patterns(pats[lo: lo + batch], L, device)
+        counts.append(index.count(P).cpu().numpy().astype(np.int64))
+        pos.append(index.locate(P, LOCATE_K)[0].cpu().numpy().astype(
+            np.int64))
+    return np.concatenate(counts), np.concatenate(pos)
+
+
+def outcome(fut):
+    """A future's result, or the exception it resolved to."""
+    try:
+        return fut.result(timeout=RESULT_TIMEOUT_S)
+    except Exception as e:  # noqa: BLE001 — the caller checks every one
+        return e
+
+
+def submit(fe, req):
+    pat, kind = req
+    return fe.submit(pat, kind, k=LOCATE_K if kind == "locate" else None)
+
+
+def run_closed(fe, reqs, clients: int):
+    """``clients`` threads, each submitting its share of ``reqs`` and
+    waiting for each answer before the next: (outcomes, wall s)."""
+    import threading
+
+    results = [None] * len(reqs)
+
+    def client(start):
+        for i in range(start, len(reqs), clients):
+            results[i] = outcome(submit(fe, reqs[i]))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10 * RESULT_TIMEOUT_S)
+        require(not t.is_alive(), "closed loop: a client thread hung")
+    return results, time.perf_counter() - t0
+
+
+def run_open(fe, reqs, target_qps):
+    """Requests on a fixed-rate schedule, not waiting for answers
+    (``target_qps`` None: an unpaced burst), then every answer:
+    (outcomes, wall s)."""
+    futs = []
+    interval = 1.0 / target_qps if target_qps else 0.0
+    t0 = time.perf_counter()
+    for i, req in enumerate(reqs):
+        delay = t0 + i * interval - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        futs.append(submit(fe, req))
+    results = [outcome(f) for f in futs]
+    return results, time.perf_counter() - t0
+
+
+def no_failure(what: str, results) -> None:
+    """No future resolved to an exception: the worker catches dispatch
+    errors into futures, so this is what keeps a device fault from
+    passing unseen."""
+    raised = [(i, r) for i, r in enumerate(results)
+              if isinstance(r, BaseException)]
+    require(not raised, f"{what}: {len(raised)} futures raised, first "
+                        f"{raised[:1]}")
+
+
+def answer_is(r, kind: str, count: int, pos) -> bool:
+    """``r`` is the direct answer: a count, or a locate's clipped count
+    and its first positions."""
+    import numpy as np
+
+    if type(r).__name__ != "FMQueryResult" or r.kind != kind:
+        return False
+    if kind == "count":
+        return r.count == count
+    return r.count == min(count, LOCATE_K) and np.array_equal(
+        np.asarray(r.positions, np.int64), pos[: r.count])
+
+
+def check_served(what: str, reqs, results, counts, pos,
+                 allow_shed: bool = False) -> int:
+    """Every result equal to the direct answer (``counts``, ``pos``); a
+    ``Rejected`` only under ``allow_shed``.  Returns the shed count."""
+    from repro_torch.serving.frontend import Rejected
+
+    no_failure(what, results)
+    shed = sum(isinstance(r, Rejected) for r in results)
+    require(allow_shed or not shed, f"{what}: {shed} requests shed")
+    for i, ((_, kind), r) in enumerate(zip(reqs, results)):
+        require(isinstance(r, Rejected)
+                or answer_is(r, kind, counts[i], pos[i]),
+                f"{what}: request {i} ({kind}) resolved to {r!r}, direct "
+                f"count {counts[i]}")
+    return shed
+
+
+def bucket_summary(m) -> dict:
+    """Per-bucket p50/p99 beside their SLOs, and the worst per kind."""
+    out = {"buckets": {k: {f: b[f] for f in ("completed", "p50_ms",
+                                             "p99_ms", "slo_p99_ms",
+                                             "slo_ok", "violations")}
+                       for k, b in m["buckets"].items()}}
+    for kind in ("count", "locate"):
+        rows = [b for k, b in m["buckets"].items()
+                if k.startswith(kind + "/") and b["completed"]]
+        if rows:
+            out[f"{kind}_p50_ms"] = max(b["p50_ms"] for b in rows)
+            out[f"{kind}_p99_ms"] = max(b["p99_ms"] for b in rows)
+            out[f"{kind}_slo_ok"] = all(b["slo_ok"] for b in rows)
+    return out
+
+
+def served(what: str, new_frontend, server, scenario, qname: str,
+           allowed=()) -> tuple:
+    """``scenario(fe)`` -> (results, wall s, extra record) on a new
+    frontend over ``server``, launch counts set to 0 just before it and
+    read after it stops: one ``qname`` launch per served bucket chunk, no
+    other kernel but ``allowed``, no worker restart.  Returns (results,
+    metrics, launches, record)."""
+    from repro_torch.kernels import _build
+
+    b0 = server.stats.batches
+    _build.reset_launches()
+    with new_frontend() as fe:
+        results, wall, extra = scenario(fe)
+    launches = dict(_build.LAUNCHES)
+    m = fe.metrics()
+    chunks = server.stats.batches - b0
+    cuda = server.device.type == "cuda"
+    require(launches[qname] == (chunks if cuda else 0),
+            f"{what}: {launches[qname]} {qname} launches for {chunks} "
+            f"served bucket chunks")
+    others = {k: v for k, v in launches.items()
+              if v and k != qname and k not in allowed}
+    require(not others, f"{what}: other kernels launched: {others}")
+    require(m["worker_restarts"] == 0,
+            f"{what}: {m['worker_restarts']} worker restarts")
+    rec = {"requests": len(results), "wall_s": wall,
+           "qps": m["completed"] / wall, "admitted": m["admitted"],
+           "rejected": m["rejected"], "shed_frac": m["shed_frac"],
+           "completed": m["completed"], "flushes": m["flushes"],
+           "mean_batch": m["completed"] / max(m["flushes"], 1),
+           "bucket_chunks": chunks,
+           "launches_per_flush": launches[qname] / max(m["flushes"], 1),
+           **extra, **bucket_summary(m)}
+    return results, m, launches, rec
+
+
+def closed(reqs, clients):
+    return lambda fe: (*run_closed(fe, reqs, clients), {"clients": clients})
+
+
+def profiled_window(new_frontend, reqs, clients: int, qname: str,
+                    tries: int = 3):
+    """A closed-loop window under torch.profiler: the device-busy share
+    (summed device time of its kernel rows over its wall), given only
+    when the profiler recorded as many ``qname`` launches as the wrapper
+    counted (the worker thread's launches must be seen); a window whose
+    profile lost records is taken again, up to ``tries`` times.  Returns
+    (the last window's results, record)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+
+    seen_counts = []
+    for _ in range(tries):
+        _build.reset_launches()
+        with new_frontend() as fe:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                results, wall = run_closed(fe, reqs, clients)
+                torch.cuda.synchronize()
+        counted = _build.LAUNCHES[qname]
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        seen = sum(c for k, _, c in rows if qname in k)
+        dev_us = sum(t for _, t, _ in rows)
+        seen_counts.append((seen, counted))
+        if seen == counted:
+            break
+    return results, {
+        "requests": len(reqs), "clients": clients, "wall_s": wall,
+        "launches_profiled_counted": seen_counts, "device_s": dev_us / 1e6,
+        "device_busy_share": dev_us / (wall * 1e6) if seen == counted else
+        "not measured: the profiler lost launch records"}
+
+
+def frontend_single(index, toks, cfg, device, requests: int, clients: int):
+    """(a) The single index behind ``FMQueryServer.from_config`` and
+    ``AsyncQueryFrontend.from_config``: closed loop, open loop at 70% of
+    its qps, an unpaced burst into a 64-deep queue; a profiled
+    closed-loop window; the sync flush of the same requests.  (c) its
+    faults.  Returns (record, launches per scenario)."""
+    from repro_torch.serving.engine import FMQueryServer
+    from repro_torch.serving.frontend import AsyncQueryFrontend
+
+    server = FMQueryServer.from_config(index, cfg.replace(locate_k=LOCATE_K),
+                                       device=device)
+    qname = query_fns(index.fm)[0]
+    sets = {name: frontend_requests(toks, requests, seed)
+            for seed, name in enumerate(("closed", "open", "overload"), 90)}
+    want = {name: direct_answers(index, reqs, device)
+            for name, reqs in sets.items()}
+    server.count([p for p, _ in sets["closed"][:8]])      # warm-up
+    server.locate([p for p, _ in sets["closed"][:8]])
+
+    def frontend(**kw):
+        return lambda: AsyncQueryFrontend.from_config(server, cfg, **kw)
+
+    out, launches = {}, {}
+    reqs = sets["closed"]
+    res, _, launches["frontend_closed"], out["closed"] = served(
+        "closed loop", frontend(max_queue=1 << 16), server,
+        closed(reqs, clients), qname)
+    check_served("closed loop", reqs, res, *want["closed"])
+    target = max(out["closed"]["qps"] * 0.7, 1.0)
+    reqs = sets["open"]
+    res, _, launches["frontend_open"], out["open"] = served(
+        "open loop", frontend(max_queue=1 << 16), server,
+        lambda fe: (*run_open(fe, reqs, target), {"target_qps": target}),
+        qname)
+    check_served("open loop", reqs, res, *want["open"])
+    reqs = sets["overload"]
+    res, m, launches["frontend_overload"], out["overload"] = served(
+        "overload", frontend(max_queue=OVERLOAD_QUEUE, max_wait_ms=0.5),
+        server, lambda fe: (*run_open(fe, reqs, None),
+                            {"max_queue": OVERLOAD_QUEUE,
+                             "max_wait_ms": 0.5}), qname)
+    shed = check_served("overload", reqs, res, *want["overload"],
+                        allow_shed=True)
+    require(shed > 0 and m["rejected"] == shed,
+            f"overload: {shed} shed, {m['rejected']} rejected")
+    if device.type == "cuda":
+        window = sets["closed"][: requests // 4]
+        res, out["profiled_window"] = profiled_window(
+            frontend(max_queue=1 << 16), window, clients, qname)
+        check_served("profiled window", window, res, *want["closed"])
+    # the sync FMQueryServer.flush of the same requests, one call per kind
+    out["sync_flush_qps"] = {}
+    for kind in ("count", "locate"):
+        idx = [i for i, (_, k) in enumerate(sets["closed"]) if k == kind]
+        pats = [sets["closed"][i][0] for i in idx]
+        q0, s0 = server.stats.queries, server.stats.seconds
+        tickets = [server.submit(p, kind) for p in pats]
+        got = server.flush()
+        out["sync_flush_qps"][kind] = (server.stats.queries - q0) / (
+            server.stats.seconds - s0)
+        counts, pos = want["closed"]
+        require(all(answer_is(got[t], kind, counts[i], pos[i])
+                    for t, i in zip(tickets, idx)),
+                f"sync flush: {kind} answers differ from direct")
+    out["faults"] = frontend_faults(server, cfg, sets["closed"],
+                                    *want["closed"])
+    return out, launches
+
+
+def frontend_faults(server, cfg, reqs, counts, pos) -> dict:
+    """(c) ``worker.flush`` armed at its first hit: that flush's futures
+    (a prefix of the submissions) fail with ``InjectedFault``, one worker
+    restart, and the rest of that wave and a second wave submitted after
+    it are answered exactly by the respawned worker; ``deadline_ms=0``
+    behind a full batch gives ``DeadlineExceeded``; ``stop()`` with
+    requests pending resolves every admitted future."""
+    from repro_torch.serving.frontend import AsyncQueryFrontend
+    from repro_torch.serving.frontend import DeadlineExceeded
+    from repro_torch.testing import faultinject as fi
+
+    out = {}
+    n = min(256, len(reqs) // 2)
+    with fi.inject(fi.FaultSchedule([("worker.flush", 0)])) as sched:
+        with AsyncQueryFrontend.from_config(server, cfg) as fe:
+            res = []
+            for wave in (reqs[:n], reqs[n: 2 * n]):
+                futs = [submit(fe, r) for r in wave]
+                res += [outcome(f) for f in futs]
+            m = fe.metrics()
+    crashed = [i for i, r in enumerate(res) if isinstance(r, BaseException)]
+    require(crashed and crashed == list(range(len(crashed)))
+            and len(crashed) <= n
+            and all(isinstance(res[i], fi.InjectedFault) for i in crashed),
+            f"worker crash: failed futures {crashed[:8]}... are not the "
+            f"first flush's, or not the injected fault")
+    k = len(crashed)
+    check_served("worker crash: the other flushes", reqs[k: 2 * n],
+                 res[k:], counts[k:], pos[k:])
+    require(m["worker_restarts"] == 1 and m["completed"] == 2 * n - k
+            and sched.fired == [("worker.flush", 0)],
+            f"worker crash: {m['worker_restarts']} restarts, "
+            f"{m['completed']} completed, fired {sched.fired}")
+    out["worker_crash"] = {"requests": 2 * n, "failed_first_flush": k,
+                           "worker_restarts": m["worker_restarts"],
+                           "completed": m["completed"]}
+
+    full = min(server.max_batch, len(reqs))
+    fe = AsyncQueryFrontend.from_config(server, cfg, autostart=False)
+    futs = [submit(fe, r) for r in reqs[:full]]
+    doomed = fe.submit(reqs[0][0], "count", deadline_ms=0.0)
+    time.sleep(0.005)
+    fe.start()
+    late = outcome(doomed)
+    fe.stop()
+    require(isinstance(late, DeadlineExceeded),
+            f"deadline: resolved to {late!r}")
+    check_served("deadline: the full batch", reqs[:full],
+                 [outcome(f) for f in futs], counts, pos)
+    m = fe.metrics()
+    require(m["deadline_exceeded"] == 1 and m["completed"] == full,
+            f"deadline: {m['deadline_exceeded']} expired, "
+            f"{m['completed']} completed")
+    out["deadline"] = {"batch": full, "result": type(late).__name__}
+
+    n = min(256, len(reqs))
+    fe = AsyncQueryFrontend.from_config(server, cfg, max_wait_ms=200.0)
+    futs = [submit(fe, r) for r in reqs[:n]]
+    pending = fe.queue_depth
+    fe.stop()
+    require(all(f.done() for f in futs), "stop: an admitted future is "
+                                         "still pending")
+    check_served("stop with requests pending", reqs[:n],
+                 [outcome(f) for f in futs], counts, pos)
+    out["stop_pending"] = {"requests": n, "queued_at_stop": pending,
+                           "resolved": n}
+    return out
+
+
+def growth_requests(toks, docs, per: int):
+    """Requests of the live-append run in ``len(docs) + 1`` epochs of
+    ``per``: epoch e starts once append e - 1 resolved; its second half
+    comes from the newest appended document (epoch 0: all from the
+    corpus)."""
+    reqs = []
+    for e in range(len(docs) + 1):
+        half = per // 2 if e else 0
+        reqs += frontend_requests(toks, per - half, 200 + e)
+        if half:
+            reqs += frontend_requests(docs[e - 1], half, 300 + e)
+    return reqs
+
+
+def run_growth(fe, reqs, docs, per: int, target_qps):
+    """The open loop with live appends: epoch by epoch (``per`` requests
+    each, paced at ``target_qps``), document e appended halfway through
+    epoch e without waiting, its answer awaited at the epoch's end.  Each
+    request records the appends resolved when it was submitted and the
+    appends submitted when it resolved: the catalog state its answer
+    reflects lies between.  Returns (results, wall, extra record)."""
+    state = {"submitted": 0, "resolved": 0}
+    window = [[0, 0] for _ in reqs]
+    futs, infos, append_s = [], [], []
+    interval = 1.0 / target_qps
+    t0 = time.perf_counter()
+    for e in range(len(docs) + 1):
+        pending = None
+        for i in range(e * per, (e + 1) * per):
+            if e < len(docs) and i == e * per + per // 2:
+                state["submitted"] += 1       # before: an upper bound
+                t_append = time.perf_counter()
+                pending = fe.append(docs[e])
+                pending.add_done_callback(
+                    lambda f, t=t_append: append_s.append(
+                        time.perf_counter() - t))
+            delay = t0 + i * interval - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            window[i][0] = state["resolved"]
+            fut = submit(fe, reqs[i])
+            fut.add_done_callback(lambda f, w=window[i]: w.__setitem__(
+                1, state["submitted"]))
+            futs.append(fut)
+        if pending is not None:
+            infos.append(outcome(pending))
+            state["resolved"] += 1
+    results = [outcome(f) for f in futs]
+    return results, time.perf_counter() - t0, {
+        "target_qps": target_qps, "epochs": len(docs) + 1,
+        "appends": infos, "append_s": append_s,
+        "window": window}
+
+
+def growth_answers(base, doc_answers, offsets, final, compacted):
+    """The direct answer of each request at catalog state a (a documents
+    appended): counts add up per document; positions are the smallest k
+    of the corpus's and each document's (shifted to its offset) while no
+    compaction has merged segments, the final catalog's at the last
+    state, and unknown (None) in between.  Returns want(i, a)."""
+    import numpy as np
+
+    bc, bp = base
+
+    def want(i, a):
+        c = int(bc[i] + sum(int(dc[i]) for dc, _ in doc_answers[:a]))
+        if a == len(doc_answers):
+            return c, final[1][i]
+        if any(compacted[:a]):
+            return c, None
+        cand = [bp[i][: min(int(bc[i]), LOCATE_K)]]
+        for (dc, dp), off in zip(doc_answers[:a], offsets):
+            cand.append(dp[i][: min(int(dc[i]), LOCATE_K)] + off)
+        return c, np.sort(np.concatenate(cand))[:LOCATE_K]
+
+    return want
+
+
+def frontend_catalog(toks, docs, cfg, full: bool, device, requests: int,
+                     clients: int):
+    """(b) The DNA corpus as a ``DNA_SEGMENTS``-segment catalog (the
+    launcher's split): the closed loop, then the open loop while
+    ``fe.append`` adds phase 7's eight documents one by one.  Every
+    answer equals the direct answer of a catalog state between the
+    appends resolved at its submission and those submitted at its
+    resolution; requests submitted after an append resolved see its
+    text.  Returns (record, launches per scenario)."""
+    import numpy as np
+
+    from repro_torch.core.segments import SegmentedIndex
+    from repro_torch.serving.engine import FMQueryServer
+    from repro_torch.serving.frontend import AsyncQueryFrontend
+
+    cat = SegmentedIndex.from_config(int(toks.max()) + 1, cfg, device=device)
+    _, build_s = timed(lambda: [cat.append(c) for c in
+                                np.array_split(toks, DNA_SEGMENTS)], device)
+    server = FMQueryServer.from_config(cat, cfg.replace(locate_k=LOCATE_K),
+                                       device=device)
+    reqs = frontend_requests(toks, requests, 95)
+    want = direct_answers(cat, reqs, device)               # stacks
+    qname = stacked_fns(cat._stacked())[0]
+    out, launches = {"segments": DNA_SEGMENTS, "build_s": build_s}, {}
+    res, _, launches["frontend_catalog_closed"], out["closed"] = served(
+        "catalog closed loop",
+        lambda: AsyncQueryFrontend.from_config(server, cfg, max_queue=1 << 16),
+        server, closed(reqs, clients), qname)
+    check_served("catalog closed loop", reqs, res, *want)
+
+    per = requests // (len(docs) + 1)
+    reqs = growth_requests(toks, docs, per)
+    base = direct_answers(cat, reqs, device)
+    # each document's answers from its own segment build, before the
+    # frontend starts; its global offset as append assigns it
+    doc_answers, offsets, off = [], [], cat.coord_end
+    for d in docs:
+        doc_answers.append(direct_answers(cat._build(d), reqs, device))
+        offsets.append(off)
+        off += len(d)
+    target = max(out["closed"]["qps"] * 0.7, 1.0)
+    res, m, launches["frontend_catalog_growth"], rec = served(
+        "catalog growth",
+        lambda: AsyncQueryFrontend.from_config(server, cfg, max_queue=1 << 16),
+        server, lambda fe: run_growth(fe, reqs, docs, per, target), qname,
+        allowed=BUILD_KERNELS)
+    infos, window = rec.pop("appends"), rec.pop("window")
+    no_failure("catalog growth: appends", infos)
+    final = direct_answers(cat, reqs, device)
+    compacted = [info["merges"] > 0 for info in infos]
+    want = growth_answers(base, doc_answers, offsets, final, compacted)
+    no_failure("catalog growth", res)
+    ambiguous = seen_new = 0
+    for i, ((_, kind), r) in enumerate(zip(reqs, res)):
+        lo, hi = window[i]
+        ok = False
+        for a in range(lo, hi + 1):
+            c, p = want(i, a)
+            if p is None and kind == "locate":
+                # between a compaction and the last state only the count
+                # and the positions' order are known
+                ok |= (r.count == min(c, LOCATE_K)
+                       and bool(np.all(np.diff(r.positions) > 0)))
+            else:
+                ok |= answer_is(r, kind, c, p)
+        require(ok, f"catalog growth: request {i} ({kind}, appends "
+                    f"{lo}..{hi}) resolved to {r!r}")
+        ambiguous += hi > lo
+        if i % per >= per - per // 2 and i >= per:
+            seen_new += 1
+            require(r.count >= 1, f"catalog growth: request {i} does not "
+                                  f"see its appended document")
+    require(final[0].tolist() == [want(i, len(docs))[0]
+                                  for i in range(len(reqs))],
+            "catalog growth: final counts != corpus + documents")
+    if full:
+        require(compacted == [False] * (len(docs) - 1) + [True]
+                and len(cat.segments) == DNA_SEGMENTS + 1,
+                f"catalog growth: compactions {compacted}, "
+                f"{len(cat.segments)} segments")
+    out["growth"] = {**rec, "appends": len(infos),
+                     "append_merges": [info["merges"] for info in infos],
+                     "segments_after": len(cat.segments),
+                     "compactions": m["compactions"],
+                     "compact_strategy_counts": m["compact_strategy_counts"],
+                     "requests_between_states": ambiguous,
+                     "requests_on_appended_text": seen_new}
+    del cat, server
+    return out, launches
+
+
+def frontend_launcher(doc, device, log2n: int) -> tuple[dict, dict]:
+    """(d) ``launch.serve --serve-async --segments 4 --append <doc>
+    --ckpt-dir`` at n = 2^log2n, then the saved catalog reloaded: it
+    holds the appended text (brute-force counts of 64 of its patterns,
+    every located position)."""
+    import numpy as np
+
+    from repro_torch.configs.bwt_index import CONFIG
+    from repro_torch.core.segments import SegmentedIndex
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import FMQueryServer
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=build, prefix="chip_smoke_async_"))
+    try:
+        np.save(tmp / "doc.npy", doc)
+        argv = ["--kind", "dna", "--n", str(1 << log2n), "--serve-async",
+                "--segments", "4", "--append", str(tmp / "doc.npy"),
+                "--ckpt-dir", str(tmp / "cat"), "--device", device.type]
+        buf = io.StringIO()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = serve.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        m = got["metrics"]
+        require(m["appends"] == 1 and m["worker_restarts"] == 0
+                and m["rejected"] == 0 and got["total_hits"] > 0,
+                f"launcher --serve-async: {m}")
+        text = buf.getvalue()
+        require("async-serve:" in text and "segmented catalog saved" in text,
+                "launcher --serve-async: no serve or save line")
+        cat = SegmentedIndex.load(str(tmp / "cat"), device=device)
+        require(cat.total_tokens == (1 << log2n) + len(doc)
+                and np.array_equal(cat.segments[-1].tokens[-len(doc):], doc),
+                "reloaded catalog does not hold the appended document")
+        pats = sample_patterns(doc, 64, seed=97, hi=min(32, len(doc) - 1))
+        server = FMQueryServer.from_config(
+            cat, CONFIG.replace(locate_k=LOCATE_K), device=device)
+        counts = [int(x) for x in server.count(pats)]
+        check_catalog_answers(cat, pats, counts, server.locate(pats),
+                              n_brute=64)
+        return {"argv": " ".join(argv[:7] + ["--append", "DOC",
+                                             "--ckpt-dir", "DIR"]),
+                "wall_s": wall,
+                "total_hits": got["total_hits"],
+                "completed": m["completed"], "qps": m["qps"],
+                "flushes": m["flushes"], "segments": got["segments"],
+                "reloaded_tokens": cat.total_tokens,
+                "lines": [ln for ln in text.splitlines()
+                          if not ln.startswith((" ", "{", "}"))]}, launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def window_counts(toks_dev, starts, w: int):
+    """Brute-force occurrence counts of the ``w``-token windows at
+    ``starts`` (w even, symbols < 8): each window as two 3-bit packed
+    keys of w / 2 symbols, compared at every text position."""
+    import torch
+
+    require(w % 2 == 0 and int(toks_dev.max()) < 8
+            and int(toks_dev.min()) >= 0, "window_counts: w even, 3 bits")
+    t = toks_dev.to(torch.int64)
+    h, n = w // 2, t.shape[0]
+    key = torch.zeros(n - h + 1, dtype=torch.int64, device=t.device)
+    for j in range(h):
+        key |= t[j: j + n - h + 1] << (3 * j)
+    nw = n - w + 1
+    a, b = key[:nw], key[h: h + nw]
+    return torch.stack([((a == a[s]) & (b == b[s])).sum()
+                        for s in starts.tolist()]).cpu().numpy()
+
+
+def frontend_dedup(device, log2n: int, plant_log2n: int,
+                   samples: int = 1024, evals: int = 1024,
+                   eval_len: int = 256) -> tuple[dict, dict]:
+    """(e) DNA 2^log2n tokens with their first 2^plant_log2n planted
+    again at the end: ``duplicate_window_mask(window=32, stride=32,
+    batch=4096)`` flags every window inside both copies, and ``samples``
+    sampled windows match brute-force counts; ``contamination_report``
+    on ``evals`` sequences of ``eval_len``, every even one cut from the
+    corpus (reported), every odd one shifted out of the alphabet (not)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.corpus import corpus
+    from repro_torch.data.dedup import (
+        build_corpus_index,
+        contamination_report,
+        duplicate_window_mask,
+    )
+    from repro_torch.kernels import _build
+
+    cuda = device.type == "cuda"
+    base = corpus("dna", 1 << log2n)
+    plant = 1 << plant_log2n
+    toks = np.concatenate([base, base[:plant]])
+    n = len(toks)
+    index, build_s = timed(lambda: build_corpus_index(toks, device=device),
+                           device)
+    qname = query_fns(index.fm)[0]
+    _build.reset_launches()
+    mask, mask_s = timed(lambda: duplicate_window_mask(
+        index, toks, window=32, stride=32, batch=4096), device)
+    launches = dict(_build.LAUNCHES)
+    starts = np.arange(0, n - 32, 32)
+    batches = -(-len(starts) // 4096)
+    require(launches[qname] == (batches if cuda else 0)
+            and sum(launches.values()) == launches[qname],
+            f"dedup: {launches} for {batches} batches")
+    inside = starts[(starts + 32 <= plant)
+                    | ((starts >= len(base)) & (starts + 32 <= n))]
+    require(bool(mask[inside].all()), "dedup: a window inside a planted "
+                                      "copy is not flagged")
+    rng = np.random.default_rng(np.random.SeedSequence([log2n, 0xDED]))
+    pick = np.sort(rng.choice(starts, min(samples, len(starts)),
+                              replace=False))
+    pats = toks[pick[:, None] + np.arange(32)[None, :]]
+    counts = index.count(pats).cpu().numpy()
+    brute = window_counts(torch.as_tensor(toks, device=device), pick, 32)
+    require(np.array_equal(counts, brute), "dedup: sampled window counts "
+                                           "differ from brute force")
+    require(np.array_equal(mask[pick], brute >= 2),
+            "dedup: mask differs from brute-force duplicates")
+    seqs = []
+    for j in range(evals):
+        st = int(rng.integers(0, len(base) - eval_len))
+        seqs.append(base[st: st + eval_len].copy() if j % 2 == 0 else
+                    rng.integers(1, 5, eval_len).astype(np.int32) + 10)
+    _build.reset_launches()
+    rep, report_s = timed(lambda: contamination_report(index, seqs), device)
+    launches_report = dict(_build.LAUNCHES)
+    require(rep["contaminated"] == list(range(0, evals, 2)),
+            "contamination: reported set differs from the cut sequences")
+    require(launches_report[qname] == (1 if cuda else 0),
+            f"contamination: {launches_report[qname]} {qname} launches")
+    launches[qname] += launches_report[qname]
+    return {"n": n, "planted": plant, "build_s": build_s,
+            "windows": len(starts), "flagged": int(mask.sum()),
+            "mask_s": mask_s, "mask_batches": batches,
+            "sampled_windows": len(pick),
+            "sampled_duplicates": int((brute >= 2).sum()),
+            "eval_sequences": evals, "probes": evals * (eval_len // 32),
+            "report_s": report_s,
+            "contaminated": len(rep["contaminated"])}, launches
+
+
+def park(index, device):
+    """Phase 2's index with its FM index, BWT and row moved to
+    ``device`` and no suffix array (serving reads none): phases 7-8 run
+    with it parked on the host, so their device memory reads as before."""
+    import dataclasses
+
+    import torch
+
+    fm = index.fm
+    fm = dataclasses.replace(fm, **{
+        f.name: getattr(fm, f.name).to(device)
+        for f in dataclasses.fields(fm)
+        if isinstance(getattr(fm, f.name), torch.Tensor)})
+    return dataclasses.replace(index, fm=fm, sa=None,
+                               bwt=index.bwt.to(device),
+                               row=index.row.to(device))
+
+
+def phase_frontend(index, toks, merge_log2n: int, device="cuda",
+                   requests: int = FRONTEND_REQUESTS,
+                   clients: int = FRONTEND_CLIENTS, launcher_log2n: int = 24,
+                   dedup_log2n: int = 24, plant_log2n: int = 20):
+    """Phase 9 on ``index`` (phase 2's DNA index over ``toks``): (a) + (c)
+    ``frontend_single``, (b) ``frontend_catalog``, (d)
+    ``frontend_launcher``, (e) ``frontend_dedup``.  Returns (record,
+    launches per path)."""
+    import torch
+
+    from repro_torch.configs.bwt_index import CONFIG
+
+    dev = torch.device(device)
+    cfg, full, _, docs = catalog_config(len(toks), merge_log2n)
+    rec, launches = {}, {}
+    rec["single"], got = frontend_single(index, toks, CONFIG, dev, requests,
+                                         clients)
+    launches.update(got)
+    rec["catalog"], got = frontend_catalog(toks, docs, cfg, full, dev,
+                                           requests, clients)
+    launches.update(got)
+    rec["launcher"], launches["frontend_launcher"] = frontend_launcher(
+        docs[0], dev, launcher_log2n)
+    rec["dedup"], launches["dedup"] = frontend_dedup(dev, dedup_log2n,
+                                                     plant_log2n)
+    return rec, launches
 
 
 # the function of the JAX package each kernel replaces (file:line of the
@@ -2426,7 +3199,7 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -2542,6 +3315,10 @@ def main(argv=None) -> int:
         for name, v in launches.items():
             path_launches[f"restore_{name}"] = v
         emit({"phase": 6, **rec})
+    t0 = time.perf_counter()
+    parked = (park(kept["index"], "cpu") if kept is not None and 9 in phases
+              else None)
+    park_s = time.perf_counter() - t0
     del kept
 
     if 7 in phases:
@@ -2568,6 +3345,35 @@ def main(argv=None) -> int:
             require(launches[path][name] > 0,
                     f"phase 8: kernel {name} never launched on {path}")
         emit({"phase": 8, **rec})
+
+    if 9 in phases:
+        t0 = time.perf_counter()
+        if parked is not None:
+            index = park(parked, "cuda")
+        else:   # a run without phase 2 builds its own
+            from repro_torch.core.pipeline import build_index
+
+            index = build_index(dna_toks, sample_rate=64, sa_sample_rate=32,
+                                device="cuda")
+        del parked
+        small = min(24, args.dna_log2n)
+        rec, launches = phase_frontend(
+            index, dna_toks, args.merge_log2n, launcher_log2n=small,
+            dedup_log2n=small, plant_log2n=small - 4)
+        del index
+        rec["phase_s"] = time.perf_counter() - t0
+        rec["park_to_host_s"] = park_s
+        for path, counts in launches.items():
+            path_launches[path] = counts
+            for name, v in counts.items():
+                main_launches[name] += v
+        for path, name in (("frontend_closed", "fm_query_packed"),
+                           ("frontend_catalog_closed",
+                            "fm_query_stacked_packed"),
+                           ("dedup", "fm_query_packed")):
+            require(launches[path][name] > 0,
+                    f"phase 9: kernel {name} never launched on {path}")
+        emit({"phase": 9, **rec})
 
     if {1, 2, 3, 7, 8} <= phases:
         for name in _build.KERNELS:

@@ -29,8 +29,21 @@ class BWTIndexConfig:
     locate_k: int = 16            # occurrences returned per locate query
     serve_length_buckets: tuple[int, ...] = (8, 16, 32, 64)
     serve_max_batch: int = 1024   # micro-batch cap per bucket
+
+    # async frontend (serving/frontend.py): admission-controlled queue in
+    # front of FMQueryServer.flush; overload sheds (Rejected) instead of
+    # growing without bound; per-bucket p50/p99 tracked against the SLOs
+    serve_queue_depth: int = 8192     # admission bound; beyond this -> shed
+    serve_max_wait_ms: float = 2.0    # flush coalescing window
+    serve_slo_p99_ms: float = 50.0    # per-bucket p99 target, count queries
+    serve_slo_p99_ms_locate: float = 200.0  # same, locate (LF-walk heavy)
     serve_parallel_segments: bool | None = None  # SegmentedIndex fan-out
                                   # (None = auto: stacked when >= 2)
+    # growth-op fault policy (frontend appends/compactions): transient
+    # failures retry with capped exponential backoff; a compaction that
+    # exhausts its retries is quarantined (pre-compact generation serves)
+    serve_growth_retries: int = 3
+    serve_growth_backoff_ms: float = 5.0
 
     # index persistence: the defaults of launch.serve's --ckpt-dir /
     # --ckpt-keep (core/index_io.py checkpoints)
@@ -77,4 +90,5 @@ CONFIG = BWTIndexConfig()
 def reduced() -> BWTIndexConfig:
     return CONFIG.replace(n=1 << 12, query_batch=8, query_len=8,
                           sa_sample_rate=8, locate_k=4,
-                          serve_length_buckets=(4, 8), serve_max_batch=8)
+                          serve_length_buckets=(4, 8), serve_max_batch=8,
+                          serve_queue_depth=64, serve_max_wait_ms=1.0)

@@ -13,6 +13,10 @@ in the same checkout reuses them and an edited source rebuilds.
 ``LAUNCHES`` counts, per kernel, the launches that the wrappers made:
 each wrapper adds one right where it launches its kernel, and nowhere
 else.  Plain-version calls (CPU tensors) never count.
+
+Any thread may build, load or launch (the serving frontend's worker
+launches beside the main thread): one module lock serializes the build,
+the library and entry caches and the launch counts.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -83,11 +88,14 @@ LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG: dict[str, str] = {}   # nvcc/ptxas output per source (last build)
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, object] = {}
+# reentrant: library() builds under it, launch() loads under it
+_LOCK = threading.RLock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -115,6 +123,11 @@ def build_all() -> float:
     """Compile every kernel that has no up-to-date library; returns the
     wall seconds spent.  One ``nvcc`` per source, all started together;
     raises with the compiler's output if any of them fails."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -122,7 +135,8 @@ def build_all() -> float:
         out = _target(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -142,26 +156,34 @@ def build_all() -> float:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of source ``name`` (building first)."""
-    if name not in _libs:
-        build_all()
-        _libs[name] = ctypes.CDLL(str(_target(name)))
-    return _libs[name]
+    with _LOCK:
+        if name not in _libs:
+            build_all()
+            _libs[name] = ctypes.CDLL(str(_target(name)))
+        return _libs[name]
+
+
+def _entry(name: str, entry: str):
+    with _LOCK:
+        if entry not in _entries:
+            fn = getattr(library(KERNELS[name]), f"{entry}_launch")
+            fn.argtypes = SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            _entries[entry] = fn
+        return _entries[entry]
 
 
 def launch(name: str, *args, entry: str | None = None) -> None:
     """Call the C entry ``<entry>_launch`` (default: the kernel's own,
     ``name``) of kernel ``name``'s library on PyTorch's current stream,
     raise on a launch error, and count one launch of kernel ``name``."""
-    entry = entry or name
-    if entry not in _entries:
-        fn = getattr(library(KERNELS[name]), f"{entry}_launch")
-        fn.argtypes = SIGNATURES[entry]
-        fn.restype = ctypes.c_int
-        _entries[entry] = fn
-    err = _entries[entry](*args, torch.cuda.current_stream().cuda_stream)
+    fn = _entry(name, entry or name)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{entry or name} kernel launch failed: CUDA "
+                           f"error {err}")
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -1,7 +1,7 @@
 """Serving launcher: build (or restore) a single-device FM index, or a
 segmented catalog, over a synthetic corpus and serve batched count queries
-and a locate batch; optionally checkpoint it so later launches skip the
-build.
+and a locate batch, or mixed requests through the async frontend;
+optionally checkpoint it so later launches skip the build.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --kind dna --n 65536
     PYTHONPATH=src python -m repro_torch.launch.serve --n 4096 --device cpu
@@ -12,23 +12,27 @@ build.
     PYTHONPATH=src python -m repro_torch.launch.serve --kind dna \
         --ckpt-dir idx --restore
 
+    # async frontend: admission-controlled queue, per-bucket p50/p99 SLOs
+    PYTHONPATH=src python -m repro_torch.launch.serve --kind dna --n 65536 \
+        --serve-async --queue-depth 4096 --max-wait-ms 2 --slo-p99-ms 50
+
     # segmented catalog: build + save, then restore and append new text
-    # (each append followed by the background compaction policy)
+    # (each append followed by the background compaction policy; with
+    # --serve-async the appends go through the live frontend)
     PYTHONPATH=src python -m repro_torch.launch.serve --kind dna \
         --n 65536 --segments 4 --ckpt-dir cat
     PYTHONPATH=src python -m repro_torch.launch.serve --ckpt-dir cat \
-        --restore --append new_tokens.npy
+        --restore --append new_tokens.npy --serve-async
 
-Appends run synchronously, as in the reference's path without
-``--serve-async``.  The async frontend and fault schedules are not ported
-yet: argparse rejects ``--serve-async``, ``--queue-depth``,
-``--max-wait-ms``, ``--slo-p99-ms*``, ``--locate-frac`` and
-``--fault-schedule``.
+``--fault-schedule`` arms deterministic fault injection
+(``testing/faultinject.py``) for the run and prints a fault report at its
+end.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -65,12 +69,38 @@ def main(argv=None):
                          "catalog; repeatable.  Each append runs the "
                          "background compaction policy; the catalog is "
                          "re-saved to --ckpt-dir")
+    ap.add_argument("--serve-async", action="store_true",
+                    help="serve through the admission-controlled async "
+                         "frontend (per-request submits, SLO metrics)")
+    ap.add_argument("--queue-depth", type=int, default=icfg.serve_queue_depth,
+                    help="admission bound: submits beyond this shed")
+    ap.add_argument("--max-wait-ms", type=float,
+                    default=icfg.serve_max_wait_ms,
+                    help="flush coalescing window for the async frontend")
+    ap.add_argument("--slo-p99-ms", type=float, default=icfg.serve_slo_p99_ms,
+                    help="per-bucket p99 latency target for count queries")
+    ap.add_argument("--slo-p99-ms-locate", type=float,
+                    default=icfg.serve_slo_p99_ms_locate,
+                    help="per-bucket p99 latency target for locate queries")
+    ap.add_argument("--locate-frac", type=float, default=0.2,
+                    help="fraction of async requests issued as locate")
+    ap.add_argument("--fault-schedule", default=None, metavar="SPEC",
+                    help="arm deterministic fault injection for this run: "
+                         "comma-separated failpoint triggers like "
+                         "'io.write:0,merge.mid:1' (repro_torch.testing."
+                         "faultinject); a fault report prints on exit")
     args = ap.parse_args(argv)
     if args.restore and not args.ckpt_dir:
         ap.error("--restore requires --ckpt-dir")
     if args.segments > args.n:
         ap.error(f"--segments {args.segments} exceeds --n {args.n} "
                  "(every segment needs at least one token)")
+
+    from ..testing import faultinject
+
+    if args.fault_schedule:
+        faultinject.arm(faultinject.FaultSchedule.parse(args.fault_schedule))
+        print(f"fault schedule armed: {args.fault_schedule}")
 
     from ..core.fm_index import PAD
     from ..core.index_io import (
@@ -164,36 +194,100 @@ def main(argv=None):
     if appended and not segmented:
         ap.error("--append requires a segmented catalog "
                  "(--segments N, or --restore of one)")
-    for extra in appended:
-        t0 = time.perf_counter()
-        index.append(extra)
-        merges = index.maybe_compact()
-        sync()
-        print(f"appended {len(extra)} tokens ({merges} compactions, "
-              f"{len(index.segments)} segments) in "
-              f"{time.perf_counter() - t0:.3f}s")
-    if segmented and args.ckpt_dir:
+    if not args.serve_async:
+        # the async path routes appends through the frontend's control
+        # queue instead (compaction between flushes)
+        for extra in appended:
+            t0 = time.perf_counter()
+            index.append(extra)
+            merges = index.maybe_compact()
+            sync()
+            print(f"appended {len(extra)} tokens ({merges} compactions, "
+                  f"{len(index.segments)} segments) in "
+                  f"{time.perf_counter() - t0:.3f}s")
+
+    def save_catalog():
         t0 = time.perf_counter()
         index.save(args.ckpt_dir)
         print(f"segmented catalog saved to {args.ckpt_dir} in "
               f"{time.perf_counter() - t0:.3f}s")
+
+    if segmented and args.ckpt_dir and not args.serve_async:
+        save_catalog()
 
     # query patterns come from every text source, so appended segments
     # are exercised beside the old ones
     sources = [toks] + appended
     rng = np.random.default_rng(0)
 
-    def sample():
-        src = sources[int(rng.integers(len(sources)))]
+    def sample(active_sources):
+        src = active_sources[int(rng.integers(len(active_sources)))]
         hi = min(args.pattern_len, len(src) - 1)
         L = int(rng.integers(3, hi)) if hi > 3 else max(1, hi)
         st = int(rng.integers(0, max(1, len(src) - L)))
         return src[st: st + L]
 
+    def fault_report():
+        if faultinject.active() is not None:
+            print(f"fault report: {faultinject.active().report()}")
+
+    n_total = args.n + sum(len(a) for a in appended)
+    if args.serve_async:
+        from ..serving.engine import FMQueryServer
+        from ..serving.frontend import AsyncQueryFrontend, Rejected
+
+        server = FMQueryServer.from_config(index, icfg, device=dev)
+        can_locate = (getattr(index, "sa_sample_rate", 0)
+                      or getattr(getattr(index, "fm", None),
+                                 "sa_sample_rate", 0)) != 0
+
+        def submit(fe, active_sources):
+            # each request's kind is drawn before its pattern, as in the
+            # reference, so one argv serves the same requests in both
+            kind = ("locate" if can_locate
+                    and rng.random() < args.locate_frac else "count")
+            return fe.submit(sample(active_sources), kind,
+                             k=args.locate_k if kind == "locate" else None)
+
+        with AsyncQueryFrontend.from_config(
+            server, icfg, max_queue=args.queue_depth,
+            max_wait_ms=args.max_wait_ms,
+            slo_p99_ms={"count": args.slo_p99_ms,
+                        "locate": args.slo_p99_ms_locate},
+        ) as fe:
+            total = args.batches * args.batch
+            futs = [submit(fe, [toks])
+                    for _ in range(total // 2 if appended else total)]
+            for extra in appended:
+                # live growth between flushes: append + compaction on the
+                # worker thread while queries keep flowing
+                info = fe.append(extra).result()
+                print(f"async-appended {info['appended']} tokens "
+                      f"({info['merges']} compactions, {info['segments']} "
+                      f"segments)")
+            futs += [submit(fe, sources) for _ in range(total - len(futs))]
+            hits = shed = 0
+            for f in futs:
+                r = f.result()
+                if isinstance(r, Rejected):
+                    shed += 1
+                else:
+                    hits += r.count
+            m = fe.metrics()
+        if segmented and args.ckpt_dir:
+            save_catalog()
+        print(json.dumps(m, indent=2))
+        print(f"async-serve: {m['completed']} answered ({shed} shed) "
+              f"at {m['qps']:.0f} qps, total_hits={hits}")
+        fault_report()
+        return {"total_hits": hits, "n": n_total,
+                "segments": len(index.segments) if segmented else 0,
+                "metrics": m}
+
     def batch():
         pats = np.full((args.batch, args.pattern_len), PAD, np.int32)
         for i in range(args.batch):
-            p = sample()
+            p = sample(sources)
             pats[i, : len(p)] = p
         return pats
 
@@ -216,8 +310,8 @@ def main(argv=None):
     found = int(counts.sum())
     print(f"locate batch of {args.batch} (k={args.locate_k}): {found} "
           f"positions in {(time.perf_counter() - t0) * 1e3:.1f}ms")
-    return {"total_hits": total, "located": found,
-            "n": args.n + sum(len(a) for a in appended),
+    fault_report()
+    return {"total_hits": total, "located": found, "n": n_total,
             "segments": len(index.segments) if segmented else 0}
 
 

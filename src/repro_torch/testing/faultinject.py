@@ -17,7 +17,7 @@ Failpoint catalog (every name the reference defines; in this package
 ``training/checkpoint.py`` hits ``io.write`` and ``io.rename``,
 ``core/journal.py`` ``io.write``, ``io.fsync``, ``io.rename`` and
 ``restore.checksum``, ``core/bwt_merge.py`` ``merge.mid`` and
-``merge.kway``; ``worker.flush`` waits for the serving frontend):
+``merge.kway``, and ``serving/frontend.py`` ``worker.flush``):
 
 =================  ==========================================================
 ``io.write``       before writing a durable artifact file (checkpoint

@@ -274,3 +274,72 @@ class TestSuffixArray:
             assert np.array_equal(bwt.numpy(), want_bwt)
             assert int(row) == want_row
             assert np.array_equal(inverse_bwt(bwt, row, sigma).numpy(), s)
+
+
+class TestKernelLibraryLock:
+    """``kernels/_build.py`` shared by threads: the serving frontend's
+    worker may be the first to launch a kernel while the main thread
+    builds or launches too."""
+
+    def test_one_build_for_eight_threads(self, monkeypatch):
+        import ctypes
+        import threading
+        import time
+
+        from repro_torch.kernels import _build
+
+        builds = []
+
+        def slow_build():
+            builds.append(threading.get_ident())
+            time.sleep(0.05)
+            return 0.05
+
+        monkeypatch.setattr(_build, "build_all", slow_build)
+        monkeypatch.setattr(_build, "_libs", {})
+        monkeypatch.setattr(ctypes, "CDLL", lambda path: object())
+        start = threading.Barrier(8)
+        got = []
+
+        def load():
+            start.wait(timeout=30)
+            got.append(_build.library("rank_packed"))
+
+        threads = [threading.Thread(target=load) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+        assert len(builds) == 1
+        assert len(got) == 8 and all(lib is got[0] for lib in got)
+
+    def test_temporary_outputs_name_the_thread(self, monkeypatch,
+                                               tmp_path):
+        """Each nvcc writes ``<library>.<pid>.<thread id>.tmp``, renamed to
+        the library when it succeeds (nvcc replaced by a fake that writes
+        its ``-o`` file)."""
+        import os
+        import threading
+        import types
+
+        from repro_torch.kernels import _build
+
+        outs = []
+
+        def fake_popen(cmd, **kw):
+            out = cmd[cmd.index("-o") + 1]
+            outs.append(out)
+            open(out, "w").close()
+            return types.SimpleNamespace(communicate=lambda: ("", None),
+                                         returncode=0)
+
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+        monkeypatch.setattr(_build.subprocess, "Popen", fake_popen)
+        _build.build_all()
+        tag = f".{os.getpid()}.{threading.get_ident()}.tmp"
+        assert len(outs) == len(_build.SOURCES)
+        assert all(o.endswith(tag) for o in outs)
+        assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+            _build._target(name).name for name in _build.SOURCES)

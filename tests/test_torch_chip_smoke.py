@@ -117,7 +117,7 @@ def test_profiles_that_stay_broken_fail(monkeypatch, rows, match):
     taken = _fake_profiles(monkeypatch, [rows])
     with pytest.raises(AssertionError, match=match):
         chip_smoke.kernel_device_split(lambda: None, "rerank_kernel")
-    assert len(taken) == 3
+    assert len(taken) == 5
 
 
 def test_merge_walk_parity_runs_on_the_cpu():
@@ -328,3 +328,87 @@ def test_kernels_line_lists_every_kernel_with_every_key():
         "src/repro_torch/kernels/csrc/fm_query_stacked.cu"}
     assert stacked["fm_query_stacked_packed"]["dependent_steps"] == {
         "search": 32, "walk": 32}
+
+
+# -- phase 9: the async frontend, the launcher's --serve-async, dedup -----
+
+def _phase_frontend_cpu():
+    from repro_torch.core.pipeline import build_index
+    from repro_torch.data.corpus import corpus
+
+    toks = corpus("dna", 1 << 13)
+    index = build_index(toks, sample_rate=64, sa_sample_rate=32,
+                        device="cpu")
+    return chip_smoke.phase_frontend(
+        index, toks, 20, device="cpu", requests=144, clients=4,
+        launcher_log2n=12, dedup_log2n=12, plant_log2n=8)
+
+
+def test_phase_frontend_runs_on_the_cpu():
+    """Phase 9 at a tiny size on the CPU (plain versions, no launch):
+    every scenario's answers equal the direct calls, the burst sheds, the
+    faults resolve as specified, the live appends are seen, the launcher
+    saves the appended catalog and dedup flags both planted copies."""
+    rec, launches = _phase_frontend_cpu()
+    single, cat = rec["single"], rec["catalog"]
+    assert single["closed"]["completed"] == 144
+    assert single["closed"]["rejected"] == 0
+    assert single["overload"]["rejected"] > 0
+    assert set(single["sync_flush_qps"]) == {"count", "locate"}
+    faults = single["faults"]
+    assert faults["worker_crash"]["worker_restarts"] == 1
+    crash = faults["worker_crash"]
+    assert crash["failed_first_flush"] >= 1
+    assert crash["completed"] == 144 - crash["failed_first_flush"] >= 72
+    assert faults["deadline"]["result"] == "DeadlineExceeded"
+    assert faults["stop_pending"]["resolved"] == 144
+    growth = cat["growth"]
+    assert growth["appends"] == 8 and growth["compactions"] >= 1
+    assert growth["requests_on_appended_text"] == 8 * (16 // 2)
+    assert len(growth["append_s"]) == 8
+    assert rec["launcher"]["reloaded_tokens"] == 4096 + 256
+    assert rec["dedup"]["contaminated"] == 512
+    assert rec["dedup"]["sampled_duplicates"] >= 1
+    assert all(set(v.values()) == {0} for v in launches.values())
+    for scenario in ("closed", "open", "overload"):
+        assert {"count_p99_ms", "locate_p99_ms", "buckets"} <= set(
+            single[scenario])
+
+
+def test_phase_frontend_fails_on_a_future_that_raises(monkeypatch):
+    """A dispatch error the worker catches into one flush's futures must
+    fail the phase, not pass as answered requests."""
+    import threading
+
+    from repro_torch.serving.engine import FMQueryServer
+
+    flush = FMQueryServer.flush
+    calls = []
+
+    def failing(self):
+        if threading.current_thread() is not threading.main_thread():
+            calls.append(1)
+            if len(calls) == 3:
+                raise RuntimeError("device fault")
+        return flush(self)
+
+    monkeypatch.setattr(FMQueryServer, "flush", failing)
+    with pytest.raises(AssertionError, match="futures raised"):
+        _phase_frontend_cpu()
+    assert len(calls) >= 3
+
+
+@pytest.mark.parametrize("w", [2, 8, 32])
+def test_window_counts_by_hand(w):
+    """The brute-force window counts of phase 9's dedup check against a
+    direct count of each window in the text."""
+    import numpy as np
+
+    rng = np.random.default_rng(w)
+    toks = rng.integers(1, 5, 600).astype(np.int32)
+    toks[400:460] = toks[10:70]
+    starts = np.array([0, 10, 30, 400, 410, 600 - w])
+    got = chip_smoke.window_counts(torch.as_tensor(toks), starts, w)
+    want = [sum(np.array_equal(toks[i: i + w], toks[s: s + w])
+                for i in range(len(toks) - w + 1)) for s in starts]
+    assert got.tolist() == want

@@ -122,8 +122,12 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert out["total_hits"] > 0 and out["located"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--queue-depth", "8"], ["--serve-async"]])
+@pytest.mark.parametrize("flag", [["--engine", "bitonic"],
+                                  ["--engine", "samplesort"]])
 def test_serve_launcher_unported_flags_raise(flag):
+    """The reference's mesh-build engine flag waits for the distributed
+    build, which is not ported (the async frontend's flags are ported and
+    tested in ``tests/test_torch_frontend.py``)."""
     with pytest.raises(SystemExit):                 # argparse: unknown flag
         serve.main(["--n", "1000", "--device", "cpu", *flag])
 

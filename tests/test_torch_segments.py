@@ -474,5 +474,7 @@ class TestLauncher:
         with pytest.raises(SystemExit):   # --append needs a catalog
             serve.main(["--n", "256", "--device", "cpu", "--batches", "1",
                         "--append", str(tmp_path / "x.npy")])
-        with pytest.raises(SystemExit):   # A9's flags stay rejected
-            serve.main(["--n", "256", "--device", "cpu", "--serve-async"])
+        with pytest.raises(SystemExit):   # --restore needs --ckpt-dir
+            serve.main(["--n", "256", "--device", "cpu", "--restore"])
+        with pytest.raises(SystemExit):   # unknown flags stay rejected
+            serve.main(["--n", "256", "--device", "cpu", "--serve-sync"])
