@@ -105,13 +105,35 @@ script exits nonzero and prints no final result:
      that raises or a worker restart outside (c) fails the run; per-bucket
      p50/p99 print beside the SLOs (a p99 over its SLO is a finding, not a
      failure)
+ 10  the distributed build and query (build_index(tokens, mesh),
+     SequenceIndex.count / .locate on the mesh index): (a) one NCCL rank
+     in this process (the one multi-rank transport that owns the card):
+     DNA at n = 2^28 by the bitonic engine and proteins at 2^24 (the
+     unpacked rank_select layout), their SA, BWT and row equal phase 2's /
+     phase 3's builds and phase 2's / 3's 1024 count and 1024 locate
+     requests (one batch each) answered identically; DNA 2^24 by
+     samplesort against its single-device build; build time, peak memory,
+     launches and collectives per build and per served batch, the stages
+     of a second DNA build (prepare, ISA with its rounds, BWT, FM build),
+     rank_packed / rank_select on the one-part indexes at the locate
+     walk's 16,384 lanes against their plain versions and their bytes
+     bounds; (b) gloo worlds of 2 and 4 ranks sharing the card (their
+     collectives staged through pinned host buffers): DNA 2^24 and
+     proteins 2^22 by both engines and DNA by samplesort from a capacity
+     factor of 0.5, which overflows (shown by a first ISA build) and
+     retries, each equal to the single-device build of the same prepared
+     text and its answers on every rank; (c) whether NCCL takes two ranks
+     on the one card.  A rank that raises or outlives its world's timeout
+     fails the run
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore, each merge of phase 7, each catalog
 of phase 8: its appends and its serving, each frontend scenario of phase
-9, its launcher call and its dedup) and read just after it.  Then a
-``kernels`` line (launches on the main paths of phases 2-3 and 7-9 and on
-each path, parity error, times and bounds), the card's
+9, its launcher call and its dedup, each distributed build of phase 10
+with its two served batches, summed over a world's ranks) and read just
+after it.  Then a ``kernels`` line (launches on the main paths of phases
+2-3 and 7-10 and on each path, parity error, times and bounds), the
+card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
 kernel time under its bound (bytes over the card's HBM peak; for the
 merge walks their dependent loads' latency) fails the run as a broken
@@ -269,6 +291,33 @@ def kernel_device_ms(fn, kernel, reps: int = 20) -> float:
     return sum(r["ms"] for r in split.values())
 
 
+def rank_packed_bytes(fused, blk, c, cut, sigma: int, bits: int) -> int:
+    """Bytes a batch of packed rank queries must move: the checkpoint of
+    c and the packed words up to each cutoff's word (their distinct
+    sectors), and four int32 words in and out per query."""
+    import torch
+
+    W = fused.shape[1] - sigma
+    row0 = blk.long() * (sigma + W)
+    w = torch.arange(W, device=fused.device)
+    upto = torch.clamp(cut.long() // (32 // bits), max=W - 1)
+    packed = (row0[:, None] + sigma + w)[w[None, :] <= upto[:, None]]
+    return sector_bytes(torch.cat([row0 + c.long(), packed])) + \
+        blk.numel() * 16
+
+
+def rank_select_bytes(blocks, blk, cut) -> int:
+    """Bytes a batch of unpacked in-block counts must move: the symbols
+    below each query's cut (their distinct sectors), and four int32 words
+    in and out per query."""
+    import torch
+
+    r = blocks.shape[1]
+    j = torch.arange(r, device=blocks.device)
+    read = (blk.long()[:, None] * r + j)[j[None, :] < cut.long()[:, None]]
+    return sector_bytes(read) + blk.numel() * 16
+
+
 def phase_kernels(log2n_dna: int):
     import torch
 
@@ -308,19 +357,14 @@ def phase_kernels(log2n_dna: int):
         if bits == 4:
             main = (fused, blk, c, cut, sigma, bits, nb, W)
     fused, blk, c, cut, sigma, bits, nb, W = main
-    # words read: the checkpoint of c, and packed words up to the cutoff word
-    row0 = blk.long() * (sigma + W)
-    w = torch.arange(W, device=dev)
-    upto = torch.clamp(cut.long() // (32 // bits), max=W - 1)
-    packed = (row0[:, None] + sigma + w)[w[None, :] <= upto[:, None]]
-    read = torch.cat([row0 + c.long(), packed])
     rows["rank_packed"] = dict(
         max_abs_err=max(errs),
         ms=time_ms(lambda: rk.rank_packed(fused, blk, c, cut, bits=bits,
                                           sigma=sigma), 200),
         plain_ms=time_ms(lambda: rk.rank_packed_plain(
             fused, blk, c, cut, bits=bits, sigma=sigma), 50),
-        bound_ms=bound_ms(sector_bytes(read) + blk.numel() * 16),
+        bound_ms=bound_ms(rank_packed_bytes(fused, blk, c, cut, sigma,
+                                            bits)),
         library_ms=None, shape=f"fused[{nb},{sigma + W}], B={blk.numel()}")
     fused_p, blk_p, c_p, cut_p = fused, blk, c, cut
     del main
@@ -335,15 +379,13 @@ def phase_kernels(log2n_dna: int):
     blocks[blk[16:64].long()] = c[16:64, None]   # dense hits for some queries
     got = rk.rank_select(blocks, blk, c, cut)
     want = rk.rank_select_plain(blocks, blk, c, cut)
-    # words read: the symbols below each query's cut
-    j = torch.arange(r, device=dev)
-    read = (blk.long()[:, None] * r + j)[j[None, :] < cut.long()[:, None]]
     rows["rank_select"] = dict(
         max_abs_err=same(got, want, "rank_select"),
         ms=time_ms(lambda: rk.rank_select(blocks, blk, c, cut), 200),
         plain_ms=time_ms(lambda: rk.rank_select_plain(blocks, blk, c, cut),
                          50),
-        bound_ms=bound_ms(sector_bytes(read) + B * 16), library_ms=None,
+        bound_ms=bound_ms(rank_select_bytes(blocks, blk, cut)),
+        library_ms=None,
         shape=f"blocks[{nb},{r}], sigma={sig}, B={B}")
     blk_s, c_s, cut_s = blk, c, cut
 
@@ -925,10 +967,12 @@ def stage_times(toks, sample_rate: int, sa_sample_rate: int) -> dict:
     return out
 
 
-def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool):
+def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool,
+               snap: bool = False):
     """One main path; returns its launches, with ``keep`` what later phases
-    compare against (the index, its requests and answers), and the fused
-    query kernel's parity and times on the path's index."""
+    compare against (the index, its requests and answers), the fused
+    query kernel's parity and times on the path's index and, with
+    ``snap``, phase 10's reference (``snapshot``)."""
     import torch
 
     from repro_torch.configs.bwt_index import CONFIG as icfg
@@ -1011,9 +1055,10 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool):
     del server, toks_dev
     kept = dict(index=index, pats=pats, counts=counts, located=located,
                 build_s=build_s) if keep else None
+    ref = snapshot(index, pats) if snap else None
     del index
     torch.cuda.empty_cache()
-    return launches, kept, fq
+    return launches, kept, fq, ref
 
 
 # --------------------------------------------------------------------------
@@ -3154,6 +3199,407 @@ def phase_frontend(index, toks, merge_log2n: int, device="cuda",
     return rec, launches
 
 
+# --------------------------------------------------------------------------
+# phase 10: the distributed build and query (build_index(tokens, mesh))
+# --------------------------------------------------------------------------
+
+DIST_PARTS = (2, 4)              # gloo ranks sharing the card
+DIST_OVERFLOW_FACTOR = 0.5       # a samplesort start that overflows
+DIST_RETRIES = 4                 # 0.5 -> 1 -> 2 -> 4
+DIST_WORLD_TIMEOUT_S = 600
+DIST_NEEDED = {"dna": ("radix_hist", "radix_pos", "char_histogram",
+                       "rank_packed"),
+               "proteins": ("radix_hist", "radix_pos", "char_histogram",
+                            "rank_select")}
+
+
+def require_dist_launches(launches: dict, kind: str, cuda: bool,
+                          what: str) -> None:
+    """On the card every kernel of the kind's distributed path launched;
+    on the CPU (plain versions) none did."""
+    for k, v in launches.items():
+        if cuda:
+            require(v > 0 or k not in DIST_NEEDED[kind],
+                    f"{what}: kernel {k} never launched")
+        else:
+            require(v == 0, f"{what}: kernel {k} launched on the CPU")
+
+
+def dist_builds(dna_log2n: int, proteins_log2n: int) -> dict:
+    """The builds of a world of ranks sharing the card: name -> (kind,
+    log2 n, engine, capacity factor)."""
+    return {"dna_bitonic": ("dna", dna_log2n, "bitonic", 2.0),
+            "dna_samplesort": ("dna", dna_log2n, "samplesort", 2.0),
+            "dna_overflow": ("dna", dna_log2n, "samplesort",
+                             DIST_OVERFLOW_FACTOR),
+            "proteins_bitonic": ("proteins", proteins_log2n, "bitonic", 2.0),
+            "proteins_samplesort": ("proteins", proteins_log2n,
+                                    "samplesort", 2.0)}
+
+
+def _counts_reset() -> None:
+    from repro_torch.core import dist_sort
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    dist_sort.reset_collectives()
+
+
+def _counts() -> tuple[dict, dict]:
+    from repro_torch.core import dist_sort
+    from repro_torch.kernels import _build
+
+    return dict(_build.LAUNCHES), dict(dist_sort.COLLECTIVES)
+
+
+def mesh_path(toks, pats, mesh, engine: str, cf: float, device) -> dict:
+    """One distributed path: ``build_index(tokens, mesh)`` then the
+    requests as one count and one locate batch through
+    ``SequenceIndex.count`` / ``.locate``, launch and collective counts set
+    to 0 before the build and before each batch.  Returns the record with
+    the index (``index``) and the answers (``counts``, ``pos``,
+    ``cnt``)."""
+    import torch
+
+    from repro_torch.core.dist_suffix_array import DistSAConfig
+    from repro_torch.core.pipeline import build_index
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _counts_reset()
+    t0 = time.perf_counter()
+    index = build_index(toks, mesh, sample_rate=64, sa_sample_rate=32,
+                        max_retries=DIST_RETRIES, device=device,
+                        sa_config=DistSAConfig(engine=engine,
+                                               capacity_factor=cf))
+    _sync(device)
+    rec = {"engine": engine, "capacity_factor": cf, "n": len(toks),
+           "build_s": time.perf_counter() - t0,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if cuda else None)}
+    rec["launches_build"], rec["collectives_build"] = _counts()
+    launches = dict(rec["launches_build"])
+    P = pad_patterns(pats, max(len(p) for p in pats), device)
+    index.count(P[:8])                     # warm-up: first launches
+    index.locate(P[:8], LOCATE_K)
+    for kind in ("count", "locate"):
+        _counts_reset()
+        _sync(device)
+        t0 = time.perf_counter()
+        out = index.count(P) if kind == "count" else index.locate(
+            P, LOCATE_K)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        lc, cc = _counts()
+        rec[kind] = {"batch": list(P.shape), "s": dt, "qps": len(pats) / dt,
+                     "launches": lc, "collectives": cc}
+        for k, v in lc.items():
+            launches[k] += v
+        if kind == "count":
+            rec["counts"] = out
+        else:
+            rec["pos"], rec["cnt"] = out
+    rec["launches"] = launches
+    rec["index"] = index
+    return rec
+
+
+def same_dist(rec: dict, sa, bwt, row: int, counts, pos, cnt,
+              what: str) -> None:
+    """A distributed path's SA, BWT, row and answers equal the
+    single-device build's (tensors or numpy, compared on the host)."""
+    import numpy as np
+
+    def host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+    for name, got, want in (("SA", rec["sa"], sa), ("BWT", rec["bwt"], bwt),
+                            ("counts", rec["counts"], counts),
+                            ("locate positions", rec["pos"], pos),
+                            ("locate counts", rec["cnt"], cnt)):
+        require(np.array_equal(host(got), host(want)),
+                f"{what}: {name} differ from the single-device build")
+    require(int(rec["row"]) == int(row), f"{what}: row differs")
+
+
+def single_reference(s, sigma: int, pats, device) -> dict:
+    """The single-device build of the prepared text ``s`` and its answers
+    (the fused query kernels), the reference of a distributed path."""
+    from repro_torch.core.pipeline import build_index_prepared
+
+    index = build_index_prepared(s, sigma, sample_rate=64, sa_sample_rate=32,
+                                 device=device)
+    P = pad_patterns(pats, max(len(p) for p in pats), device)
+    pos, cnt = index.locate(P, LOCATE_K)
+    return dict(sa=index.sa, bwt=index.bwt, row=int(index.row),
+                counts=index.count(P), pos=pos, cnt=cnt)
+
+
+def snapshot(index, pats) -> dict:
+    """Host copies of a main path's build and answers (phase 10's
+    reference at one part): SA, BWT, row and the requests' count / locate
+    batches through the single-device index."""
+    P = pad_patterns(pats, max(len(p) for p in pats), index.sa.device)
+    pos, cnt = index.locate(P, LOCATE_K)
+    return dict(sa=index.sa.cpu(), bwt=index.bwt.cpu(), row=int(index.row),
+                counts=index.count(P).cpu(), pos=pos.cpu(), cnt=cnt.cpu(),
+                pats=pats)
+
+
+def dist_stages(toks, mesh, engine: str, device) -> dict:
+    """A second distributed build, stage by stage (each ended by a
+    synchronize), with the ISA's rounds."""
+    from repro_torch.core.dist_fm import build_dist_fm_index
+    from repro_torch.core.dist_suffix_array import (
+        DistSAConfig,
+        dist_bwt_local,
+        dist_isa_local,
+        local_text,
+    )
+    from repro_torch.core.dist_sort import mesh_parts
+    from repro_torch.core.pipeline import prepare_tokens
+
+    cfg = DistSAConfig(engine=engine)
+    out, stats = {}, {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        _sync(device)
+        t = time.perf_counter()
+        out[name] = t - t0
+        t0 = t
+
+    s, sigma = prepare_tokens(toks, mesh_parts(mesh) * 64)
+    lap("prepare_tokens_host")
+    info, s_local = local_text(s, mesh, device=device)
+    lap("host_to_device")
+    isa = dist_isa_local(info, cfg, s_local, sigma, stats=stats)
+    lap("isa")
+    sa, bwt, row = dist_bwt_local(info, cfg, s_local, isa)
+    del isa
+    lap("bwt")
+    build_dist_fm_index(bwt, row, mesh, sigma=sigma, sample_rate=64, sa=sa,
+                        sa_sample_rate=32)
+    lap("fm_build")
+    return {"stages_s": out, "isa_rounds": stats}
+
+
+def dist_rank_row(index, name: str, lanes: int, seed: int) -> dict:
+    """The single-batch rank kernel of a one-part distributed index (the
+    locate walk's ``lanes`` queries over its own layout, as ``dist_fm``'s
+    ``_occ_partial`` forms them) against its plain version: parity, event
+    and device times, the bytes bound."""
+    import torch
+
+    from repro_torch.kernels import rank_select as rk
+
+    fm = index.fm
+    dev = fm.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m, r = fm.bwt.shape[0], fm.sample_rate
+    p = torch.randint(0, m + 1, (lanes,), generator=g, device=dev,
+                      dtype=torch.int64).to(torch.int32)
+    c = torch.randint(1, fm.sigma, (lanes,), generator=g, device=dev,
+                      dtype=torch.int64).to(torch.int32)
+    blk = torch.clamp(p // r, max=m // r - 1)
+    cut = p - blk * r
+    if name == "rank_packed":
+        def fn():
+            return rk.rank_packed(fm.fused, blk, c, cut, bits=fm.bits,
+                                  sigma=fm.sigma)
+
+        def plain():
+            return rk.rank_packed_plain(fm.fused, blk, c, cut, bits=fm.bits,
+                                        sigma=fm.sigma)
+        nbytes = rank_packed_bytes(fm.fused, blk, c, cut, fm.sigma, fm.bits)
+        shape = f"fused[{tuple(fm.fused.shape)}], B={lanes}"
+    else:
+        blocks = fm.bwt.view(m // r, r)
+
+        def fn():
+            return rk.rank_select(blocks, blk, c, cut)
+
+        def plain():
+            return rk.rank_select_plain(blocks, blk, c, cut)
+        nbytes = rank_select_bytes(blocks, blk, cut)
+        shape = f"blocks[{tuple(blocks.shape)}], sigma={fm.sigma}, B={lanes}"
+    row = {"max_abs_err": same(fn(), plain(), f"{name} on the dist index"),
+           "ms": time_ms(fn, 200), "plain_ms": time_ms(plain, 50),
+           "bound_ms": bound_ms(nbytes), "library_ms": None, "shape": shape}
+    row["device_ms"] = kernel_device_ms(fn, f"{name}_kernel")
+    check_reading(name, row["device_ms"], row["bound_ms"], row["ms"], shape)
+    return row
+
+
+def dist_rank(mesh, spec: dict) -> dict:
+    """One rank of a world sharing the card: every build of ``spec``
+    through ``mesh_path`` (the overflowing one after a first ISA build
+    that shows the overflow), its shards, row and answers."""
+    from repro_torch.core import dist_sort
+    from repro_torch.core.dist_suffix_array import (
+        DistSAConfig,
+        build_isa_sharded,
+        isa_overflowed,
+    )
+    from repro_torch.core.pipeline import prepare_tokens
+    from repro_torch.data.corpus import corpus
+
+    dev = spec["device"]
+    parts = dist_sort.mesh_parts(mesh)
+    out = {"transport": dist_sort.transport(
+        dist_sort.shard_info(mesh, parts), dev)}
+    for name, (kind, log2n, engine, cf) in spec["builds"].items():
+        toks = corpus(kind, 1 << log2n)
+        pats = sample_patterns(toks, spec["requests"], seed=10)
+        first = None
+        if cf == DIST_OVERFLOW_FACTOR:
+            s, sigma = prepare_tokens(toks, parts * 64)
+            isa = build_isa_sharded(s, mesh, DistSAConfig(
+                engine=engine, capacity_factor=cf), sigma=sigma, device=dev)
+            first = isa_overflowed(isa)
+            del isa
+        rec = mesh_path(toks, pats, mesh, engine, cf, dev)
+        index = rec.pop("index")
+        rec.update(sa=index.sa, bwt=index.bwt, row=int(index.row),
+                   first_attempt_overflowed=first)
+        del index
+        out[name] = rec
+    return out
+
+
+def nccl_probe_rank(mesh):
+    import torch
+
+    from repro_torch.core import dist_sort
+
+    info = dist_sort.shard_info(mesh, mesh.size())
+    return dist_sort.psum(info, torch.ones(1, device="cuda"))
+
+
+def nccl_shared_card() -> str:
+    """Whether NCCL takes two ranks on the one card: its answer to a world
+    of two ranks on device 0 making one psum."""
+    from repro_torch.launch.mesh import run_world
+
+    try:
+        run_world(2, nccl_probe_rank, device_type="cuda", timeout_s=120)
+    except RuntimeError as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        key = [ln for ln in lines if "uplicate" in ln or "Error" in ln]
+        return "refused: " + (key[-1] if key else lines[-1])[:300]
+    return "accepted"
+
+
+def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
+               small_dna_log2n: int, small_proteins_log2n: int,
+               device="cuda", parts=DIST_PARTS, requests: int = 1024,
+               rank_fn=None):
+    """Phase 10.  (a) One NCCL rank (gloo on the CPU) in this process: DNA
+    at ``dna_log2n`` (bitonic) and proteins at ``proteins_log2n``, each
+    equal to phase 2's / phase 3's build and answers (``refs``, else built
+    here), and DNA at ``small_dna_log2n`` by samplesort; stage times of a
+    second DNA build; the rank kernels on the one-part indexes.  (b) gloo
+    worlds of ``parts`` ranks sharing the card (``rank_fn``, default
+    ``dist_rank``): both engines at ``small_*_log2n`` and a samplesort
+    from an overflowing factor, each equal to the single-device build of
+    the same prepared text and its answers.  Returns (record, launches
+    per path, the rank kernels' rows)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dist_sort
+    from repro_torch.core.pipeline import prepare_tokens
+    from repro_torch.data.corpus import corpus
+    from repro_torch.launch.mesh import run_world, single_rank_world
+
+    cuda = torch.device(device).type == "cuda"
+    rec, launches, rows = {}, {}, {}
+    small_dna = dna_toks[: 1 << small_dna_log2n]
+    one = {"dna": ("dna", dna_toks, "bitonic"),
+           "dna_samplesort": ("dna", small_dna, "samplesort"),
+           "proteins": ("proteins",
+                        corpus("proteins", 1 << proteins_log2n),
+                        "bitonic")}
+    t_phase = time.perf_counter()
+    with single_rank_world("cuda" if cuda else "cpu") as mesh:
+        rec["transport_p1"] = dist_sort.transport(
+            dist_sort.shard_info(mesh, 1), device)
+        for name, (kind, toks, engine) in one.items():
+            ref = refs.get(name)
+            pats = (ref["pats"] if ref is not None
+                    else sample_patterns(toks, requests, seed=10))
+            if ref is None:
+                s, sigma = prepare_tokens(toks, 64)
+                ref = single_reference(s, sigma, pats, device)
+            r = mesh_path(toks, pats, mesh, engine, 2.0, device)
+            index = r.pop("index")
+            r.update(sa=index.sa, bwt=index.bwt, row=int(index.row))
+            same_dist(r, ref["sa"], ref["bwt"], ref["row"], ref["counts"],
+                      ref["pos"], ref["cnt"], f"phase 10 P=1 {name}")
+            for k in ("sa", "bwt", "counts", "pos", "cnt"):
+                del r[k]
+            launches[f"dist_p1_{name}"] = r.pop("launches")
+            require_dist_launches(launches[f"dist_p1_{name}"], kind, cuda,
+                                  f"phase 10 P=1 {name}")
+            if cuda and name in ("dna", "proteins"):
+                kname = "rank_packed" if index.fm.bits else "rank_select"
+                rows[kname] = dist_rank_row(index, kname,
+                                            requests * LOCATE_K, seed=10)
+            del index, ref
+            refs.pop(name, None)
+            if cuda:
+                torch.cuda.empty_cache()
+            if name == "dna":
+                r.update(dist_stages(toks, mesh, engine, device))
+            rec[f"p1_{name}"] = r
+    rec["p1_s"] = time.perf_counter() - t_phase
+
+    spec = {"device": device, "requests": requests,
+            "builds": dist_builds(small_dna_log2n, small_proteins_log2n)}
+    for P in parts:
+        t0 = time.perf_counter()
+        ranks = run_world(P, rank_fn or dist_rank, spec,
+                          timeout_s=DIST_WORLD_TIMEOUT_S)
+        world = {"transport": ranks[0]["transport"],
+                 "world_s": time.perf_counter() - t0}
+        for name, (kind, log2n, engine, cf) in spec["builds"].items():
+            toks = corpus(kind, 1 << log2n)
+            pats = sample_patterns(toks, requests, seed=10)
+            s, sigma = prepare_tokens(toks, P * 64)
+            ref = single_reference(s, sigma, pats, device)
+            got = dict(ranks[0][name])
+            got["sa"] = np.concatenate([r[name]["sa"] for r in ranks])
+            got["bwt"] = np.concatenate([r[name]["bwt"] for r in ranks])
+            for r in ranks:
+                got.update(row=r[name]["row"], counts=r[name]["counts"],
+                           pos=r[name]["pos"], cnt=r[name]["cnt"])
+                same_dist(got, ref["sa"], ref["bwt"], ref["row"],
+                          ref["counts"], ref["pos"], ref["cnt"],
+                          f"phase 10 P={P} {name}")
+            if cf == DIST_OVERFLOW_FACTOR:
+                require(all(r[name]["first_attempt_overflowed"]
+                            for r in ranks),
+                        f"phase 10 P={P} {name}: capacity factor {cf} did "
+                        f"not overflow, so no retry ran")
+            total = {k: sum(r[name]["launches"][k] for r in ranks)
+                     for k in ranks[0][name]["launches"]}
+            require_dist_launches(total, kind, cuda, f"phase 10 P={P} {name}")
+            launches[f"dist_p{P}_{name}"] = total
+            world[name] = {k: v for k, v in got.items()
+                           if k not in ("sa", "bwt", "counts", "pos", "cnt",
+                                        "launches")}
+            world[name]["launches_all_ranks"] = total
+            del ref
+        rec[f"p{P}"] = world
+    if cuda:
+        rec["nccl_two_ranks_one_card"] = nccl_shared_card()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, launches, rows
+
+
 # the function of the JAX package each kernel replaces (file:line of the
 # function that reaches pl.pallas_call)
 REPLACES = {
@@ -3191,15 +3637,17 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
          "launches_by_path": {p: v[name] for p, v in path_launches.items()},
          "shape": rows[name]["shape"],
          # merge_walk's plain walks run on small walks only; the query
-         # kernels' chains of dependent steps
-         **{k: rows[name][k] for k in ("plain_shape", "dependent_steps")
+         # kernels' chains of dependent steps; the rank kernels on the
+         # distributed indexes of phase 10
+         **{k: rows[name][k] for k in ("plain_shape", "dependent_steps",
+                                       "dist")
             if k in rows[name]}}
         for name in _build.KERNELS]}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -3267,6 +3715,7 @@ def main(argv=None) -> int:
              3: ("proteins", args.proteins_log2n, ("fm_query_unpacked",
                                                    *build_kernels))}
     kept = None
+    refs = {}   # phase 10's references: phases 2 and 3 on the host
     for phase, (kind, log2n, needed) in paths.items():
         if phase not in phases:
             continue
@@ -3276,9 +3725,12 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             toks = corpus(kind, 1 << log2n)
             gen_s = time.perf_counter() - t0
-        launches, k, fq = phase_main(kind, toks, gen_s, phase,
-                                     keep=kind == "dna")
+        launches, k, fq, ref = phase_main(kind, toks, gen_s, phase,
+                                          keep=kind == "dna",
+                                          snap=10 in phases)
         kept = k or kept
+        if ref is not None:
+            refs[kind] = ref
         if rows:
             rows[fq["name"]] = query_row(fq, small_errs[fq["name"]])
         for name in needed:
@@ -3374,6 +3826,21 @@ def main(argv=None) -> int:
             require(launches[path][name] > 0,
                     f"phase 9: kernel {name} never launched on {path}")
         emit({"phase": 9, **rec})
+
+    if 10 in phases:
+        rec, launches, dist_rows = phase_dist(
+            dna_toks, refs, dna_log2n=args.dna_log2n,
+            proteins_log2n=args.proteins_log2n,
+            small_dna_log2n=min(24, args.dna_log2n),
+            small_proteins_log2n=min(22, args.proteins_log2n))
+        for name, row in dist_rows.items():
+            if name in rows:
+                rows[name]["dist"] = row
+        for path, counts in launches.items():
+            path_launches[path] = counts
+            for name, v in counts.items():
+                main_launches[name] += v
+        emit({"phase": 10, **rec})
 
     if {1, 2, 3, 7, 8} <= phases:
         for name in _build.KERNELS:

@@ -175,6 +175,34 @@ def fm_mismatch(a, b) -> list:
     return out
 
 
+def occ_checkpoints(bwt_arr: torch.Tensor, sigma: int,
+                    sample_rate: int) -> torch.Tensor:
+    """Exclusive Occ checkpoints int32[n_blocks + 1, sigma]: row k counts
+    each symbol in ``bwt_arr[: k * sample_rate]`` (the last row, the
+    totals, also when the last block is partial)."""
+    dev = bwt_arr.device
+    n = bwt_arr.shape[0]
+    n_blocks = -(-n // sample_rate)  # ceil
+    # block counts without an n x sigma one-hot: one bincount over
+    # (block, symbol) cells; int32 keys while they fit
+    kdt = torch.int32 if n_blocks * sigma < (1 << 31) else torch.int64
+    cell = (torch.arange(n, dtype=kdt, device=dev) // sample_rate) * sigma
+    cell += bwt_arr.to(kdt)
+    block_counts = torch.bincount(cell, minlength=n_blocks * sigma)
+    del cell
+    # running counts per symbol down the blocks as ONE 1-D scan over the
+    # symbol-major layout, restarted per symbol by subtracting the previous
+    # symbol's total (a dim-0 cumsum of the (n_blocks, sigma) matrix runs
+    # an outer-dimension scan kernel that is far slower on the GPU)
+    run = torch.cumsum(block_counts.view(n_blocks, sigma).t().reshape(-1), 0)
+    run = run.view(sigma, n_blocks)
+    restart = torch.cat([run.new_zeros(1), run[:-1, -1]])
+    occ_samples = torch.zeros((n_blocks + 1, sigma), dtype=torch.int32,
+                              device=dev)
+    occ_samples[1:] = (run - restart[:, None]).t()
+    return occ_samples
+
+
 def build_fm_index(
     bwt_arr: torch.Tensor, row, sigma: int, sample_rate: int = 64, *,
     sa: torch.Tensor | None = None, sa_sample_rate: int = 32,
@@ -199,24 +227,7 @@ def build_fm_index(
     pad = n_blocks * sample_rate - n
     padded = torch.cat([bwt_arr, torch.full((pad,), PAD, dtype=torch.int32,
                                             device=dev)])
-    # block counts without an n x sigma one-hot: one bincount over
-    # (block, symbol) cells; int32 keys while they fit
-    kdt = torch.int32 if n_blocks * sigma < (1 << 31) else torch.int64
-    cell = (torch.arange(n, dtype=kdt, device=dev) // sample_rate) * sigma
-    cell += bwt_arr.to(kdt)
-    block_counts = torch.bincount(cell, minlength=n_blocks * sigma)
-    del cell
-    # running counts per symbol down the blocks as ONE 1-D scan over the
-    # symbol-major layout, restarted per symbol by subtracting the previous
-    # symbol's total (a dim-0 cumsum of the (n_blocks, sigma) matrix runs
-    # an outer-dimension scan kernel that is far slower on the GPU)
-    run = torch.cumsum(block_counts.view(n_blocks, sigma).t().reshape(-1), 0)
-    run = run.view(sigma, n_blocks)
-    restart = torch.cat([run.new_zeros(1), run[:-1, -1]])
-    occ_samples = torch.zeros((n_blocks + 1, sigma), dtype=torch.int32,
-                              device=dev)
-    occ_samples[1:] = (run - restart[:, None]).t()
-    # exclusive checkpoints: occ_samples[k] counts bwt[: k*r]
+    occ_samples = occ_checkpoints(bwt_arr, sigma, sample_rate)
 
     bits = 0 if pack is False else packed_bits(sigma, sample_rate)
     if pack and not bits:

@@ -16,8 +16,8 @@ On-disk layout (one ``Checkpointer`` step directory per saved index):
 Restore has the reference's two single-device branches: a pure
 reconstruction from the stored layout, or, for a checkpoint that does not
 store it (the reference's sharded ``dist_fm`` kind), ``build_fm_index``
-over the stored BWT on the target device.  Restoring onto a mesh is not
-ported yet.
+over the stored BWT on the target device.  Saving a distributed index and
+restoring onto a mesh are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 
 from ..devices import resolve_device
 from ..training.checkpoint import Checkpointer
+from .dist_fm import DistFMIndex
 from .fm_index import FMIndex, build_fm_index
 from .pipeline import SequenceIndex
 
@@ -91,6 +92,10 @@ def save_index(directory: str, index, *, step: int = 0, keep: int = 3) -> int:
     before writing.  Atomic: a crash mid-save never corrupts the previous
     step; ``keep`` steps are retained."""
     fm = index.fm if isinstance(index, SequenceIndex) else index
+    if isinstance(fm, DistFMIndex):
+        raise NotImplementedError(
+            "saving a distributed index is not ported yet (ROADMAP A10b); "
+            "save a single-device build")
     text_length = (
         index.text_length if isinstance(index, SequenceIndex) else fm.length
     )

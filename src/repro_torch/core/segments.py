@@ -41,7 +41,6 @@ import json
 import math
 import os
 import warnings
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,11 +68,12 @@ from .journal import (
     verify_file,
     write_file_durable,
 )
+from .dist_suffix_array import DistSAConfig
 from .pipeline import (
-    SAConfig,
     SequenceIndex,
     build_index,
     build_index_prepared,
+    build_sa_config,
     prepare_tokens,
 )
 
@@ -100,31 +100,6 @@ def unstored_knobs(cfg) -> dict:
         compact_cost_merge_us=cfg.compact_cost_merge_us,
         compact_trigger_cost_ratio=cfg.compact_trigger_cost_ratio,
     )
-
-
-class DistSAConfig(NamedTuple):
-    """The JAX package's ``DistSAConfig`` (``core/dist_suffix_array.py``):
-    the eight build knobs a catalog records in its ``sa_config``, in the
-    reference's order and with its defaults, so catalogs are the same
-    bytes in both packages.  The single-device build reads the last four
-    (``build_sa_config``); ``axis``, ``engine``, ``capacity_factor`` and
-    ``rounds`` belong to the mesh build (not ported) and are carried
-    through save and load unchanged."""
-
-    axis: str = "parts"
-    engine: str = "bitonic"
-    capacity_factor: float = 2.0
-    rounds: int | None = None
-    qgram: bool = True
-    qgram_words: int = 2
-    discard: bool = True
-    local_sort: str = "auto"
-
-
-def build_sa_config(cfg: DistSAConfig) -> SAConfig:
-    """The single-device builder's knobs of a catalog's ``sa_config``."""
-    return SAConfig(local_sort=cfg.local_sort, qgram=cfg.qgram,
-                    qgram_words=cfg.qgram_words, discard=cfg.discard)
 
 
 @dataclasses.dataclass
@@ -248,9 +223,9 @@ class SegmentedIndex:
         return cls(
             sigma, sample_rate=cfg.sample_rate,
             sa_sample_rate=cfg.sa_sample_rate,
-            # engine and capacity_factor belong to the mesh build (not
-            # ported): the reference config's values, recorded so that the
-            # catalog is the same bytes as the reference's
+            # engine and capacity_factor belong to the mesh build, which
+            # segments do not use: the reference config's values, recorded
+            # so that the catalog is the same bytes as the reference's
             sa_config=DistSAConfig(
                 engine="samplesort", capacity_factor=2.0,
                 qgram=cfg.qgram, qgram_words=cfg.qgram_words,

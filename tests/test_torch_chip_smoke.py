@@ -6,6 +6,7 @@ its bytes bound.  No GPU and no profiler run.
 """
 
 import importlib.util
+import sys
 import types
 from pathlib import Path
 
@@ -13,9 +14,14 @@ import pytest
 import torch
 from torch.autograd import DeviceType
 
-_SPEC = importlib.util.spec_from_file_location(
-    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+_ROOT = Path(__file__).resolve().parents[1]
+_SPEC = importlib.util.spec_from_file_location("chip_smoke",
+                                               _ROOT / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_SPEC)
+# importable by name, as phase 10's spawned ranks import their function
+sys.modules.setdefault("chip_smoke", chip_smoke)
+if str(_ROOT) not in sys.path:
+    sys.path.append(str(_ROOT))
 _SPEC.loader.exec_module(chip_smoke)
 
 
@@ -412,3 +418,86 @@ def test_window_counts_by_hand(w):
     want = [sum(np.array_equal(toks[i: i + w], toks[s: s + w])
                 for i in range(len(toks) - w + 1)) for s in starts]
     assert got.tolist() == want
+
+
+# -- phase 10: the distributed build and query ----------------------------
+
+def _phase_dist_cpu(**kw):
+    from repro_torch.data.corpus import corpus
+
+    return chip_smoke.phase_dist(
+        corpus("dna", 1 << 12), {}, dna_log2n=12, proteins_log2n=11,
+        small_dna_log2n=11, small_proteins_log2n=10, device="cpu",
+        parts=(2,), requests=32, **kw)
+
+
+def test_phase_dist_runs_on_the_cpu():
+    """Phase 10 at a tiny size on the CPU (plain versions, no launch):
+    every distributed build equals its single-device build and answers,
+    one rank in this process and two in a gloo world; the overflowing
+    samplesort start overflows and retries; the served batches make the
+    reference's collectives (two psums a pattern position; locate adds
+    two a walk step) and no other."""
+    rec, launches, rows = _phase_dist_cpu()
+    assert rec["transport_p1"] == rec["p2"]["transport"] == "gloo, direct"
+    assert rows == {} and "nccl_two_ranks_one_card" not in rec
+    assert all(set(v.values()) == {0} for v in launches.values())
+    assert set(launches) == (
+        {f"dist_p1_{k}" for k in ("dna", "dna_samplesort", "proteins")}
+        | {f"dist_p2_{k}" for k in chip_smoke.dist_builds(11, 10)})
+    paths = [rec["p1_dna"], rec["p1_dna_samplesort"], rec["p1_proteins"],
+             *(rec["p2"][k] for k in chip_smoke.dist_builds(11, 10))]
+    for r in paths:
+        L = r["count"]["batch"][1]
+        assert r["count"]["collectives"] == {
+            "all_gather": 0, "ppermute": 0, "all_to_all": 0,
+            "psum": 2 * L, "pmax": 0}
+        assert r["locate"]["collectives"]["psum"] == 2 * L + 2 * 32
+        assert r["collectives_build"]["all_gather"] > 0
+    assert rec["p1_dna_samplesort"]["collectives_build"]["all_to_all"] > 0
+    assert rec["p2"]["dna_overflow"]["first_attempt_overflowed"] is True
+    assert rec["p2"]["dna_overflow"]["capacity_factor"] == 0.5
+    rounds = rec["p1_dna"]["isa_rounds"]
+    assert rounds["remaining"][-1] == 0
+    assert len(rounds["round_s"]) == len(rounds["remaining"]) - 1
+    assert set(rec["p1_dna"]["stages_s"]) == {
+        "prepare_tokens_host", "host_to_device", "isa", "bwt", "fm_build"}
+
+
+def failing_dist_rank(mesh, spec):
+    """``chip_smoke.dist_rank`` on every rank but rank 1, which raises."""
+    if mesh.get_local_rank("parts") == 1:
+        raise RuntimeError("rank 1 lost its card")
+    return chip_smoke.dist_rank(mesh, spec)
+
+
+def test_phase_dist_fails_when_a_rank_raises():
+    """A rank's exception fails the phase with that rank's traceback (the
+    script then exits nonzero); the waiting rank does not hang it."""
+    with pytest.raises(RuntimeError, match="rank 1 raised") as err:
+        _phase_dist_cpu(rank_fn=failing_dist_rank)
+    assert "rank 1 lost its card" in str(err.value)
+
+
+def test_same_dist_refuses_any_difference():
+    import numpy as np
+
+    ref = dict(sa=np.arange(8), bwt=np.arange(8) % 3, row=2,
+               counts=np.ones(4), pos=np.zeros((4, 2)), cnt=np.ones(4))
+    rec = dict(ref)
+    chip_smoke.same_dist(rec, *ref.values(), "same")
+    for key, bad in (("sa", np.arange(8)[::-1]), ("row", 3),
+                     ("cnt", np.zeros(4))):
+        with pytest.raises(AssertionError, match="differ"):
+            chip_smoke.same_dist({**rec, key: bad}, *ref.values(), "x")
+
+
+def test_dist_launches_required_on_the_card_only():
+    need = dict.fromkeys(chip_smoke.DIST_NEEDED["dna"], 1)
+    chip_smoke.require_dist_launches({**need, "rerank_scan": 0}, "dna",
+                                     True, "ok")
+    with pytest.raises(AssertionError, match="rank_packed never launched"):
+        chip_smoke.require_dist_launches({**need, "rank_packed": 0}, "dna",
+                                         True, "x")
+    with pytest.raises(AssertionError, match="launched on the CPU"):
+        chip_smoke.require_dist_launches(need, "dna", False, "x")

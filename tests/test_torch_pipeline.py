@@ -167,5 +167,8 @@ def test_serve_launcher_restore_needs_ckpt_dir():
 
 
 def test_mesh_build_not_ported():
-    with pytest.raises(NotImplementedError):
+    """The mesh build itself is ported (``tests/test_torch_dist_*.py``);
+    its mesh must be the port's ``DeviceMesh`` (``launch/mesh.py``), and
+    anything else is refused before a build starts."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_index(corpus("dna", 100), mesh=object(), device="cpu")
