@@ -122,16 +122,30 @@ script exits nonzero and prints no final result:
      proteins 2^22 by both engines and DNA by samplesort from a capacity
      factor of 0.5, which overflows (shown by a first ISA build) and
      retries, each equal to the single-device build of the same prepared
-     text and its answers on every rank; (c) whether NCCL takes two ranks
-     on the one card.  A rank that raises or outlives its world's timeout
-     fails the run
+     text and its answers on every rank; whether NCCL takes two ranks on
+     the one card.  Checkpoints: (a) the DNA 2^28 one-rank mesh index
+     saved (save_index gathers to rank 0), restored on one device
+     (mesh=None) and onto the one-rank mesh, and phase 6's single-device
+     checkpoint of phase 2 restored onto the mesh, each answering phase
+     2's 1024 count + 1024 locate requests (one batch each) identically,
+     with save s, host npz read s, restore s beside the mesh build, peak
+     memory, and char_histogram launches per restore and rank launches
+     per batch (a mesh restore that launches no char_histogram fails);
+     (b) the world of 4 saves its DNA 2^24 bitonic build, the world of 2
+     restores it and so does this process on one device, every answer
+     equal to the single-device build's; (c) the serving launcher as a
+     world of 2 through python -m torch.distributed.run (gloo: the ranks
+     share the card) at n = 2^20 by samplesort with --ckpt-dir, then
+     --restore, both runs printing the same total_hits (the two runs
+     overlap (b)'s worlds).  A rank that raises or outlives its world's
+     timeout fails the run
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore, each merge of phase 7, each catalog
 of phase 8: its appends and its serving, each frontend scenario of phase
 9, its launcher call and its dedup, each distributed build of phase 10
-with its two served batches, summed over a world's ranks) and read just
-after it.  Then a ``kernels`` line (launches on the main paths of phases
+with its two served batches, summed over a world's ranks, and each
+restore of phase 10 with its two batches) and read just after it.  Then a ``kernels`` line (launches on the main paths of phases
 2-3 and 7-10 and on each path, parity error, times and bounds), the
 card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
@@ -147,7 +161,10 @@ import argparse
 import contextlib
 import io
 import json
+import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1439,8 +1456,11 @@ def dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
-def phase_restore(kept, proteins_log2n: int) -> tuple[dict, dict]:
-    """Returns (the phase's record, launches per restore path)."""
+def phase_restore(kept, proteins_log2n: int,
+                  keep_ckpt: Path | None = None) -> tuple[dict, dict]:
+    """Returns (the phase's record, launches per restore path).  With
+    ``keep_ckpt`` the stored-layout checkpoint is written there and left
+    for phase 10."""
     import torch
 
     from repro_torch.configs.bwt_index import CONFIG as icfg
@@ -1461,7 +1481,7 @@ def phase_restore(kept, proteins_log2n: int) -> tuple[dict, dict]:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=build_dir))
     out, launches = {}, {}
     try:
-        stored, derived = tmp / "stored", tmp / "derived"
+        stored, derived = keep_ckpt or tmp / "stored", tmp / "derived"
         t0 = time.perf_counter()
         save_index(str(stored), index)
         out["save_s"] = time.perf_counter() - t0
@@ -3203,7 +3223,9 @@ def phase_frontend(index, toks, merge_log2n: int, device="cuda",
 # phase 10: the distributed build and query (build_index(tokens, mesh))
 # --------------------------------------------------------------------------
 
-DIST_PARTS = (2, 4)              # gloo ranks sharing the card
+DIST_PARTS = (4, 2)              # gloo ranks sharing the card: the first
+                                 # world saves, the last restores
+DIST_SAVED = "dna_bitonic"       # the build the first world saves
 DIST_OVERFLOW_FACTOR = 0.5       # a samplesort start that overflows
 DIST_RETRIES = 4                 # 0.5 -> 1 -> 2 -> 4
 DIST_WORLD_TIMEOUT_S = 600
@@ -3434,16 +3456,249 @@ def dist_rank_row(index, name: str, lanes: int, seed: int) -> dict:
     return row
 
 
+def _host_answers(counts, pos, cnt) -> dict:
+    import numpy as np
+
+    def host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+    return {"counts": host(counts), "pos": host(pos), "cnt": host(cnt)}
+
+
+def check_restored(got: dict, ref: dict, what: str) -> None:
+    """A restored index's answers (``_host_answers``) equal the saved
+    index's."""
+    import numpy as np
+
+    want = _host_answers(ref["counts"], ref["pos"], ref["cnt"])
+    for k in ("counts", "pos", "cnt"):
+        require(np.array_equal(got[k], want[k]),
+                f"{what}: {k} differ from the saved index's")
+
+
+def require_restore_launches(rec: dict, mesh, cuda: bool, what: str) -> None:
+    """On the card a restore that derives its layout launches
+    ``char_histogram``, and its queries the rank kernel of its layout (a
+    mesh index) or the fused query kernel; on the CPU nothing launches."""
+    if not cuda:
+        for part in ("launches_restore", "launches_queries"):
+            require(set(rec[part].values()) <= {0},
+                    f"{what}: a kernel launched on the CPU")
+        return
+    require(rec["launches_restore"]["char_histogram"] > 0,
+            f"{what}: char_histogram never launched by the restore")
+    bits = rec["bits"]
+    query = (("rank_packed" if bits else "rank_select") if mesh is not None
+             else ("fm_query_packed" if bits else "fm_query_unpacked"))
+    require(rec["launches_queries"][query] > 0,
+            f"{what}: {query} never launched by the restored index")
+
+
+def restore_path(directory, mesh, pats, device, what: str) -> tuple:
+    """One restore of the checkpoint under ``directory`` (onto ``mesh``, or
+    one device when None) and the requests as one count and one locate
+    batch, launch and collective counts set to 0 before the restore and
+    before each batch.  Returns (record, launches of the path, answers on
+    the host)."""
+    import torch
+
+    from repro_torch.core.index_io import restore_index
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _counts_reset()
+    t0 = time.perf_counter()
+    index = restore_index(str(directory), mesh, device=device)
+    _sync(device)
+    rec = {"restore_s": time.perf_counter() - t0, "bits": index.fm.bits,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if cuda else None)}
+    rec["launches_restore"], rec["collectives_restore"] = _counts()
+    P = pad_patterns(pats, max(len(p) for p in pats), device)
+    index.count(P[:8])                     # warm-up: first launches
+    index.locate(P[:8], LOCATE_K)
+    queries = dict.fromkeys(rec["launches_restore"], 0)
+    out = {}
+    for kind in ("count", "locate"):
+        _counts_reset()
+        _sync(device)
+        t0 = time.perf_counter()
+        out[kind] = index.count(P) if kind == "count" else index.locate(
+            P, LOCATE_K)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        lc, cc = _counts()
+        rec[kind] = {"s": dt, "qps": len(pats) / dt, "launches": lc,
+                     "collectives": cc}
+        for k, v in lc.items():
+            queries[k] += v
+    rec["launches_queries"] = queries
+    require_restore_launches(rec, mesh, cuda, what)
+    launches = {k: v + queries[k] for k, v in rec["launches_restore"].items()}
+    return rec, launches, _host_answers(out["count"], *out["locate"])
+
+
+def dist_restores(index, toks, pats, ref: dict, mesh, device, build_s: float,
+                  fm_ckpt) -> tuple[dict, dict]:
+    """Phase 10 (a)'s checkpoints: the one-part mesh ``index`` saved, then
+    restored on one device (``mesh=None``) and onto ``mesh``; the
+    single-device checkpoint ``fm_ckpt`` (phase 6's of phase 2's build;
+    when None, one saved here from a build of ``toks``) restored onto
+    ``mesh``.  Each restore answers the requests as ``ref`` (phase 2).
+    Returns (record, launches per path)."""
+    from repro_torch.core.index_io import save_index
+    from repro_torch.core.pipeline import build_index
+    from repro_torch.training.checkpoint import Checkpointer
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_ckpt_",
+                                dir=build_dir))
+    out = {"mesh_build_s": build_s}
+    launches = {}
+    try:
+        saved = tmp / "dist"
+        _sync(device)
+        t0 = time.perf_counter()
+        save_index(str(saved), index)
+        _sync(device)
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes_on_disk"] = dir_bytes(saved)
+        t0 = time.perf_counter()
+        Checkpointer(str(saved)).restore_raw()
+        out["read_npz_s"] = time.perf_counter() - t0   # each restore's read
+        if fm_ckpt is None:
+            fm_ckpt = tmp / "fm"
+            save_index(str(fm_ckpt), build_index(
+                toks, sample_rate=64, sa_sample_rate=32, device=device))
+        for name, path, where in (("dist_on_one_device", saved, None),
+                                  ("dist_on_mesh", saved, mesh),
+                                  ("fm_on_mesh", fm_ckpt, mesh)):
+            what = f"phase 10 P=1 restore {name}"
+            rec, launches[f"dist_restore_{name}"], got = restore_path(
+                path, where, pats, device, what)
+            check_restored(got, ref, what)
+            out[name] = rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches
+
+
+class LauncherWorld:
+    """Phase 10 (c): the serving launcher as a world of 2 ranks through
+    ``python -m torch.distributed.run``, built by samplesort and saved,
+    then ``--restore``d onto the world; both runs' ``total_hits`` (and
+    located positions) must be equal.  ``step`` waits for the run in
+    flight and starts the next, so the caller works beside each run;
+    ``result`` finishes them; ``close`` stops a run still in flight with
+    its ranks and removes the checkpoint."""
+
+    RUNS = (("build", []), ("restore", ["--restore"]))
+
+    def __init__(self, log2n: int, device, timeout_s: float = 600.0):
+        build_dir = ROOT / "build"
+        build_dir.mkdir(exist_ok=True)
+        self.tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_launcher_",
+                                         dir=build_dir))
+        src = str(ROOT / "src")
+        self.env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (src, os.environ.get("PYTHONPATH")) if p))
+        self.cmd = [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc-per-node", "2", "-m",
+                    "repro_torch.launch.serve", "--", "--n", str(1 << log2n),
+                    "--engine", "samplesort", "--device", str(device),
+                    "--ckpt-dir", str(self.tmp / "idx")]
+        self.timeout_s = timeout_s
+        self.pending = list(self.RUNS)
+        self.proc = self.mode = None
+        self.t0 = 0.0
+        self.out = {}
+
+    def step(self) -> None:
+        if self.proc is not None:
+            self._wait()
+        if self.pending:
+            self.mode, extra = self.pending.pop(0)
+            self.t0 = time.perf_counter()
+            self.proc = subprocess.Popen(
+                self.cmd + extra, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=self.env,
+                start_new_session=True)
+
+    def _wait(self) -> None:
+        proc, mode = self.proc, self.mode
+        try:
+            text, err = proc.communicate(timeout=self.timeout_s)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 10 launcher {mode}: outlived "
+                                 f"{self.timeout_s} s") from None  # close()
+        self.proc = None
+        require(proc.returncode == 0, f"phase 10 launcher {mode}: exit "
+                                      f"{proc.returncode}\n{err[-3000:]}")
+        hits = re.findall(r"total_hits=(\d+)", text)
+        found = re.findall(r"(\d+) positions", text)
+        require(len(hits) == len(found) == 1,
+                f"phase 10 launcher {mode}: rank 0 alone prints one "
+                f"result, got {hits}, {found}")
+        self.out[mode] = {"s": time.perf_counter() - self.t0,
+                          "total_hits": int(hits[0]),
+                          "located": int(found[0]),
+                          "lines": text.strip().splitlines()}
+
+    def result(self) -> dict:
+        while self.proc is not None or self.pending:
+            self.step()
+        b, r = self.out["build"], self.out["restore"]
+        require(b["total_hits"] == r["total_hits"] > 0
+                and b["located"] == r["located"],
+                f"phase 10 launcher: build and restore answer "
+                f"differently: {self.out}")
+        return self.out
+
+    def close(self) -> None:
+        proc = self.proc
+        if proc is not None and proc.poll() is None:
+            # torch.distributed.run stops its ranks (each in a session of
+            # its own) on SIGTERM; whatever is left after a grace period
+            # is killed by process id
+            ranks = _children(proc.pid)
+            proc.terminate()
+            try:
+                proc.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+            for pid in ranks:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
+            proc.communicate()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def _children(pid: int) -> list:
+    """The process ids under ``pid`` (its children, theirs, ...)."""
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            kids = [int(k) for k in f.read().split()]
+    except OSError:
+        return []
+    return kids + [g for k in kids for g in _children(k)]
+
+
 def dist_rank(mesh, spec: dict) -> dict:
     """One rank of a world sharing the card: every build of ``spec``
     through ``mesh_path`` (the overflowing one after a first ISA build
-    that shows the overflow), its shards, row and answers."""
+    that shows the overflow), its shards, row and answers; the build
+    ``spec["save"]`` names saved to its directory, and the checkpoint
+    ``spec["restore"]`` names restored onto the mesh (``restore_path``)."""
     from repro_torch.core import dist_sort
     from repro_torch.core.dist_suffix_array import (
         DistSAConfig,
         build_isa_sharded,
         isa_overflowed,
     )
+    from repro_torch.core.index_io import save_index
     from repro_torch.core.pipeline import prepare_tokens
     from repro_torch.data.corpus import corpus
 
@@ -3465,8 +3720,22 @@ def dist_rank(mesh, spec: dict) -> dict:
         index = rec.pop("index")
         rec.update(sa=index.sa, bwt=index.bwt, row=int(index.row),
                    first_attempt_overflowed=first)
+        if spec.get("save", (None,))[0] == name:
+            _sync(dev)
+            t0 = time.perf_counter()
+            save_index(spec["save"][1], index)
+            rec["save_s"] = time.perf_counter() - t0
         del index
         out[name] = rec
+    if spec.get("restore"):
+        name, directory = spec["restore"]
+        kind, log2n = spec["builds"][name][:2]
+        pats = sample_patterns(corpus(kind, 1 << log2n), spec["requests"],
+                               seed=10)
+        rec, rec["launches"], rec["answers"] = restore_path(
+            directory, mesh, pats, dev,
+            f"phase 10 P={parts} restore of {name}")
+        out["restore"] = rec
     return out
 
 
@@ -3496,24 +3765,29 @@ def nccl_shared_card() -> str:
 def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
                small_dna_log2n: int, small_proteins_log2n: int,
                device="cuda", parts=DIST_PARTS, requests: int = 1024,
-               rank_fn=None):
+               rank_fn=None, fm_ckpt=None, launcher_log2n: int = 20):
     """Phase 10.  (a) One NCCL rank (gloo on the CPU) in this process: DNA
     at ``dna_log2n`` (bitonic) and proteins at ``proteins_log2n``, each
     equal to phase 2's / phase 3's build and answers (``refs``, else built
-    here), and DNA at ``small_dna_log2n`` by samplesort; stage times of a
-    second DNA build; the rank kernels on the one-part indexes.  (b) gloo
-    worlds of ``parts`` ranks sharing the card (``rank_fn``, default
-    ``dist_rank``): both engines at ``small_*_log2n`` and a samplesort
-    from an overflowing factor, each equal to the single-device build of
-    the same prepared text and its answers.  Returns (record, launches
-    per path, the rank kernels' rows)."""
-    import numpy as np
+    here), and DNA at ``small_dna_log2n`` by samplesort; the DNA mesh
+    index saved and restored on one device and onto the mesh, and the
+    single-device checkpoint ``fm_ckpt`` restored onto the mesh
+    (``dist_restores``); stage times of a second DNA build; the rank
+    kernels on the one-part indexes.  (b) gloo worlds of ``parts`` ranks
+    sharing the card (``rank_fn``, default ``dist_rank``): both engines
+    at ``small_*_log2n`` and a samplesort from an overflowing factor, each
+    equal to the single-device build of the same prepared text and its
+    answers; the first world saves its ``DIST_SAVED`` build, the last
+    restores it, and so does this process on one device.  (c) the serving
+    launcher as a world of 2 at ``launcher_log2n`` (``LauncherWorld``),
+    its two runs beside (b)'s worlds.
+    Returns (record, launches per path, the rank kernels' rows)."""
     import torch
 
     from repro_torch.core import dist_sort
     from repro_torch.core.pipeline import prepare_tokens
     from repro_torch.data.corpus import corpus
-    from repro_torch.launch.mesh import run_world, single_rank_world
+    from repro_torch.launch.mesh import single_rank_world
 
     cuda = torch.device(device).type == "cuda"
     rec, launches, rows = {}, {}, {}
@@ -3544,6 +3818,11 @@ def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
             launches[f"dist_p1_{name}"] = r.pop("launches")
             require_dist_launches(launches[f"dist_p1_{name}"], kind, cuda,
                                   f"phase 10 P=1 {name}")
+            if name == "dna":
+                rec["p1_restore"], restored = dist_restores(
+                    index, toks, pats, ref, mesh, device, r["build_s"],
+                    fm_ckpt)
+                launches.update(restored)
             if cuda and name in ("dna", "proteins"):
                 kname = "rank_packed" if index.fm.bits else "rank_select"
                 rows[kname] = dist_rank_row(index, kname,
@@ -3559,15 +3838,62 @@ def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
 
     spec = {"device": device, "requests": requests,
             "builds": dist_builds(small_dna_log2n, small_proteins_log2n)}
-    for P in parts:
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    saved = Path(tempfile.mkdtemp(prefix="chip_smoke_world_ckpt_",
+                                  dir=build_dir)) / "index"
+    # (c) runs beside (b): its build beside the first world, its restore
+    # beside the next (ranks on the host CPU and the card, time-shared)
+    launcher = LauncherWorld(launcher_log2n, device)
+    t0 = time.perf_counter()
+    try:
+        rec.update(dist_worlds(spec, parts, saved, device, rank_fn,
+                               launches, beside=launcher.step))
+        rec["launcher"] = launcher.result()
+    finally:
+        launcher.close()
+        shutil.rmtree(saved.parent, ignore_errors=True)
+    rec["worlds_and_launcher_s"] = time.perf_counter() - t0
+    if cuda:
+        rec["nccl_two_ranks_one_card"] = nccl_shared_card()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, launches, rows
+
+
+def dist_worlds(spec: dict, parts, saved: Path, device, rank_fn,
+                launches: dict, beside=None) -> dict:
+    """Phase 10 (b): a world of each of ``parts`` ranks through
+    ``rank_fn``, every build equal to the single-device build of its text
+    on every rank; the first world saves its ``DIST_SAVED`` build under
+    ``saved``, the last restores it onto its mesh and this process on one
+    device, each answering as the saved index.  ``beside()`` is called
+    before each world starts.  Adds each path's launches (summed over the
+    ranks) to ``launches``; returns the record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import prepare_tokens
+    from repro_torch.data.corpus import corpus
+    from repro_torch.launch.mesh import run_world
+
+    cuda = torch.device(device).type == "cuda"
+    rec, saved_ref = {}, None
+    for i, P in enumerate(parts):
+        spec_p = dict(spec)
+        if i == 0:
+            spec_p["save"] = (DIST_SAVED, str(saved))
+        if i == len(parts) - 1:
+            spec_p["restore"] = (DIST_SAVED, str(saved))
+        if beside is not None:
+            beside()
         t0 = time.perf_counter()
-        ranks = run_world(P, rank_fn or dist_rank, spec,
+        ranks = run_world(P, rank_fn or dist_rank, spec_p,
                           timeout_s=DIST_WORLD_TIMEOUT_S)
         world = {"transport": ranks[0]["transport"],
                  "world_s": time.perf_counter() - t0}
         for name, (kind, log2n, engine, cf) in spec["builds"].items():
             toks = corpus(kind, 1 << log2n)
-            pats = sample_patterns(toks, requests, seed=10)
+            pats = sample_patterns(toks, spec["requests"], seed=10)
             s, sigma = prepare_tokens(toks, P * 64)
             ref = single_reference(s, sigma, pats, device)
             got = dict(ranks[0][name])
@@ -3592,12 +3918,29 @@ def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
                            if k not in ("sa", "bwt", "counts", "pos", "cnt",
                                         "launches")}
             world[name]["launches_all_ranks"] = total
+            if i == 0 and name == DIST_SAVED:
+                saved_ref = _host_answers(ref["counts"], ref["pos"],
+                                          ref["cnt"])
             del ref
+        if "restore" in spec_p:
+            for r in ranks:
+                check_restored(r["restore"].pop("answers"), saved_ref,
+                               f"phase 10 P={P} restore of {DIST_SAVED}")
+            total = {k: sum(r["restore"]["launches"][k] for r in ranks)
+                     for k in ranks[0]["restore"]["launches"]}
+            launches[f"dist_p{P}_restore"] = total
+            world["restore"] = {k: v for k, v in ranks[0]["restore"].items()
+                                if k != "launches"}
+            world["restore"]["launches_all_ranks"] = total
         rec[f"p{P}"] = world
-    if cuda:
-        rec["nccl_two_ranks_one_card"] = nccl_shared_card()
-    rec["phase_s"] = time.perf_counter() - t_phase
-    return rec, launches, rows
+    kind, log2n = spec["builds"][DIST_SAVED][:2]
+    pats = sample_patterns(corpus(kind, 1 << log2n), spec["requests"],
+                           seed=10)
+    what = f"phase 10 restore of the P={parts[0]} {DIST_SAVED} on one device"
+    rec["restore_one_device"], launches["dist_restore_one_device"], got = (
+        restore_path(saved, None, pats, device, what))
+    check_restored(got, saved_ref, what)
+    return rec
 
 
 # the function of the JAX package each kernel replaces (file:line of the
@@ -3761,9 +4104,15 @@ def main(argv=None) -> int:
         path_launches["seed"] = rec["launches"]
         emit({"phase": 5, **rec})
 
+    fm_ckpt = None      # phase 6's checkpoint of phase 2, for phase 10
     if 6 in phases:
         require(kept is not None, "phase 6 restores phase 2's build")
-        rec, launches = phase_restore(kept, args.proteins_log2n)
+        if 10 in phases:
+            (ROOT / "build").mkdir(exist_ok=True)
+            fm_ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_fm_ckpt_",
+                                            dir=ROOT / "build")) / "index"
+        rec, launches = phase_restore(kept, args.proteins_log2n,
+                                      keep_ckpt=fm_ckpt)
         for name, v in launches.items():
             path_launches[f"restore_{name}"] = v
         emit({"phase": 6, **rec})
@@ -3828,11 +4177,16 @@ def main(argv=None) -> int:
         emit({"phase": 9, **rec})
 
     if 10 in phases:
-        rec, launches, dist_rows = phase_dist(
-            dna_toks, refs, dna_log2n=args.dna_log2n,
-            proteins_log2n=args.proteins_log2n,
-            small_dna_log2n=min(24, args.dna_log2n),
-            small_proteins_log2n=min(22, args.proteins_log2n))
+        try:
+            rec, launches, dist_rows = phase_dist(
+                dna_toks, refs, dna_log2n=args.dna_log2n,
+                proteins_log2n=args.proteins_log2n,
+                small_dna_log2n=min(24, args.dna_log2n),
+                small_proteins_log2n=min(22, args.proteins_log2n),
+                fm_ckpt=fm_ckpt)
+        finally:
+            if fm_ckpt is not None:
+                shutil.rmtree(fm_ckpt.parent, ignore_errors=True)
         for name, row in dist_rows.items():
             if name in rows:
                 rows[name]["dist"] = row

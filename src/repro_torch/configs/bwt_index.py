@@ -1,6 +1,7 @@
-"""The paper's own workload as a config: single-device BWT index
-construction + FM-index query serving.  A copy of the knobs of the JAX
-package's ``configs/bwt_index.py`` that this package reads.
+"""The paper's own workload as a config: BWT index construction (on one
+device or distributed over a mesh) + FM-index query serving.  A copy of
+the knobs of the JAX package's ``configs/bwt_index.py`` that this package
+reads.
 """
 
 import dataclasses
@@ -11,6 +12,10 @@ class BWTIndexConfig:
     name: str = "bwt_index"
     n: int = 1 << 28              # 256 Mi tokens (PROTEINS/DNA-scale, §3)
     sigma: int = 257              # byte alphabet + sentinel
+    # the mesh build's engine (core/dist_suffix_array.py DistSAConfig):
+    # "samplesort" (the paper's range shuffle) or "bitonic"
+    engine: str = "samplesort"
+    capacity_factor: float = 2.0
     # build-engine knobs: fused keys are always on; these gate the packed
     # q-gram init, active-suffix discarding, and the local sort
     qgram: bool = True            # rank by q packed chars, start at h=q

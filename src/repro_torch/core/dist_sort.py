@@ -7,8 +7,8 @@ shard (SPMD: every rank makes the same calls in the same order).
 ``ShardInfo`` carries the mesh dimension's process group, and ``_me`` is
 the rank in it.
 
-Collectives (``all_gather``, ``ppermute``, ``all_to_all``, ``psum``,
-``pmax``), counted per call in ``COLLECTIVES``:
+Collectives (``all_gather``, ``gather``, ``ppermute``, ``all_to_all``,
+``psum``, ``pmax``), counted per call in ``COLLECTIVES``:
 
 * an NCCL group (one rank per card) takes CUDA tensors as they are;
 * a gloo group takes CPU tensors as they are, and CUDA tensors (ranks that
@@ -45,8 +45,8 @@ from ..kernels.ops import COMPARE
 
 AXIS = "parts"
 # collective calls made by this rank, by kind
-COLLECTIVES = {"all_gather": 0, "ppermute": 0, "all_to_all": 0, "psum": 0,
-               "pmax": 0}
+COLLECTIVES = {"all_gather": 0, "gather": 0, "ppermute": 0, "all_to_all": 0,
+               "psum": 0, "pmax": 0}
 
 
 def reset_collectives() -> None:
@@ -146,6 +146,19 @@ def all_gather(info: ShardInfo, x: torch.Tensor) -> torch.Tensor:
     dist.all_gather(out, t, group=info.group)
     COLLECTIVES["all_gather"] += 1
     return _back(torch.stack(out), x)
+
+
+def gather(info: ShardInfo, x: torch.Tensor) -> torch.Tensor | None:
+    """(P, *x.shape) on rank 0: every rank's ``x``, in rank order; None on
+    the other ranks, which only send (a save's gather: no rank but the
+    writer holds the whole array)."""
+    t = _wire(info, x)
+    out = (torch.empty((info.parts, *t.shape), dtype=t.dtype,
+                       device=t.device) if _me(info) == 0 else None)
+    dist.gather(t, None if out is None else list(out.unbind(0)),
+                dst=dist.get_global_rank(info.group, 0), group=info.group)
+    COLLECTIVES["gather"] += 1
+    return None if out is None else _back(out, x)
 
 
 def ppermute(info: ShardInfo, x: torch.Tensor, perm) -> torch.Tensor:

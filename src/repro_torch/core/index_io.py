@@ -7,17 +7,22 @@ restores in the other.
 On-disk layout (one ``Checkpointer`` step directory per saved index):
 
     ckpt_dir/step_00000000/
-      arrays.npz      bwt, row, SA-sample bitvector + packed/raw values,
-                      plus the derived single-device layout (c_array,
-                      occ_samples, fused rows)
-      meta.json       manifest: format/version, kind, static aux (sigma,
-                      sample_rate, bits, sa_sample_rate, sa_val_bits, ...)
+      arrays.npz      bwt (global, padded), row, SA-sample bitvector +
+                      packed/raw values, plus, for a single-device index,
+                      the derived layout (c_array, occ_samples, fused rows)
+      meta.json       manifest: format/version, kind ("fm" / "dist_fm"),
+                      static aux (sigma, sample_rate, bits, sa_sample_rate,
+                      sa_val_bits, built_parts, ...)
 
-Restore has the reference's two single-device branches: a pure
-reconstruction from the stored layout, or, for a checkpoint that does not
-store it (the reference's sharded ``dist_fm`` kind), ``build_fm_index``
-over the stored BWT on the target device.  Saving a distributed index and
-restoring onto a mesh are not ported yet.
+A distributed index (``core/dist_fm.py``, one rank's part per process)
+saves as one global BWT: the ranks' shards are gathered to rank 0, which
+writes; no per-shard layout is stored, since it depends on the number of
+ranks.  Restore takes any mesh: each rank slices its shard of the stored
+BWT and ``build_dist_fm_index`` recomputes the layout, so a checkpoint
+written from 8 ranks serves from 4 or 1, and one written by a single
+device serves from a mesh.  Without a mesh, restore is a pure
+reconstruction from the stored layout, or ``build_fm_index`` over the
+stored BWT when the checkpoint stores none (``"dist_fm"``).
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import torch
 
 from ..devices import resolve_device
 from ..training.checkpoint import Checkpointer
-from .dist_fm import DistFMIndex
+from .dist_fm import DistFMIndex, build_dist_fm_index
+from .dist_sort import _me, gather, mesh_parts, pmax, shard_info
 from .fm_index import FMIndex, build_fm_index
 from .pipeline import SequenceIndex
 
@@ -70,11 +76,11 @@ class UnsupportedVersionError(IndexIOError, ValueError):
     upgrade this build; the artifact itself is healthy."""
 
 
-def _manifest(fm: FMIndex, text_length: int) -> dict:
+def _manifest(fm, text_length: int) -> dict:
     return {
         "format": FORMAT,
         "version": VERSION,
-        "kind": "fm",
+        "kind": "dist_fm" if isinstance(fm, DistFMIndex) else "fm",
         "sample_rate": fm.sample_rate,
         "sigma": fm.sigma,
         "length": fm.length,
@@ -82,31 +88,60 @@ def _manifest(fm: FMIndex, text_length: int) -> dict:
         "sa_sample_rate": fm.sa_sample_rate,
         "sa_val_bits": fm.sa_val_bits,
         "text_length": text_length,
-        "built_parts": 1,  # informational only
+        "built_parts": getattr(fm, "parts", 1),  # informational only
     }
 
 
-def save_index(directory: str, index, *, step: int = 0, keep: int = 3) -> int:
-    """Checkpoint a built index (a ``SequenceIndex`` or a bare
-    ``FMIndex``); returns the step written.  Arrays are copied to the host
-    before writing.  Atomic: a crash mid-save never corrupts the previous
-    step; ``keep`` steps are retained."""
-    fm = index.fm if isinstance(index, SequenceIndex) else index
-    if isinstance(fm, DistFMIndex):
-        raise NotImplementedError(
-            "saving a distributed index is not ported yet (ROADMAP A10b); "
-            "save a single-device build")
-    text_length = (
-        index.text_length if isinstance(index, SequenceIndex) else fm.length
-    )
-    # the derived layout is cheap to store and makes restore a pure
-    # reconstruction (no recompute at all); fused is None when unpacked
-    names = _COMMON + (_SA_ARRAYS if fm.sa_sample_rate else ()) + _FM_LAYOUT
-    tree = {name: getattr(fm, name) for name in names
-            if getattr(fm, name) is not None}
+def _write(directory: str, fm, tree: dict, text_length: int, step: int,
+           keep: int) -> None:
     manifest = _manifest(fm, text_length)
     manifest["arrays"] = sorted(tree)
     Checkpointer(directory, keep=keep).save(step, tree, extra=manifest)
+
+
+def save_index(directory: str, index, *, step: int = 0, keep: int = 3) -> int:
+    """Checkpoint a built index (a ``SequenceIndex``, on one device or on
+    a mesh, or a bare ``FMIndex``); returns the step written.  Arrays are
+    copied to the host before writing.  Atomic: a crash mid-save never
+    corrupts the previous step; ``keep`` steps are retained.
+
+    A distributed index is saved by every rank of its mesh, making the
+    same call: the BWT shards are gathered to rank 0, which writes, and
+    every rank then learns the write's outcome in one collective (the
+    barrier, under the world's timeout).  A failed write raises on every
+    rank: the writer's own error on rank 0, ``RuntimeError`` elsewhere."""
+    fm = index.fm if isinstance(index, SequenceIndex) else index
+    text_length = (
+        index.text_length if isinstance(index, SequenceIndex) else fm.length
+    )
+    sa_names = _SA_ARRAYS if fm.sa_sample_rate else ()
+    if isinstance(fm, DistFMIndex):
+        if not isinstance(index, SequenceIndex):
+            raise TypeError("save a distributed index as the SequenceIndex "
+                            "of its mesh build (it knows the mesh)")
+        info = shard_info(index.mesh, fm.length)
+        bwt = gather(info, fm.bwt)          # rank 0's; None elsewhere
+        error = None
+        if bwt is not None:
+            tree = {"bwt": bwt.reshape(-1), "row": fm.row}
+            tree.update({name: getattr(fm, name) for name in sa_names})
+            try:
+                _write(directory, fm, tree, text_length, step, keep)
+            except Exception as e:          # raised after the barrier
+                error = e
+        failed = pmax(info, torch.tensor(error is not None,
+                                         device=fm.device))
+        if error is not None:
+            raise error
+        if bool(failed):
+            raise RuntimeError(f"rank 0 failed to write index checkpoint "
+                               f"step {step} under {directory!r}")
+        return step
+    # the derived layout is cheap to store and makes restore a pure
+    # reconstruction (no recompute at all); fused is None when unpacked
+    tree = {name: getattr(fm, name) for name in _COMMON + sa_names
+            + _FM_LAYOUT if getattr(fm, name) is not None}
+    _write(directory, fm, tree, text_length, step, keep)
     return step
 
 
@@ -164,16 +199,22 @@ def restore_index(directory: str, mesh=None, *, step: int | None = None,
                   device=None) -> SequenceIndex:
     """Restore a checkpointed index onto ``device`` (None = the GPU),
     ready to serve.  Counting/locating on the restored index is
-    bit-identical to the index that was saved.  ``mesh`` (a sharded
-    restore) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError("restoring onto a mesh is not ported yet; "
-                                  "pass mesh=None")
+    bit-identical to the index that was saved.
+
+    ``mesh`` (``launch/mesh.py`` ``make_index_mesh``; every rank of it
+    makes the same call) restores a distributed index over its
+    ``"parts"`` dimension from either kind of checkpoint, whatever mesh
+    wrote it: each rank reads the checkpoint, slices its shard of the
+    BWT and rebuilds its layout.  Raises ``ValueError`` when the padded
+    length does not divide ``parts * sample_rate`` (pick another mesh, or
+    restore on one device)."""
     dev = resolve_device(device)
+    parts = None if mesh is None else mesh_parts(mesh)
     flat, meta = _load_raw(directory, step)
     sample_rate = meta["sample_rate"]
     sigma = meta["sigma"]
     srate = meta["sa_sample_rate"]
+    n = meta["length"]
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=dev)
@@ -184,24 +225,35 @@ def restore_index(directory: str, mesh=None, *, step: int | None = None,
         sa_samples = tuple(put(flat[k]) for k in _SA_ARRAYS) + (
             meta["sa_val_bits"],)
 
-    if meta["kind"] == "fm" and "occ_samples" in flat:
+    if mesh is not None:
+        if n % parts or (n // parts) % sample_rate:
+            raise ValueError(f"n={n} must be divisible by parts*sample_rate="
+                             f"{parts}*{sample_rate}")
+        m = n // parts
+        me = _me(shard_info(mesh, n))
+        fm = build_dist_fm_index(
+            put(flat["bwt"][me * m: (me + 1) * m]), row, mesh, sigma=sigma,
+            sample_rate=sample_rate, pack=bool(meta["bits"]),
+            sa_samples=sa_samples, sa_sample_rate=srate,
+        )
+    elif meta["kind"] == "fm" and "occ_samples" in flat:
         # pure reconstruction from the stored layout
         fm = FMIndex(
             put(flat["bwt"]), row, put(flat["c_array"]),
             put(flat["occ_samples"]),
             put(flat["fused"]) if "fused" in flat else None,
             *(sa_samples[:3] if sa_samples else (None, None, None)),
-            sample_rate, sigma, meta["length"], meta["bits"],
+            sample_rate, sigma, n, meta["bits"],
             srate, meta["sa_val_bits"],
         )
     else:  # no stored single-device layout: derive it on the device
         fm = build_fm_index(
-            put(flat["bwt"][: meta["length"]]), row, sigma, sample_rate,
+            put(flat["bwt"][:n]), row, sigma, sample_rate,
             pack=bool(meta["bits"]), sa_samples=sa_samples,
             sa_sample_rate=srate,
         )
-    return SequenceIndex(fm, None, fm.bwt, row, sigma, meta["length"],
-                         meta["text_length"])
+    return SequenceIndex(fm, None, fm.bwt, fm.row, sigma, n,
+                         meta["text_length"], mesh=mesh)
 
 
 def latest_index_step(directory: str) -> int | None:

@@ -223,11 +223,8 @@ class SegmentedIndex:
         return cls(
             sigma, sample_rate=cfg.sample_rate,
             sa_sample_rate=cfg.sa_sample_rate,
-            # engine and capacity_factor belong to the mesh build, which
-            # segments do not use: the reference config's values, recorded
-            # so that the catalog is the same bytes as the reference's
             sa_config=DistSAConfig(
-                engine="samplesort", capacity_factor=2.0,
+                engine=cfg.engine, capacity_factor=cfg.capacity_factor,
                 qgram=cfg.qgram, qgram_words=cfg.qgram_words,
                 discard=cfg.discard, local_sort=cfg.local_sort,
             ),

@@ -10,6 +10,11 @@ per card; ``"cpu"`` is gloo, which also serves ranks that share one card
 (their CUDA tensors are staged through host memory by
 ``core.dist_sort``'s collectives).
 
+``launched_world`` joins the world an external launcher started this
+process in (``python -m torch.distributed.run``, which ships with torch,
+sets ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and the store's address in
+each rank's environment); the serving launcher runs in it.
+
 ``run_world`` runs a function in each rank of a world of ``parts`` local
 processes and returns each rank's result as numpy (``single_rank_world``
 makes the calling process a world of one):
@@ -93,6 +98,37 @@ def single_rank_world(device_type: str, timeout_s: float = 300.0):
             yield make_index_mesh(device_type, parts=1)
         finally:
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def launched_world(device, timeout_s: float = 300.0):
+    """Join the world ``torch.distributed.run`` started this process in
+    and yield its index mesh (None, joining nothing, when the environment
+    names no world of more than one rank); leave the world on exit.
+
+    Ranks on the GPU (``device`` of type cuda) take one card each over
+    NCCL when the host has a card for every local rank; ranks that share
+    a card run gloo (``core.dist_sort`` stages their CUDA tensors through
+    the host), as do ranks on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        yield None
+        return
+    device_type = "cpu"
+    if torch.device(device).type == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) % cards)
+        if int(os.environ.get("LOCAL_WORLD_SIZE", str(world))) <= cards:
+            device_type = "cuda"
+    dist.init_process_group(TRANSPORTS[device_type], init_method="env://",
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        yield make_index_mesh(device_type)
+    finally:
+        dist.destroy_process_group()
 
 
 def _rank_main(workdir: str, rank: int, parts: int, device_type: str,

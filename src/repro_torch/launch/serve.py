@@ -1,7 +1,8 @@
-"""Serving launcher: build (or restore) a single-device FM index, or a
-segmented catalog, over a synthetic corpus and serve batched count queries
-and a locate batch, or mixed requests through the async frontend;
-optionally checkpoint it so later launches skip the build.
+"""Serving launcher: build (or restore) an FM index, on one device or
+distributed over the ranks of a world, or a segmented catalog, over a
+synthetic corpus and serve batched count queries and a locate batch, or
+mixed requests through the async frontend; optionally checkpoint it so
+later launches skip the build.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --kind dna --n 65536
     PYTHONPATH=src python -m repro_torch.launch.serve --n 4096 --device cpu
@@ -24,6 +25,24 @@ optionally checkpoint it so later launches skip the build.
     PYTHONPATH=src python -m repro_torch.launch.serve --ckpt-dir cat \
         --restore --append new_tokens.npy --serve-async
 
+    # a distributed index over a world of 2 ranks (--engine picks the mesh
+    # build's sort); every rank builds, saves and serves its shard, rank 0
+    # prints and writes; --restore puts the checkpoint back on the mesh.
+    # The "--" keeps torch.distributed.run's parser off the launcher's
+    # arguments (some Python releases read --n as one of its options)
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.serve -- --n 65536 --engine samplesort \
+        --ckpt-dir idx
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.serve -- --ckpt-dir idx --restore
+
+When the environment of ``torch.distributed.run`` names a world of more
+than one rank (``WORLD_SIZE > 1``), the launcher joins it
+(``launch/mesh.py`` ``launched_world``: NCCL with a card per rank, gloo
+for ranks that share a card or run on the CPU) and builds, saves,
+restores and serves on that mesh; segmented catalogs and the async
+frontend are single-process paths.
+
 ``--fault-schedule`` arms deterministic fault injection
 (``testing/faultinject.py``) for the run and prints a fault report at its
 end.
@@ -34,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -49,6 +69,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--pattern-len", type=int, default=16)
+    ap.add_argument("--engine", default="bitonic",
+                    choices=("bitonic", "samplesort"),
+                    help="the mesh build's distributed sort (DistSAConfig)")
     ap.add_argument("--locate-k", type=int, default=icfg.locate_k)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
@@ -89,6 +112,11 @@ def main(argv=None):
                          "comma-separated failpoint triggers like "
                          "'io.write:0,merge.mid:1' (repro_torch.testing."
                          "faultinject); a fault report prints on exit")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--"]:
+        # the separator after ``torch.distributed.run -m ...``: some
+        # Python 3.12 releases hand it on to the script
+        argv = argv[1:]
     args = ap.parse_args(argv)
     if args.restore and not args.ckpt_dir:
         ap.error("--restore requires --ckpt-dir")
@@ -96,11 +124,37 @@ def main(argv=None):
         ap.error(f"--segments {args.segments} exceeds --n {args.n} "
                  "(every segment needs at least one token)")
 
+    from ..devices import resolve_device
+    from .mesh import launched_world
+
+    dev = resolve_device(args.device)
+    with launched_world(dev) as mesh:
+        if mesh is not None and (args.segments or args.append
+                                 or args.serve_async):
+            ap.error("--segments, --append and --serve-async run in one "
+                     "process, not in a world of ranks")
+        return _serve(ap, args, icfg, dev, mesh)
+
+
+def _quiet(*args, **kwargs) -> None:
+    """``print`` of the ranks other than 0."""
+
+
+def _serve(ap, args, icfg, dev, mesh):
+    """The launcher's work once its arguments are parsed and its world (if
+    any) joined: every rank of a world runs it, making the same calls."""
+    import torch.distributed as dist
+
+    from ..core.dist_suffix_array import DistSAConfig
     from ..testing import faultinject
 
+    say = print if mesh is None or dist.get_rank() == 0 else _quiet
+    where = str(dev) if mesh is None else (
+        f"{dev}, {dist.get_world_size()} ranks "
+        f"({dist.get_backend()})")
     if args.fault_schedule:
         faultinject.arm(faultinject.FaultSchedule.parse(args.fault_schedule))
-        print(f"fault schedule armed: {args.fault_schedule}")
+        say(f"fault schedule armed: {args.fault_schedule}")
 
     from ..core.fm_index import PAD
     from ..core.index_io import (
@@ -112,9 +166,6 @@ def main(argv=None):
     from ..core.pipeline import build_index
     from ..core.segments import SegmentedIndex, unstored_knobs
     from ..data.corpus import corpus
-    from ..devices import resolve_device
-
-    dev = resolve_device(args.device)
 
     def sync():
         if dev.type == "cuda":
@@ -131,37 +182,40 @@ def main(argv=None):
                     if args.ckpt_dir else None)
 
     if args.restore and catalog_json and os.path.exists(catalog_json):
+        if mesh is not None:
+            ap.error(f"{args.ckpt_dir} holds a segmented catalog, which "
+                     "restores in one process, not in a world of ranks")
         t0 = time.perf_counter()
         # the catalog stores no cost model or fan-out: take the config's
         index = SegmentedIndex.load(args.ckpt_dir, device=dev,
                                     **unstored_knobs(icfg))
         for q in index.quarantined:
-            print(f"WARNING: segment {q['seg_id']} quarantined "
-                  f"({q['reason']}); serving degraded")
+            say(f"WARNING: segment {q['seg_id']} quarantined "
+                f"({q['reason']}); serving degraded")
         if not index.segments:
             ap.error(f"catalog under {args.ckpt_dir} has no healthy "
                      "segments left to serve")
         toks = np.concatenate([s.tokens for s in index.segments])
         args.n = len(toks)
         sync()
-        print(f"restored segmented catalog ({len(index.segments)} segments, "
-              f"{index.total_tokens} tokens, sigma={index.sigma}) on {dev} "
-              f"in {time.perf_counter() - t0:.3f}s")
+        say(f"restored segmented catalog ({len(index.segments)} segments, "
+            f"{index.total_tokens} tokens, sigma={index.sigma}) on {dev} "
+            f"in {time.perf_counter() - t0:.3f}s")
     elif args.restore:
         t0 = time.perf_counter()
         info = describe_index(args.ckpt_dir)
         # query patterns must be sampled from the corpus the index was
         # built over: the manifest knows its raw length
         if info.text_length - 1 != args.n:
-            print(f"--n {args.n} != checkpointed corpus size "
-                  f"{info.text_length - 1}; using the checkpoint's size")
+            say(f"--n {args.n} != checkpointed corpus size "
+                f"{info.text_length - 1}; using the checkpoint's size")
             args.n = info.text_length - 1
         toks = corpus(args.kind, args.n)
-        index = restore_index(args.ckpt_dir, device=dev)
+        index = restore_index(args.ckpt_dir, mesh, device=dev)
         sync()
-        print(f"restored {info.kind} index (n={info.length}, "
-              f"sigma={info.sigma}, bits={info.bits}) on {dev} in "
-              f"{time.perf_counter() - t0:.3f}s")
+        say(f"restored {info.kind} index (n={info.length}, "
+            f"sigma={info.sigma}, bits={info.bits}) on {where} in "
+            f"{time.perf_counter() - t0:.3f}s")
     elif args.segments > 0:
         toks = corpus(args.kind, args.n)
         t0 = time.perf_counter()
@@ -170,25 +224,27 @@ def main(argv=None):
         for chunk in np.array_split(toks, args.segments):
             index.append(chunk)
         sync()
-        print(f"segmented catalog built over {len(toks)} tokens "
-              f"({args.segments} segments) on {dev} in "
-              f"{time.perf_counter() - t0:.3f}s")
+        say(f"segmented catalog built over {len(toks)} tokens "
+            f"({args.segments} segments) on {dev} in "
+            f"{time.perf_counter() - t0:.3f}s")
     else:
         toks = corpus(args.kind, args.n)
         t0 = time.perf_counter()
-        index = build_index(toks, sample_rate=icfg.sample_rate,
-                            sa_sample_rate=icfg.sa_sample_rate, device=dev)
+        index = build_index(toks, mesh, sample_rate=icfg.sample_rate,
+                            sa_sample_rate=icfg.sa_sample_rate,
+                            sa_config=DistSAConfig(engine=args.engine),
+                            device=dev)
         sync()
-        print(f"index built over {len(toks)} tokens on {dev} in "
-              f"{time.perf_counter() - t0:.3f}s")
+        say(f"index built over {len(toks)} tokens on {where} in "
+            f"{time.perf_counter() - t0:.3f}s")
         if args.ckpt_dir:
             t0 = time.perf_counter()
             latest = latest_index_step(args.ckpt_dir)
             step = save_index(args.ckpt_dir, index,
                               step=0 if latest is None else latest + 1,
                               keep=args.ckpt_keep)
-            print(f"checkpointed to {args.ckpt_dir} step {step} in "
-                  f"{time.perf_counter() - t0:.3f}s")
+            say(f"checkpointed to {args.ckpt_dir} step {step} in "
+                f"{time.perf_counter() - t0:.3f}s")
 
     segmented = isinstance(index, SegmentedIndex)
     if appended and not segmented:
@@ -202,15 +258,15 @@ def main(argv=None):
             index.append(extra)
             merges = index.maybe_compact()
             sync()
-            print(f"appended {len(extra)} tokens ({merges} compactions, "
-                  f"{len(index.segments)} segments) in "
-                  f"{time.perf_counter() - t0:.3f}s")
+            say(f"appended {len(extra)} tokens ({merges} compactions, "
+                f"{len(index.segments)} segments) in "
+                f"{time.perf_counter() - t0:.3f}s")
 
     def save_catalog():
         t0 = time.perf_counter()
         index.save(args.ckpt_dir)
-        print(f"segmented catalog saved to {args.ckpt_dir} in "
-              f"{time.perf_counter() - t0:.3f}s")
+        say(f"segmented catalog saved to {args.ckpt_dir} in "
+            f"{time.perf_counter() - t0:.3f}s")
 
     if segmented and args.ckpt_dir and not args.serve_async:
         save_catalog()
@@ -229,7 +285,7 @@ def main(argv=None):
 
     def fault_report():
         if faultinject.active() is not None:
-            print(f"fault report: {faultinject.active().report()}")
+            say(f"fault report: {faultinject.active().report()}")
 
     n_total = args.n + sum(len(a) for a in appended)
     if args.serve_async:
@@ -262,9 +318,9 @@ def main(argv=None):
                 # live growth between flushes: append + compaction on the
                 # worker thread while queries keep flowing
                 info = fe.append(extra).result()
-                print(f"async-appended {info['appended']} tokens "
-                      f"({info['merges']} compactions, {info['segments']} "
-                      f"segments)")
+                say(f"async-appended {info['appended']} tokens "
+                    f"({info['merges']} compactions, {info['segments']} "
+                    f"segments)")
             futs += [submit(fe, sources) for _ in range(total - len(futs))]
             hits = shed = 0
             for f in futs:
@@ -276,9 +332,9 @@ def main(argv=None):
             m = fe.metrics()
         if segmented and args.ckpt_dir:
             save_catalog()
-        print(json.dumps(m, indent=2))
-        print(f"async-serve: {m['completed']} answered ({shed} shed) "
-              f"at {m['qps']:.0f} qps, total_hits={hits}")
+        say(json.dumps(m, indent=2))
+        say(f"async-serve: {m['completed']} answered ({shed} shed) "
+            f"at {m['qps']:.0f} qps, total_hits={hits}")
         fault_report()
         return {"total_hits": hits, "n": n_total,
                 "segments": len(index.segments) if segmented else 0,
@@ -300,7 +356,7 @@ def main(argv=None):
         lats.append(time.perf_counter() - t0)
         total += int(counts.sum())
     lats.sort()
-    print(
+    say(
         f"{args.batches} batches of {args.batch}: "
         f"p50={lats[len(lats) // 2] * 1e3:.1f}ms "
         f"p99={lats[-1] * 1e3:.1f}ms  total_hits={total}"
@@ -308,8 +364,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     pos, counts = index.locate(batch(), args.locate_k)
     found = int(counts.sum())
-    print(f"locate batch of {args.batch} (k={args.locate_k}): {found} "
-          f"positions in {(time.perf_counter() - t0) * 1e3:.1f}ms")
+    say(f"locate batch of {args.batch} (k={args.locate_k}): {found} "
+        f"positions in {(time.perf_counter() - t0) * 1e3:.1f}ms")
     fault_report()
     return {"total_hits": total, "located": found, "n": n_total,
             "segments": len(index.segments) if segmented else 0}

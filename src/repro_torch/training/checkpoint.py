@@ -19,8 +19,12 @@ Layout (one directory per step, atomically renamed into place):
                came from; restore hands back numpy and the caller places
                them.
 
-The pytree ``restore(tree_like, shardings)`` of the reference belongs to
-the training loop and is not part of this package yet; ``restore_raw``
+  * elastic  — arrays are saved unsharded (a sharded state is gathered
+               before ``save``); ``restore(tree_like, shardings=...)``
+               hands each rank of a mesh its slice, so a state saved
+               from 8 ranks restores onto 4 unchanged.
+
+``restore`` fills the structure of a template tree; ``restore_raw``
 serves callers that rebuild typed objects from a manifest
 (``core/index_io.py``).
 """
@@ -36,6 +40,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.dist_sort import _me, shard_info
 from ..testing.faultinject import fault_point
 
 _SEP = "/"
@@ -71,6 +76,57 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
         flat.update(_flatten(value, f"{prefix}{_SEP}{key}" if prefix
                              else key))
     return flat
+
+
+def _unflatten(tree_like, flat: dict[str, np.ndarray], prefix: str = ""):
+    """The structure of ``tree_like`` with each leaf replaced by the array
+    ``flat`` holds under its key path (the keys ``_flatten`` gives);
+    ``None`` leaves stay ``None``."""
+    if isinstance(tree_like, dict):
+        return {k: _unflatten(v, flat, f"{prefix}{_SEP}{k}" if prefix
+                              else str(k))
+                for k, v in tree_like.items()}
+    if isinstance(tree_like, (list, tuple)):
+        return type(tree_like)(
+            _unflatten(v, flat, f"{prefix}{_SEP}{i}" if prefix else str(i))
+            for i, v in enumerate(tree_like))
+    if tree_like is None:
+        return None
+    if prefix not in flat:
+        raise KeyError(f"checkpoint missing leaf {prefix!r}")
+    return flat[prefix]
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of trees of the same structure (the first
+    tree's; ``None`` leaves of the first stay ``None``)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_map(fn, *leaves) for leaves in zip(*trees))
+    return None if first is None else fn(*trees)
+
+
+def _typed(x: np.ndarray, ref) -> torch.Tensor:
+    """``x`` as a tensor of the template leaf ``ref``'s dtype, on its
+    device (a numpy or Python template leaf: the host)."""
+    if isinstance(ref, torch.Tensor):
+        return torch.as_tensor(x).to(device=ref.device, dtype=ref.dtype)
+    return torch.from_numpy(np.array(x, dtype=np.asarray(ref).dtype))
+
+
+def _place(x: torch.Tensor, spec) -> torch.Tensor:
+    """This rank's part of ``x`` under ``spec``: ``None`` keeps the whole
+    array (replicated); ``(mesh, dim)`` splits dimension ``dim`` into one
+    equal block per rank of the mesh's ``"parts"`` dimension and keeps
+    this rank's block."""
+    if spec is None:
+        return x
+    mesh, dim = spec
+    info = shard_info(mesh, x.shape[dim])
+    return x.narrow(dim, _me(info) * info.part_size,
+                    info.part_size).contiguous()
 
 
 class Checkpointer:
@@ -153,3 +209,23 @@ class Checkpointer:
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         return flat, meta
+
+    def restore(self, tree_like, step: int | None = None, shardings=None):
+        """(tree, meta): the arrays of ``step`` (None = the latest) in the
+        structure of ``tree_like``, each leaf a tensor of its template
+        leaf's dtype (a bf16 leaf comes back from its float32 copy) on
+        the template leaf's device.
+
+        ``shardings`` (optional) is a tree of the same structure whose
+        entries say what this rank keeps of each leaf: ``None`` the whole
+        array (replicated); ``(mesh, dim)`` its block of dimension ``dim``
+        split evenly over the ``"parts"`` dimension of ``mesh``
+        (``launch/mesh.py`` ``make_index_mesh``), the reference's
+        ``NamedSharding(mesh, P("parts", None))`` for ``dim = 0``.  The
+        saved arrays are unsharded, so any mesh whose size divides the
+        dimension restores them (elastic re-mesh)."""
+        flat, meta = self.restore_raw(step)
+        tree = _map(_typed, _unflatten(tree_like, flat), tree_like)
+        if shardings is not None:
+            tree = _map(_place, tree, shardings)
+        return tree, meta

@@ -139,18 +139,17 @@ def _fields(ref: dict, prefix: str) -> tuple[dict, dict]:
 # the port
 # --------------------------------------------------------------------------
 
-def port_rank(mesh, P: int, carried: dict) -> dict:
+def port_rank(mesh, P: int, carried: dict, root: str) -> dict:
     """Every layout built through ``build_index(tokens, mesh)``: its
     fields gathered (``convert.to_numpy``) and its answers; the carried
-    JAX indexes queried; ``save_index``'s refusal."""
-    import tempfile
-
+    JAX indexes queried; the last build saved under ``root`` (its
+    manifest's kind)."""
     import torch
 
     from repro_torch.core.convert import dist_fm_index_from_arrays, to_numpy
     from repro_torch.core.dist_fm import dist_count, dist_locate
     from repro_torch.core.dist_suffix_array import DistSAConfig
-    from repro_torch.core.index_io import save_index
+    from repro_torch.core.index_io import describe_index, save_index
     from repro_torch.core.pipeline import build_index
 
     def answers(count, locate, pats):
@@ -179,23 +178,21 @@ def port_rank(mesh, P: int, carried: dict) -> dict:
         arrays, aux = to_numpy(idx.fm, mesh)
         out["pipeline"] = dict(arrays=arrays, aux=aux,
                                ans=answers(idx.count, idx.locate, pats))
-    with tempfile.TemporaryDirectory() as d:
-        try:
-            save_index(d, idx)
-        except NotImplementedError as e:
-            out["save_refused"] = str(e)
+    save_index(root, idx)
+    out["saved"] = describe_index(root).kind
     return out
 
 
 @pytest.fixture(scope="module")
-def port(reference):
+def port(reference, tmp_path_factory):
     from repro_torch.launch.mesh import run_world
 
     out = {}
     for P in PARTS:
         carried = {name: _fields(reference, f"{P}/{name}")
                    for name in LAYOUTS}
-        out[P] = run_world(P, port_rank, P, carried,
+        root = str(tmp_path_factory.mktemp(f"saved_{P}"))
+        out[P] = run_world(P, port_rank, P, carried, root,
                            timeout_s=WORLD_TIMEOUT_S)
     return out
 
@@ -257,8 +254,11 @@ def test_build_index_on_a_mesh_equals_the_jax_mesh_build(reference, port):
 
 @pytest.mark.parametrize("P", PARTS)
 def test_saving_a_distributed_index_is_not_ported(port, P):
+    """Kept by name from before the distributed save was ported: every
+    rank's ``save_index`` of a mesh index now writes a ``"dist_fm"``
+    checkpoint (its files and restores: ``test_torch_dist_io.py``)."""
     for r in port[P]:
-        assert "A10b" in r["save_refused"]
+        assert r["saved"] == "dist_fm"
 
 
 if __name__ == "__main__":

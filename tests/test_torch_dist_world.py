@@ -1,7 +1,7 @@
 """The port's index mesh, its world of local ranks
 (``repro_torch/launch/mesh.py``) and the collectives of
 ``repro_torch/core/dist_sort.py`` on the CPU (gloo): each collective
-against numpy, counted once per call; a rank that raises or hangs fails
+against numpy (``gather`` only to rank 0), counted once per call; a rank that raises or hangs fails
 its world with the rank's traceback and leaves no process behind.
 """
 
@@ -25,6 +25,7 @@ def collectives_rank(mesh) -> dict:
     ds.reset_collectives()
     out = {
         "all_gather": ds.all_gather(info, x),
+        "gather": ds.gather(info, x),
         "ppermute": ds.ppermute(info, x, [(i, (i + 1) % P)
                                           for i in range(P)]),
         "all_to_all": ds.all_to_all(info, torch.stack(
@@ -45,13 +46,17 @@ def test_collectives_against_numpy(P):
     xs = np.stack([r["x"] for r in ranks])
     for me, r in enumerate(ranks):
         assert np.array_equal(r["all_gather"], xs)
+        if me == 0:
+            assert np.array_equal(r["gather"], xs)
+        else:
+            assert r["gather"] is None
         assert np.array_equal(r["ppermute"], xs[(me - 1) % P])
         assert np.array_equal(r["all_to_all"], xs + 100 * me)
         assert np.array_equal(r["psum"], xs.sum(0))
         assert bool(r["pmax"]) == (P > 1) and r["pmax"].dtype == np.bool_
         assert r["transport"] == "gloo, direct"
         assert r["dims"] == ("parts",)
-        assert r["counts"] == {"all_gather": 1, "ppermute": 1,
+        assert r["counts"] == {"all_gather": 1, "gather": 1, "ppermute": 1,
                                "all_to_all": 1, "psum": 1, "pmax": 1}
 
 

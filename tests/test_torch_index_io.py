@@ -179,10 +179,16 @@ class TestRoundtrip:
             _assert_same_index(idx, j_restore_index(str(d)), pats)
 
     def test_mesh_not_ported(self, tmp_path):
+        """Kept by name from before restoring onto a mesh was ported (its
+        scenarios: ``test_torch_dist_io.py``): a mesh that is not a
+        ``DeviceMesh`` with a ``"parts"`` dimension is refused with a
+        ``TypeError`` before the checkpoint is read."""
         idx = build_index(np.ones(100, np.int32), sample_rate=16)
         save_index(str(tmp_path), idx)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             restore_index(str(tmp_path), object(), device="cpu")
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            restore_index(str(tmp_path / "missing"), object(), device="cpu")
 
     def test_restore_needs_gpu_unless_cpu_given(self, tmp_path, monkeypatch):
         idx = build_index(np.ones(100, np.int32), sample_rate=16)

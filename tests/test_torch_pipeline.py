@@ -124,12 +124,77 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--engine", "bitonic"],
                                   ["--engine", "samplesort"]])
-def test_serve_launcher_unported_flags_raise(flag):
-    """The reference's mesh-build engine flag waits for the distributed
-    build, which is not ported (the async frontend's flags are ported and
-    tested in ``tests/test_torch_frontend.py``)."""
-    with pytest.raises(SystemExit):                 # argparse: unknown flag
-        serve.main(["--n", "1000", "--device", "cpu", *flag])
+def test_serve_launcher_unported_flags_raise(flag, monkeypatch):
+    """Kept by name from before the mesh build was ported: ``--engine``
+    is accepted and reaches the build's ``DistSAConfig`` (the mesh
+    build's sort; a single-device build takes its other knobs); an
+    engine that does not exist is refused."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.dist_suffix_array import DistSAConfig
+
+    seen = []
+    real = pipeline.build_index
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs["sa_config"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pipeline, "build_index", spy)
+    out = serve.main(["--n", "1000", "--batch", "4", "--batches", "1",
+                      "--device", "cpu", *flag])
+    assert seen == [DistSAConfig(engine=flag[1])]
+    assert out["total_hits"] > 0
+    with pytest.raises(SystemExit):                 # argparse: bad choice
+        serve.main(["--n", "1000", "--device", "cpu", "--engine", "radix"])
+
+
+def test_serve_launcher_in_a_world_of_two(tmp_path):
+    """``torch.distributed.run`` starts the launcher as a gloo world of 2
+    ranks: it builds by samplesort, saves from both (a ``"dist_fm"``
+    checkpoint of 2 parts), then ``--restore`` puts it back on the world;
+    only rank 0 prints, and both runs serve the single-process run's
+    answers."""
+    import json
+    import os
+    import re
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src, os.environ.get("PYTHONPATH", "")]))
+    argv = ["--n", "3000", "--batch", "8", "--batches", "2", "--device",
+            "cpu", "--engine", "samplesort"]
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+              "--", *argv, "--ckpt-dir", str(tmp_path)]
+    runs = {}
+    for mode, extra in (("build", []), ("restore", ["--restore"])):
+        proc = subprocess.run(launch + extra, capture_output=True,
+                              text=True, timeout=300, env=env)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        runs[mode] = proc.stdout
+    assert runs["build"].count("index built over 3000 tokens on cpu, 2 "
+                               "ranks (gloo)") == 1
+    assert runs["restore"].count("restored dist_fm index") == 1
+    single = serve.main(argv)
+    for text in runs.values():
+        assert re.findall(r"total_hits=(\d+)", text) == [
+            str(single["total_hits"])]
+        assert re.findall(r"(\d+) positions", text) == [
+            str(single["located"])]
+    with open(tmp_path / "step_00000000" / "meta.json") as f:
+        meta = json.load(f)
+    assert (meta["kind"], meta["built_parts"]) == ("dist_fm", 2)
+
+
+def test_serve_launcher_drops_a_leading_separator():
+    """``torch.distributed.run -m ... -- ARGS`` hands some Python releases'
+    scripts the ``--`` itself; the launcher reads the arguments after
+    it."""
+    argv = ["--n", "1000", "--batch", "4", "--batches", "1", "--device",
+            "cpu"]
+    assert serve.main(["--", *argv]) == serve.main(argv)
 
 
 def test_serve_launcher_checkpoints_each_build(tmp_path, capsys):

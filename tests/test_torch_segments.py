@@ -374,6 +374,25 @@ class TestConfig:
             assert getattr(tcat, name) == getattr(jcat, name), name
 
 
+    def test_from_config_takes_the_engine(self):
+        """The config's mesh-build engine and capacity factor (the
+        reference's defaults) reach the catalog's ``sa_config`` and its
+        saved JSON, as in the reference."""
+        from repro.configs.bwt_index import reduced as j_reduced
+        from repro_torch.configs.bwt_index import reduced
+
+        for name in ("engine", "capacity_factor"):
+            assert getattr(reduced(), name) == getattr(j_reduced(), name)
+        knobs = dict(engine="bitonic", capacity_factor=4.0)
+        tcat = TSeg.from_config(SIGMA, reduced().replace(**knobs),
+                                device="cpu")
+        jcat = JSeg.from_config(SIGMA, j_reduced().replace(**knobs))
+        assert (tcat.sa_config.engine, tcat.sa_config.capacity_factor) == (
+            "bitonic", 4.0)
+        grow((jcat, tcat), docs_of(13, (200,)))
+        assert tcat._catalog_payload() == jcat._catalog_payload()
+
+
 class TestLauncher:
     def test_segments_append_save_restore(self, tmp_path, capsys):
         """``launch.serve --segments N --append PATH --ckpt-dir`` builds a
