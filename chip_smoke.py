@@ -37,7 +37,10 @@ script exits nonzero and prints no final result:
   4  cross-device parity at n = 2^16 for dna, proteins and english: the CPU
      build (plain versions) and the CUDA build (kernels) must agree bit for
      bit (SA, BWT, every FMIndex field, counts, locates), for the fast and
-     the seed builder
+     the seed builder; the single-query functions (occ, backward_search,
+     bwt_symbol, locate_naive) on both, the card's through the single-batch
+     rank kernels, and the competitor's suffix_array_rpgi / bwt_rpgi of
+     4096 tokens on both devices equal to the fast build
   5  the seed builder (Init -> (Pair, Re-rank)*) on DNA n = 2^28: SA, BWT
      and every FMIndex field equal phase 2's fast build
   6  save -> restore of phase 2's index: the stored-layout restore and a
@@ -139,13 +142,28 @@ script exits nonzero and prints no final result:
      --restore, both runs printing the same total_hits (the two runs
      overlap (b)'s worlds).  A rank that raises or outlives its world's
      timeout fails the run
+ 11  LM serving (models/*, serving/engine.generate; no index kernel, and
+     none may launch): (a) each of the ten reduced configs in float32 on
+     the card against the CPU on the same weights (made on the CPU from a
+     seeded generator): forward at B = 2, S = 16 (S = 2048 for qwen2p5_3b
+     and minicpm3_4b, the chunked attention), 8 decode steps, generate with
+     8 new tokens (equal tokens, or a first difference where the CPU's
+     top-2 logits tie); (b) minitron_4b at full width and depth and (c)
+     mamba2_1p3b at full width and depth, bf16 weights drawn on the card:
+     generate at B = 8 with 64 + 64 tokens (tokens/s, ms a step, peak
+     memory), forward(last_token_only) at B = 1, S = 2048, and for (b)
+     decode against forward on 16 positions; (d) deepseek_v2_236b at full
+     width cut to 3 layers (the dense layer and two MLA + MoE layers of 160
+     experts): generate at B = 8 with 16 + 16 tokens, forward at B = 4,
+     S = 1024 (capacity 192).  Each part frees its weights before the next
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore, each merge of phase 7, each catalog
 of phase 8: its appends and its serving, each frontend scenario of phase
 9, its launcher call and its dedup, each distributed build of phase 10
 with its two served batches, summed over a world's ranks, and each
-restore of phase 10 with its two batches) and read just after it.  Then a ``kernels`` line (launches on the main paths of phases
+restore of phase 10 with its two batches, phase 4's single-query calls
+per corpus, and phase 11) and read just after it.  Then a ``kernels`` line (launches on the main paths of phases
 2-3 and 7-10 and on each path, parity error, times and bounds), the
 card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
@@ -1360,6 +1378,63 @@ def query_row(rec: dict, small_err: int) -> dict:
 # phase 4: CPU (plain) vs CUDA (kernels) parity
 # --------------------------------------------------------------------------
 
+def api_parity(toks, cpu, dev) -> tuple[dict, dict]:
+    """The index's single-query functions on ``dev`` (a ``SequenceIndex``
+    on the card) against ``cpu`` (the same index on the CPU): ``occ``,
+    ``backward_search``, ``bwt_symbol`` and ``locate_naive`` through the
+    single-batch rank kernels, then ``suffix_array_rpgi`` / ``bwt_rpgi``
+    of the first 4096 tokens against the fast build.  Returns (record,
+    launches of the calls on ``dev``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import alphabet as al
+    from repro_torch.core import fm_index as fm
+    from repro_torch.core.competitor import bwt_rpgi, suffix_array_rpgi
+    from repro_torch.core.suffix_array import suffix_array_fast
+
+    pats = [p[:12] for p in sample_patterns(toks, 16, seed=41)]
+    pats.append(np.array([1, 999, 2], np.int32))     # out of the alphabet
+    rng = np.random.default_rng(41)
+    cs = rng.integers(0, cpu.fm.sigma, 64).astype(np.int32)
+    ps = rng.integers(0, cpu.fm.n + 1, 64).astype(np.int32)
+    rows = torch.from_numpy(rng.integers(0, cpu.fm.n, 4096).astype(np.int32))
+
+    def answers(index):
+        f, d = index.fm, index.fm.device
+        out = [fm.backward_search(f, p) for p in pats]
+        out += [fm.occ(f, torch.tensor(c, device=d), torch.tensor(p, device=d))
+                for c, p in zip(cs, ps)]
+        out.append(fm.bwt_symbol(f, rows.to(d)))
+        out += [fm.locate_naive(f, index.sa, p) for p in pats[:4]]
+        return out
+
+    _counts_reset()
+    got = answers(dev)
+    launches, _ = _counts()
+    want = answers(cpu)
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = torch.stack(a) if isinstance(a, tuple) else a
+        b = torch.stack(b) if isinstance(b, tuple) else b
+        same(a.cpu(), b, f"single-query answer {i}", ref="the CPU")
+    rank = "rank_packed" if cpu.fm.bits else "rank_select"
+    if dev.fm.device.type == "cuda":
+        require(launches[rank] > 0 and not launches["fm_query_packed"]
+                and not launches["fm_query_unpacked"],
+                f"single-query functions: launches {launches}")
+    s = al.append_sentinel(toks[:4096])
+    sa_fast, _ = suffix_array_fast(torch.from_numpy(s), al.sigma_of(s))
+    for device in ("cpu", dev.fm.device):
+        sd = torch.from_numpy(s).to(device)
+        same(suffix_array_rpgi(sd).cpu(), sa_fast, f"rpgi SA on {device}",
+             ref="the fast build")
+        b, r = bwt_rpgi(sd)
+        same(b.cpu(), sd.cpu()[(sa_fast.long() - 1) % len(s)],
+             f"rpgi BWT on {device}", ref="the fast build's")
+    return {"patterns": len(pats), "occ": len(cs), "rank_kernel": rank,
+            "rank_launches": launches[rank], "rpgi_n": len(s)}, launches
+
+
 def phase_parity(log2n: int):
     import numpy as np
     import torch
@@ -1368,7 +1443,7 @@ def phase_parity(log2n: int):
     from repro_torch.core.pipeline import build_index
     from repro_torch.data.corpus import corpus
 
-    out = {}
+    out, launches = {}, {}
     for kind in ("dna", "proteins", "english"):
         toks = corpus(kind, 1 << log2n)
         cpu = build_index(toks, device="cpu")
@@ -1403,7 +1478,8 @@ def phase_parity(log2n: int):
         out[kind] = {"sigma": cpu.sigma, "bits": cpu.fm.bits,
                      "engines": engines, "builders": ["fast", "seed"],
                      "identical": True}
-    return out
+        out[kind]["single_query"], launches[kind] = api_parity(toks, cpu, gpu)
+    return out, launches
 
 
 # --------------------------------------------------------------------------
@@ -3943,6 +4019,308 @@ def dist_worlds(spec: dict, parts, saved: Path, device, rank_fn,
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 11: LM serving (models/*, serving/engine.generate)
+# --------------------------------------------------------------------------
+
+LM_TOL = 1e-4            # float32, card against CPU: |a - b| <= tol (1 + |b|)
+LM_MOE_TOL = 1e-3        # MoE: index_add_'s order on CUDA is not fixed
+LM_BF16_TOL = 0.05       # bf16 decode against forward: of the max |logit|
+LM_REDUCED_LONG = ("qwen2p5_3b", "minicpm3_4b")   # GQA and MLA at S = 2048
+LM_PROMPT, LM_NEW, LM_DECODE = 4, 8, 8
+
+
+def on_device(params, device):
+    """The CPU-made weights carried to ``device``."""
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda t: t.to(device), params)
+
+
+def max_err(a, b) -> float:
+    return float((a.detach().float().cpu() - b.detach().float().cpu())
+                 .abs().max())
+
+
+def require_close(a, b, tol: float, what: str) -> float:
+    """|a - b| <= tol * (1 + |b|) everywhere (``b`` the CPU's); returns
+    max |a - b|."""
+    import torch
+
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    require(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} != "
+                                f"{tuple(b.shape)}")
+    require(bool(torch.isfinite(a).all()), f"{what}: non-finite values")
+    ok = bool(((a - b).abs() <= tol * (1 + b.abs())).all())
+    err = max_err(a, b)
+    require(ok, f"{what}: card differs from the CPU (max err {err}, "
+                f"tol {tol})")
+    return err
+
+
+def lm_batch(cfg, B: int, S: int, device, seed: int = 0) -> dict:
+    """Tokens, or embeddings for the frontend stubs, from ``seed``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if cfg.frontend != "none":
+        e = (rng.normal(size=(B, S, cfg.d_model)) * 0.5).astype(np.float32)
+        return {"embeds": torch.from_numpy(e).to(device)}
+    t = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return {"tokens": torch.from_numpy(t).to(device)}
+
+
+def lm_decode(params, cfg, tokens, dtype) -> "torch.Tensor":
+    """Decode logits (B, T, V) along ``tokens`` (B, T) from a fresh cache
+    (the params' device and ``dtype``)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import single_device_context
+
+    ctx = single_device_context()
+    B, T = tokens.shape
+    cache = tf.init_cache(cfg, B, T, dtype, tokens.device)
+    out = []
+    for pos in range(T):
+        logits, cache = tf.decode_step(params, cache, tokens[:, pos:pos + 1],
+                                       pos, cfg, ctx)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def tokens_agree(got, want, want_logits, prompt: int, tol: float,
+                 what: str) -> int:
+    """Generated tokens equal the CPU's, or each row differs first where
+    the CPU's top-2 logits (``want_logits`` (B, T-1, V) along ``want``)
+    lie within ``tol``; returns the rows that differ."""
+    import numpy as np
+
+    require(np.array_equal(got[:, :prompt], want[:, :prompt]),
+            f"{what}: prompt changed")
+    rows = 0
+    for b in range(want.shape[0]):
+        diff = np.nonzero(got[b] != want[b])[0]
+        if len(diff):
+            top2 = np.sort(want_logits[b, diff[0] - 1].float().numpy())[-2:]
+            require(top2[1] - top2[0] <= tol * (1 + abs(top2[1])),
+                    f"{what}: row {b} differs at {diff[0]} where the CPU's "
+                    f"top-2 logits are {top2}")
+            rows += 1
+    return rows
+
+
+def lm_reduced(arch: str, device, long_s: bool) -> dict:
+    """One reduced config in float32 on ``device`` against the CPU, on the
+    same weights (made on the CPU from a seeded generator, carried over):
+    forward at B = 2, S = 16 (and S = 2048 when ``long_s``), 8 decode
+    steps, generate with 8 new tokens."""
+    import torch
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import generate
+    from repro_torch.sharding import single_device_context
+
+    cfg = get_reduced_config(arch)
+    tol = LM_MOE_TOL if cfg.num_experts else LM_TOL
+    ctx = single_device_context()
+    cpu = tf.init_model(cfg, torch.Generator().manual_seed(0), torch.float32,
+                        "cpu")
+    dev = on_device(cpu, device)
+    rec = {"tol": tol}
+    lengths = (16, 2048) if long_s else (16,)
+    with torch.no_grad():
+        for S in lengths:
+            batch = lm_batch(cfg, 2, S, "cpu", seed=S)
+            want = tf.forward(cpu, batch, cfg, ctx)
+            got = tf.forward(dev, {k: v.to(device) for k, v in batch.items()},
+                             cfg, ctx)
+            rec[f"forward_S{S}_err"] = require_close(
+                got, want, tol, f"phase 11 {arch} forward S={S}")
+        toks = lm_batch(cfg.replace(frontend="none"), 2, LM_DECODE, "cpu",
+                        seed=1)["tokens"]
+        want = lm_decode(cpu, cfg, toks, torch.float32)
+        got = lm_decode(dev, cfg, toks.to(device), torch.float32)
+        rec["decode_err"] = require_close(got, want, tol,
+                                          f"phase 11 {arch} decode")
+        prompts = toks[:, :LM_PROMPT].numpy()
+        want = generate(cpu, cfg, ctx, prompts, LM_NEW).tokens
+        res = generate(dev, cfg, ctx, prompts, LM_NEW)
+        want_logits = lm_decode(cpu, cfg, torch.from_numpy(want[:, :-1]),
+                                torch.float32)
+        rec["generate_rows_differ"] = tokens_agree(
+            res.tokens, want, want_logits, LM_PROMPT, tol,
+            f"phase 11 {arch} generate")
+        rec["generate_tokens_per_s"] = res.tokens_per_s
+    return rec
+
+
+# the full-width parts: (name, config id, depth cut, generate (B, prompt,
+# new), forward (B, S), decode-against-forward positions)
+LM_FULL = (
+    ("minitron_4b", "minitron_4b", None, (8, 64, 64), (1, 2048), 16),
+    ("mamba2_1p3b", "mamba2_1p3b", None, (8, 64, 64), (1, 2048), 0),
+    ("deepseek_v2_236b", "deepseek_v2_236b", 3, (8, 16, 16), (4, 1024), 0),
+)
+
+
+class DeviceMemory:
+    """Allocated and peak bytes on a CUDA device (zeros on the CPU, where
+    the phase is rehearsed)."""
+
+    def __init__(self, device):
+        import torch
+
+        self.cuda = torch.cuda if torch.device(device).type == "cuda" else None
+
+    def reset_peak(self) -> None:
+        if self.cuda:
+            self.cuda.empty_cache()
+            self.cuda.reset_peak_memory_stats()
+
+    def allocated_gib(self) -> float:
+        return self.cuda.memory_allocated() / 2**30 if self.cuda else 0.0
+
+    def peak_gib(self) -> float:
+        return self.cuda.max_memory_allocated() / 2**30 if self.cuda else 0.0
+
+
+def decode_profile(params, cfg, prompts, device, steps: int = 4) -> dict:
+    """``steps`` decode steps over the prompts' first tokens, timed alone
+    and then under torch.profiler: ms a step, the device's busy share,
+    device launches a step and the top device rows."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import single_device_context
+
+    ctx = single_device_context()
+    toks = torch.from_numpy(prompts[:, :steps]).to(device)
+    cache = tf.init_cache(cfg, toks.shape[0], steps, torch.bfloat16, device)
+
+    def run():
+        for pos in range(steps):
+            tf.decode_step(params, cache, toks[:, pos:pos + 1], pos, cfg, ctx)
+
+    run()                                        # warm
+    _, wall = timed(run, device)
+    prof = profiled(run)
+    return {"steps": steps, "ms_per_step": 1e3 * wall / steps,
+            "device_ms_per_step": 1e3 * prof["device_s"] / steps,
+            "device_busy_share": prof["device_busy_share"],
+            "launches_per_step": prof["device_launches"] / steps,
+            "top": prof["top"][:6]}
+
+
+def lm_full(name: str, arch: str, layers, gen, fwd, check: int,
+            device) -> dict:
+    """A config at full width (depth cut to ``layers`` when given) in bf16
+    with weights drawn on ``device`` from a seeded generator: generate
+    (tokens/s, ms a decode step, peak memory), forward(last_token_only)
+    timed, and decode against forward on the first ``check`` positions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import generate
+    from repro_torch.sharding import single_device_context
+
+    full = get_config(arch)
+    cfg = full if layers is None else full.replace(num_layers=layers)
+    ctx = single_device_context()
+    mem = DeviceMemory(device)
+    mem.reset_peak()
+    base = mem.allocated_gib()
+    params, init_s = timed(lambda: tf.init_model(
+        cfg, torch.Generator(device).manual_seed(0), torch.bfloat16, device),
+        device)
+    rec = {"params": tf.count_params(cfg),
+           "weights_gib": mem.allocated_gib() - base, "init_s": init_s}
+    if layers is not None:
+        rec["reduced"] = {"num_layers": [full.num_layers, layers]}
+    B, prompt, new = gen
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (B, prompt)).astype(np.int32)
+    with torch.no_grad():
+        generate(params, cfg, ctx, prompts[:, :4], 2,
+                 dtype=torch.bfloat16)                       # warm-up
+        mem.reset_peak()
+        res = generate(params, cfg, ctx, prompts, new, dtype=torch.bfloat16)
+        rec["generate"] = {
+            "batch": B, "prompt": prompt, "new": new,
+            "tokens_per_s": res.tokens_per_s,
+            "ms_per_step": 1e3 * B / res.tokens_per_s,
+            "steps": prompt + new - 1, "peak_gib": mem.peak_gib()}
+        require(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size))
+                     .all()), f"phase 11 {name}: token out of the vocabulary")
+        if mem.cuda:
+            rec["decode_profile"] = decode_profile(params, cfg, prompts,
+                                                   device)
+        fb, fs = fwd
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (fb, fs)).astype(np.int32)).to(device)}
+        mem.reset_peak()
+        logits, first_s = timed(lambda: tf.forward(
+            params, batch, cfg, ctx, last_token_only=True), device)
+        logits, warm_s = timed(lambda: tf.forward(
+            params, batch, cfg, ctx, last_token_only=True), device)
+        require(logits.shape == (fb, 1, cfg.vocab_size)
+                and bool(torch.isfinite(logits.float()).all()),
+                f"phase 11 {name}: forward logits {tuple(logits.shape)} "
+                f"not finite or of the wrong shape")
+        rec["forward"] = {"batch": fb, "seq": fs, "first_s": first_s,
+                          "s": warm_s, "peak_gib": mem.peak_gib()}
+        if cfg.num_experts:
+            from repro_torch.models.blocks import capacity
+
+            rec["forward"]["capacity"] = capacity(cfg, fb * fs)
+        if check:
+            toks = torch.from_numpy(prompts[:, :check]).to(device)
+            f = tf.forward(params, {"tokens": toks}, cfg, ctx).float()
+            d = lm_decode(params, cfg, toks, torch.bfloat16).float()
+            err = float((d - f).abs().max())
+            scale = float(f.abs().max())
+            require(bool(torch.isfinite(d).all())
+                    and err <= LM_BF16_TOL * scale,
+                    f"phase 11 {name}: decode differs from forward by {err} "
+                    f"(max |logit| {scale}, tol {LM_BF16_TOL} of it)")
+            rec["decode_vs_forward"] = {
+                "positions": check, "max_err": err, "max_abs_logit": scale,
+                "argmax_agree": float((d.argmax(-1) == f.argmax(-1))
+                                      .float().mean())}
+    del params
+    mem.reset_peak()
+    return rec
+
+
+def phase_lm(device="cuda", archs=None, full: bool = True) -> tuple:
+    """Phase 11: (a) each reduced config (``archs``: all ten) on ``device``
+    against the CPU; (b)-(d) the full-width parts when ``full``.  Returns
+    (record, launches over the phase): it launches no kernel of the
+    index."""
+    from repro_torch.configs.base import ARCH_IDS
+
+    archs = archs or [a for a in ARCH_IDS if a != "bwt_index"]
+    _counts_reset()
+    t0 = time.perf_counter()
+    rec = {"reduced_configs": {
+        a: lm_reduced(a, device, a in LM_REDUCED_LONG) for a in archs}}
+    rec["reduced_s"] = time.perf_counter() - t0
+    if full:
+        for spec in LM_FULL:
+            t1 = time.perf_counter()
+            rec[spec[0]] = lm_full(*spec, device)
+            rec[spec[0]]["part_s"] = time.perf_counter() - t1
+    launches, _ = _counts()
+    require(sum(launches.values()) == 0,
+            f"phase 11 launched index kernels: {launches}")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec, launches
+
+
 # the function of the JAX package each kernel replaces (file:line of the
 # function that reaches pl.pallas_call)
 REPLACES = {
@@ -3990,7 +4368,7 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -4096,7 +4474,12 @@ def main(argv=None) -> int:
         emit({"phase": 1, "char_histogram_on_bwt": row})
 
     if 4 in phases:
-        emit({"phase": 4, "parity": phase_parity(args.parity_log2n)})
+        rec, launches = phase_parity(args.parity_log2n)
+        for kind, counts in launches.items():
+            path_launches[f"single_query_{kind}"] = counts
+            for name, v in counts.items():
+                main_launches[name] += v
+        emit({"phase": 4, "parity": rec})
 
     if 5 in phases:
         require(kept is not None, "phase 5 compares with phase 2's build")
@@ -4195,6 +4578,10 @@ def main(argv=None) -> int:
             for name, v in counts.items():
                 main_launches[name] += v
         emit({"phase": 10, **rec})
+
+    if 11 in phases:
+        rec, path_launches["lm_serving"] = phase_lm()
+        emit({"phase": 11, **rec})
 
     if {1, 2, 3, 7, 8} <= phases:
         for name in _build.KERNELS:

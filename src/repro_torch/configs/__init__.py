@@ -1,1 +1,2 @@
-"""Configuration knobs of the single-device index."""
+"""Configurations: the index's knobs (``bwt_index``) and the LM harness's
+ten architectures (``base.ArchConfig``, one ``configs/<id>.py`` each)."""

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
+from .suffix_array import suffix_array
 
 
 def bwt_from_sa(s: torch.Tensor, sa: torch.Tensor):
@@ -21,6 +22,12 @@ def bwt_from_sa(s: torch.Tensor, sa: torch.Tensor):
     bwt = s[prev]
     row = torch.argmin(sa).to(torch.int32)  # position where sa == 0
     return bwt, row
+
+
+def bwt(s: torch.Tensor, sigma: int):
+    """End-to-end single-device BWT (the reference path: the seed
+    prefix-doubling SA, then the join)."""
+    return bwt_from_sa(s, suffix_array(s, sigma))
 
 
 def lf_mapping(bwt_arr: torch.Tensor, sigma: int) -> torch.Tensor:

@@ -43,6 +43,8 @@ from .dist_sort import (
 )
 from .fm_index import occ_checkpoints, sample_arrays_from_rows
 
+AXIS = "parts"  # the index mesh's one dimension (launch/mesh.py)
+
 
 @dataclasses.dataclass(frozen=True)
 class DistFMIndex:

@@ -32,7 +32,13 @@ import torch
 
 from ..kernels import ops
 from ..kernels._bits import i32, popcount32
-from ..kernels.fm_query import PAD, unpack_sa_value
+from ..kernels.fm_query import (  # noqa: F401  (sample_lookup re-exported)
+    PAD,
+    interval_step,
+    packed_symbol,
+    sample_lookup,
+    unpack_sa_value,
+)
 from ..kernels.rank_select import pack_words, packed_bits
 
 
@@ -270,6 +276,14 @@ def occ_batch(index: FMIndex, c: torch.Tensor, p: torch.Tensor):
     return base + ops.rank_unpacked(blocks, blk, c, cut)
 
 
+def occ(index: FMIndex, c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Scalar Occ(c, p): int32 scalars in, int32 scalar out, through the
+    batched rank path (``occ_batch``, so one rank kernel launch on the
+    card)."""
+    return occ_batch(index, c[None] if c.ndim == 0 else c,
+                     p[None] if p.ndim == 0 else p)[0]
+
+
 def _fm_query(index: FMIndex, patterns: torch.Tensor, k: int):
     """(sp, ep, positions int32[B, k]) from the fused query kernel of the
     index's layout."""
@@ -284,6 +298,24 @@ def backward_search_batch(index: FMIndex, patterns: torch.Tensor):
     (``kernels/fm_query``)."""
     sp, ep, _ = _fm_query(index, patterns, 0)
     return sp, ep
+
+
+def backward_search(index: FMIndex, pattern):
+    """Single-pattern (sp, ep), int32 scalars: one backward-search step a
+    pattern position (right to left, PADs skipped), each ranking ``sp``
+    and ``ep`` through ``occ_batch`` (two rank kernel launches a position
+    on the card, no host readback)."""
+    dev = index.device
+    pattern = torch.as_tensor(pattern, dtype=torch.int32, device=dev)
+    sp = torch.zeros(1, dtype=torch.int32, device=dev)
+    ep = torch.full((1,), index.n, dtype=torch.int32, device=dev)
+
+    def rank(c, p):
+        return index.c_array[c.long()] + occ_batch(index, c, p)
+
+    for c in pattern.flip(0).reshape(-1, 1):
+        sp, ep = interval_step(c, sp, ep, index.sigma, rank)
+    return sp[0], ep[0]
 
 
 def count(index: FMIndex, patterns: torch.Tensor) -> torch.Tensor:
@@ -305,6 +337,36 @@ def locate(index: FMIndex, patterns: torch.Tensor, k: int):
     sp, ep, pos = _fm_query(index, patterns, k)
     counts = torch.clamp(ep - sp, min=0, max=k)
     return torch.sort(pos, dim=1).values, counts
+
+
+def bwt_symbol(index: FMIndex, rows: torch.Tensor) -> torch.Tensor:
+    """bwt[rows] batched: rows int32[B] -> symbols int32[B], decoded from
+    the packed words when the index is bit-packed."""
+    if not index.bits:
+        return index.bwt[rows.long()]
+    r = index.sample_rate
+    return packed_symbol(index.fused, rows // r, rows % r,
+                         sigma=index.sigma, bits=index.bits)
+
+
+def locate_naive(index: FMIndex, sa: torch.Tensor, pattern) -> torch.Tensor:
+    """Occurrence positions via a full SA (test oracle for ``locate``):
+    int32[n], the SA values of the pattern's interval sorted, ``n`` after
+    them."""
+    sp, ep = backward_search(index, pattern)
+    rows = torch.arange(index.n, device=sa.device)
+    return torch.sort(torch.where((rows >= sp) & (rows < ep), sa,
+                                  index.n)).values
+
+
+def count_naive(text, pattern) -> int:
+    """Overlapping substring-count numpy oracle."""
+    text, pattern = np.asarray(text), np.asarray(pattern)
+    m = len(pattern)
+    if m == 0 or m > len(text):
+        return 0
+    windows = np.lib.stride_tricks.sliding_window_view(text, m)
+    return int((windows == pattern).all(axis=1).sum())
 
 
 def _next_pow2(x: int) -> int:

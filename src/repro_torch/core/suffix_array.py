@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import keypack
@@ -285,3 +286,11 @@ def suffix_array_fast(s: torch.Tensor, sigma: int, **kwargs):
     """(SA, BuildStats) via the fused-key build engine."""
     isa, stats = build_isa_fast(s, sigma, **kwargs)
     return sa_from_isa(isa), stats
+
+
+def suffix_array_naive(s) -> np.ndarray:
+    """O(n^2 log n) numpy oracle for tests."""
+    s = np.asarray(s)
+    n = len(s)
+    suffixes = sorted(range(n), key=lambda i: s[i:].tolist())
+    return np.array(suffixes, dtype=np.int32)

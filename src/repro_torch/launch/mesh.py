@@ -1,4 +1,11 @@
-"""The index mesh, and a world of local ranks to run it in.
+"""The index mesh, a world of local ranks to run it in, and the LM
+harness's mesh shapes.
+
+``make_production_mesh`` / ``make_debug_mesh`` give the axis sizes of the
+JAX package's LM meshes by the same arithmetic (a dict of axis name ->
+size, what ``sharding.MeshContext`` takes): the port runs the LM on one
+card, so they describe the specs a model would get there and are not
+process groups.
 
 ``make_index_mesh`` is the counterpart of the JAX package's
 ``launch/mesh.py`` ``make_index_mesh``: a one-dimensional
@@ -43,6 +50,31 @@ import traceback
 
 AXIS = "parts"
 TRANSPORTS = {"cpu": "gloo", "cuda": "nccl"}   # mesh device type -> backend
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> dict:
+    """Axis sizes of the production LM mesh: 16 x 16 per pod, 2 pods for
+    multi-pod."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return dict(zip(axes, shape))
+
+
+def make_debug_mesh(devices: int | None = None) -> dict:
+    """Small (pod, data, model) axis sizes over ``devices`` devices (by
+    default the CUDA devices present, at least one)."""
+    import torch
+
+    n = devices or max(1, torch.cuda.device_count())
+    if n == 1:
+        return {"pod": 1, "data": 1, "model": 1}
+    if n % 2:
+        raise ValueError(f"need an even device count, got {n}")
+    model = 2
+    pod, data = 1, n // 2
+    if n >= 8:
+        pod, data = 2, n // (2 * model)
+    return {"pod": pod, "data": data, "model": model}
 
 
 def make_index_mesh(device_type: str, *, parts: int | None = None):

@@ -1,0 +1,468 @@
+"""Attention variants (GQA / sliding-window / MLA), MLPs, and MoE.
+
+All functions are (params, x, ...) -> y with plain dict param trees, as in
+the JAX package's ``models/blocks.py``, and come in two modes:
+  * train/prefill: full sequence, causal (optionally windowed) mask
+  * decode: one new token against a KV cache at position ``pos`` (an int);
+    the cache is written in place, the counterpart of the reference's
+    donated cache
+
+Spec builders (``*_specs``) are the single source of truth for shapes and
+logical sharding axes (models/common.ParamSpec).  Attention is the
+reference's own math (a materialised softmax, or the online softmax over
+KV chunks), not a library attention, so the port computes what the
+reference computes.  Logits and softmax statistics are float32 whatever
+the activations' dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..sharding import MeshContext, constrain, require_one_device
+from .common import ParamSpec, apply_rope, dense, einsum, gelu, rms_norm
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# GQA attention (covers MHA and MQA; optional sliding window)
+# ---------------------------------------------------------------------------
+
+def gqa_specs(cfg: ArchConfig) -> dict:
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    specs = {
+        "wq": ParamSpec((d, H, hd), ("fsdp", "heads", "head_dim")),
+        "wk": ParamSpec((d, Hkv, hd), ("fsdp", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, Hkv, hd), ("fsdp", "kv_heads", "head_dim")),
+        "wo": ParamSpec((H, hd, d), ("heads", "head_dim", "fsdp")),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((H, hd), ("heads", "head_dim"), init="zeros")
+        specs["bk"] = ParamSpec((Hkv, hd), ("kv_heads", "head_dim"), init="zeros")
+        specs["bv"] = ParamSpec((Hkv, hd), ("kv_heads", "head_dim"), init="zeros")
+    return specs
+
+
+def _attend(q, k, v, mask):
+    """q (B,S,H,hd), k/v (B,T,Hkv,hd), mask (B,1,S,T) or (1,1,S,T) bool.
+    Materialises the full (S, T) logits — decode/small-S path and the
+    oracle for the chunked version below."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    q = q.reshape(B, S, Hkv, group, hd)
+    logits = einsum("bskgd,btkd->bkgst", q, k).float()
+    logits = logits / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    logits = torch.where(mask[:, :, None] if mask.ndim == 4 else mask,
+                         logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, H, hd)
+
+
+def _causal_mask(S, T, offset: int = 0, window: int = 0, device=None):
+    """(1, 1, S, T) bool; q position i (global offset+i) sees keys j <= i,
+    and j > i - window when window > 0."""
+    qpos = offset + torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m &= kpos > qpos - window
+    return m[None, None]
+
+
+ATTN_CHUNK = 1024  # KV-chunk length for the online-softmax path
+
+
+def _attend_chunked(q, k, v, *, window: int = 0, chunk: int = ATTN_CHUNK):
+    """Flash-style causal attention: a loop over KV chunks with an online
+    softmax, so logits never exceed (B, Hkv, g, S, chunk) — the full
+    (S, T) score matrix is never materialised.
+
+    Self-attention layout: q (B,S,H,hd), k/v (B,S,Hkv,hd), same positions.
+    """
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    nc = S // chunk
+    dev = q.device
+    qr = q.reshape(B, S, Hkv, group, hd)
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    qpos = torch.arange(S, dtype=torch.int32, device=dev)
+
+    m = torch.full((B, Hkv, group, S), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, Hkv, group, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, group, S, hd), dtype=torch.float32,
+                      device=dev)
+    for c0 in range(nc):
+        kb = k[:, c0 * chunk:(c0 + 1) * chunk]
+        vb = v[:, c0 * chunk:(c0 + 1) * chunk]
+        kpos = c0 * chunk + torch.arange(chunk, dtype=torch.int32,
+                                         device=dev)
+        logits = einsum("bskgd,btkd->bkgst", qr, kb).float()
+        logits = logits * scale.to(dev)
+        mask = kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        logits = torch.where(mask[None, None, None], logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        # guard fully-masked rows (m_new == NEG_INF): keep weights at 0
+        p = torch.exp(logits - m_new[..., None])
+        p = torch.where(mask[None, None, None], p, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + einsum("bkgst,btkd->bkgsd", p,
+                                             vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def _gqa_qkv(p, x, cfg: ArchConfig, positions):
+    q = einsum("bsd,dhk->bshk", x, p["wq"]).to(x.dtype)
+    k = einsum("bsd,dhk->bshk", x, p["wk"]).to(x.dtype)
+    v = einsum("bsd,dhk->bshk", x, p["wv"]).to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_attention(p, x, cfg: ArchConfig, ctx: MeshContext, *, window: int = 0,
+                  positions=None):
+    """Full-sequence causal attention.  x (B, S, d)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    q, k, v = _gqa_qkv(p, x, cfg, positions)
+    q = constrain(q, ctx, ("batch", None, "act_model", None))
+    if S % ATTN_CHUNK == 0 and S > ATTN_CHUNK:
+        out = _attend_chunked(q, k, v, window=window)
+    else:
+        out = _attend(q, k, v, _causal_mask(S, S, window=window,
+                                            device=x.device))
+    y = einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+    return constrain(y, ctx, ("batch", None, None))
+
+
+def gqa_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device=None):
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, max_len, Hkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, Hkv, hd), dtype=dtype, device=device),
+    }
+
+
+def gqa_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext, *,
+               window: int = 0):
+    """One-token decode.  x (B, 1, d); cache k/v (B, T, Hkv, hd), written in
+    place at the new token's slot; pos — the index of the new token.
+    Returns (y, cache)."""
+    require_one_device(ctx)
+    B = x.shape[0]
+    T = cache["k"].shape[1]
+    pos = int(pos)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _gqa_qkv(p, x, cfg, positions)
+    # windowed caches store key at pos % T (ring buffer); full caches at pos
+    # (caches may be low-precision, e.g. fp8 — cast on write, upcast on read)
+    cdt = cache["k"].dtype
+    slot = pos % T if window > 0 else min(pos, T - 1)
+    cache["k"][:, slot] = k[:, 0].to(cdt)
+    cache["v"][:, slot] = v[:, 0].to(cdt)
+    kpos = torch.arange(T, device=x.device)
+    if window > 0:
+        # ring: entry j holds the absolute position below; valid if within
+        # the last ``window`` positions <= pos
+        abs_pos = torch.where(kpos <= slot, pos - slot + kpos,
+                              pos - slot - T + kpos)
+        mask = (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - window)
+    else:
+        mask = kpos <= pos
+    out = _attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+                  mask[None, None, None, :])
+    y = einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ArchConfig) -> dict:
+    d, H = cfg.d_model, cfg.num_heads
+    qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    specs = {
+        "kv_down": ParamSpec((d, kl + qr), ("fsdp", "kv_lora")),
+        "kv_norm": ParamSpec((kl,), ("kv_lora",), init="zeros"),
+        "k_up": ParamSpec((kl, H, qn), ("kv_lora", "heads", "head_dim")),
+        "v_up": ParamSpec((kl, H, vd), ("kv_lora", "heads", "head_dim")),
+        "wo": ParamSpec((H, vd, d), ("heads", "head_dim", "fsdp")),
+    }
+    if ql > 0:
+        specs["q_down"] = ParamSpec((d, ql), ("fsdp", "q_lora"))
+        specs["q_norm"] = ParamSpec((ql,), ("q_lora",), init="zeros")
+        specs["q_up"] = ParamSpec((ql, H, qn + qr), ("q_lora", "heads", "head_dim"))
+    else:
+        specs["q_proj"] = ParamSpec((d, H, qn + qr), ("fsdp", "heads", "head_dim"))
+    return specs
+
+
+def _mla_q(p, x, cfg: ArchConfig):
+    if cfg.q_lora_rank > 0:
+        cq = rms_norm(dense(x, p["q_down"]), p["q_norm"], cfg.norm_eps)
+        q = einsum("bsq,qhk->bshk", cq, p["q_up"]).to(x.dtype)
+    else:
+        q = einsum("bsd,dhk->bshk", x, p["q_proj"]).to(x.dtype)
+    return torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+
+
+def _mla_kv_latent(p, x, cfg: ArchConfig):
+    ckv_full = dense(x, p["kv_down"])                     # (B,S,kl+qr)
+    ckv, k_rope = torch.split(ckv_full, [cfg.kv_lora_rank, cfg.qk_rope_dim],
+                              dim=-1)
+    ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    return ckv, k_rope
+
+
+def _mla_scale(cfg: ArchConfig):
+    return 1.0 / torch.sqrt(torch.tensor(cfg.qk_nope_dim + cfg.qk_rope_dim,
+                                         dtype=torch.float32))
+
+
+def _mla_attend(p, q_nope, q_rope, ckv, k_rope, cfg: ArchConfig, mask):
+    """q_* (B,S,H,*); ckv (B,T,kl); k_rope (B,T,qr) already roped."""
+    k_nope = einsum("btc,chk->bthk", ckv, p["k_up"]).to(q_nope.dtype)
+    v = einsum("btc,chk->bthk", ckv, p["v_up"]).to(q_nope.dtype)
+    logits = (
+        einsum("bshk,bthk->bhst", q_nope, k_nope)
+        + einsum("bshk,btk->bhst", q_rope, k_rope)
+    ).float() * _mla_scale(cfg).to(q_nope.device)
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return einsum("bhst,bthk->bshk", probs, v)
+
+
+def _mla_attend_chunked(p, q_nope, q_rope, ckv, k_rope, cfg: ArchConfig,
+                        *, chunk: int = ATTN_CHUNK):
+    """Flash-style MLA: expands each KV chunk from the latent on the fly —
+    neither the (S, T) scores nor the full expanded K/V ever materialise."""
+    B, S, H, _ = q_nope.shape
+    nc = S // chunk
+    dev = q_nope.device
+    scale = _mla_scale(cfg).to(dev)
+    qpos = torch.arange(S, dtype=torch.int32, device=dev)
+    hd_v = cfg.v_head_dim
+
+    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, S, hd_v), dtype=torch.float32, device=dev)
+    for c0 in range(nc):
+        ckv_b = ckv[:, c0 * chunk:(c0 + 1) * chunk]
+        kr_b = k_rope[:, c0 * chunk:(c0 + 1) * chunk]
+        k_nope_b = einsum("btc,chk->bthk", ckv_b, p["k_up"]).to(q_nope.dtype)
+        v_b = einsum("btc,chk->bthk", ckv_b, p["v_up"]).to(q_nope.dtype)
+        logits = (
+            einsum("bshk,bthk->bhst", q_nope, k_nope_b)
+            + einsum("bshk,btk->bhst", q_rope, kr_b)
+        ).float() * scale
+        kpos = c0 * chunk + torch.arange(chunk, dtype=torch.int32, device=dev)
+        mask = kpos[None, :] <= qpos[:, None]
+        logits = torch.where(mask[None, None], logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        pw = torch.exp(logits - m_new[..., None])
+        pw = torch.where(mask[None, None], pw, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + pw.sum(dim=-1)
+        acc = acc * corr[..., None] + einsum("bhst,bthk->bhsk", pw,
+                                             v_b.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q_nope.dtype)  # (B,S,H,hd_v)
+
+
+def mla_attention(p, x, cfg: ArchConfig, ctx: MeshContext, *, positions=None):
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv, k_rope = _mla_kv_latent(p, x, cfg)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    if S % ATTN_CHUNK == 0 and S > ATTN_CHUNK:
+        out = _mla_attend_chunked(p, q_nope, q_rope, ckv, k_rope, cfg)
+    else:
+        mask = _causal_mask(S, S, device=x.device)
+        out = _mla_attend(p, q_nope, q_rope, ckv, k_rope, cfg, mask)
+    y = einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+    return constrain(y, ctx, ("batch", None, None))
+
+
+def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device=None):
+    return {
+        "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=device),
+    }
+
+
+def mla_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext):
+    require_one_device(ctx)
+    B = x.shape[0]
+    cdt = cache["ckv"].dtype
+    pos = int(pos)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv_new, k_rope_new = _mla_kv_latent(p, x, cfg)
+    k_rope_new = apply_rope(k_rope_new, positions, cfg.rope_theta)
+    T = cache["ckv"].shape[1]
+    slot = min(pos, T - 1)
+    cache["ckv"][:, slot] = ckv_new[:, 0].to(cdt)
+    cache["k_rope"][:, slot] = k_rope_new[:, 0].to(cdt)
+    mask = (torch.arange(T, device=x.device) <= pos)[None, None, None, :]
+    out = _mla_attend(p, q_nope, q_rope, cache["ckv"].to(x.dtype),
+                      cache["k_rope"].to(x.dtype), cfg, mask)
+    y = einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg: ArchConfig, d_ff: int | None = None) -> dict:
+    d = cfg.d_model
+    f = cfg.d_ff if d_ff is None else d_ff
+    if cfg.mlp == "swiglu":
+        return {
+            "w_gate": ParamSpec((d, f), ("fsdp", "mlp")),
+            "w_up": ParamSpec((d, f), ("fsdp", "mlp")),
+            "w_down": ParamSpec((f, d), ("mlp", "fsdp")),
+        }
+    return {  # relu2 / gelu: single up-proj
+        "w_up": ParamSpec((d, f), ("fsdp", "mlp")),
+        "w_down": ParamSpec((f, d), ("mlp", "fsdp")),
+    }
+
+
+def mlp(p, x, cfg: ArchConfig, ctx: MeshContext):
+    if cfg.mlp == "swiglu":
+        h = F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"])
+    elif cfg.mlp == "relu2":
+        h = torch.square(F.relu(dense(x, p["w_up"])))
+    else:
+        h = gelu(dense(x, p["w_up"]))
+    h = constrain(h, ctx, ("batch", None, "act_model"))
+    return constrain(dense(h, p["w_down"]), ctx, ("batch", None, None))
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing, capacity drop
+# ---------------------------------------------------------------------------
+#
+# The reference runs the routed part as a shard_map over (pod, data) token
+# shards and 'model' expert shards, with a ZeRO-3 gather of the expert
+# weights and one psum.  On one card every expert is local: the body below
+# is that shard_map body with no gather and no psum.
+
+def moe_specs(cfg: ArchConfig) -> dict:
+    d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    specs = {
+        "router": ParamSpec((d, E), ("fsdp", None)),
+        "w_gate": ParamSpec((E, d, f), ("experts", "fsdp", "expert_ff")),
+        "w_up": ParamSpec((E, d, f), ("experts", "fsdp", "expert_ff")),
+        "w_down": ParamSpec((E, f, d), ("experts", "expert_ff", "fsdp")),
+    }
+    if cfg.num_shared_experts > 0:
+        shared_f = f * cfg.num_shared_experts
+        specs["shared"] = mlp_specs(cfg.replace(mlp="swiglu"), shared_f)
+    return specs
+
+
+def capacity(cfg: ArchConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` routed tokens (Python float math, as
+    the reference)."""
+    return max(1, int(cfg.capacity_factor * tokens * cfg.top_k
+                      / cfg.num_experts))
+
+
+def moe_route(xt, router, cfg: ArchConfig):
+    """Top-k routing and capacity dispatch of tokens xt (T, d).
+
+    Returns (weights (T, k), experts (T, k), tok_idx (E, C), gate_w (E, C),
+    valid (E, C)): expert e's slot c serves token tok_idx[e, c] with gate
+    weight gate_w[e, c] where valid.  Ties break as ``jax.lax.top_k`` (the
+    lower expert first: a stable descending sort) and the dispatch order is
+    a stable argsort by expert, as ``jnp.argsort``."""
+    E, k = cfg.num_experts, cfg.top_k
+    Tl = xt.shape[0]
+    dev = xt.device
+    logits = einsum("td,de->te", xt, router).float()
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, experts = top.values[:, :k], top.indices[:, :k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+
+    flat_expert = experts.reshape(Tl * k)
+    flat_token = torch.arange(Tl, device=dev).repeat_interleave(k)
+    flat_weight = weights.reshape(Tl * k)
+    order = torch.argsort(flat_expert, stable=True)
+    e_sorted = flat_expert[order].contiguous()
+    t_sorted = flat_token[order]
+    w_sorted = flat_weight[order]
+
+    C = capacity(cfg, Tl)
+    my_experts = torch.arange(E, device=dev)
+    starts = torch.searchsorted(e_sorted, my_experts, side="left")
+    ends = torch.searchsorted(e_sorted, my_experts, side="right")
+    counts = ends - starts
+    slots = torch.arange(C, device=dev)
+    take = starts[:, None] + slots[None, :]                      # (E, C)
+    valid = slots[None, :] < torch.clamp(counts, max=C)[:, None]
+    take = torch.clamp(take, 0, Tl * k - 1)
+    tok_idx = torch.where(valid, t_sorted[take], 0)
+    gate_w = torch.where(valid, w_sorted[take], 0.0)
+    return weights, experts, tok_idx, gate_w, valid
+
+
+def _moe_local(xt, router, wg, wu, wd, *, cfg: ArchConfig):
+    """The routed experts on one device.  xt (T, d); wg/wu (E, d, f);
+    wd (E, f, d)."""
+    Tl, d = xt.shape
+    E = wg.shape[0]
+    _, _, tok_idx, gate_w, valid = moe_route(xt, router, cfg)
+    C = tok_idx.shape[1]
+
+    xe = xt[tok_idx]                                           # (E, C, d)
+    h = F.silu(einsum("ecd,edf->ecf", xe, wg)) * einsum("ecd,edf->ecf", xe, wu)
+    ye = einsum("ecf,efd->ecd", h.to(xt.dtype), wd)
+    ye = ye * gate_w[..., None].to(ye.dtype)
+    ye = torch.where(valid[..., None], ye, 0)
+    # scatter-add of every slot into its token (index_add_: on CUDA the
+    # order of the adds is not fixed, so sums move in the last bits)
+    y = torch.zeros((Tl, d), dtype=xt.dtype, device=xt.device)
+    return y.index_add_(0, tok_idx.reshape(-1), ye.reshape(E * C, d).to(y.dtype))
+
+
+def moe_block(p, x, cfg: ArchConfig, ctx: MeshContext):
+    require_one_device(ctx)
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    y = _moe_local(xt, p["router"], p["w_gate"], p["w_up"], p["w_down"],
+                   cfg=cfg)
+    y = constrain(y.reshape(B, S, d), ctx, ("batch", None, None))
+    if cfg.num_shared_experts > 0:
+        y = y + mlp(p["shared"], x, cfg.replace(mlp="swiglu"), ctx)
+    return y

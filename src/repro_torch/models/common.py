@@ -1,0 +1,182 @@
+"""Module-less parameter system + shared layers.
+
+A model is described by a tree (dicts and lists) of ``ParamSpec`` (shape,
+logical axes, initializer).  From the same spec tree come:
+  * real parameters           (``init_params``)
+  * abstract parameters       (``abstract_params``, tensors on ``meta``)
+  * partition specs           (``param_shardings``, via sharding.MeshContext)
+
+Apply functions take plain dict trees of tensors, as the JAX package's do,
+so the two packages' trees map onto each other key for key
+(``models/convert.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..devices import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]           # logical axis names, len == ndim
+    init: str = "normal"                   # 'normal' | 'zeros' | 'ones' | 'small'
+    scale: float = 0.02
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in the order of the JAX package's flattening (dict keys
+    sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _make(spec: ParamSpec, generator: torch.Generator, dtype, device):
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    scale = spec.scale
+    if spec.init == "small":
+        scale = spec.scale / max(1, int(np.sqrt(np.prod(spec.shape[:-1])
+                                                or 1)))
+    x = torch.randn(spec.shape, generator=generator, device=generator.device)
+    return (x * scale).to(device=device, dtype=dtype)
+
+
+def init_params(spec_tree, generator: torch.Generator,
+                dtype=torch.float32, device=None):
+    """Real parameters: normal x scale, zeros, ones or ``small`` (scale over
+    the square root of the fan-in) per spec, drawn from ``generator`` (on
+    its device), then placed on ``device`` (the card unless the CPU is
+    asked for).  The values are this generator's, not ``jax.random``'s."""
+    device = resolve_device(device)
+    return tree_map(lambda s: _make(s, generator, dtype, device), spec_tree)
+
+
+def abstract_params(spec_tree, dtype=torch.float32):
+    """The parameter tree as tensors on the ``meta`` device (shapes and
+    dtypes, no storage)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), spec_tree)
+
+
+def param_shardings(spec_tree, ctx):
+    """The partition spec (``ctx.spec_for``) of every parameter."""
+    return tree_map(lambda s: ctx.spec_for(s.axes, s.shape), spec_tree)
+
+
+def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
+    """Spec tree for ``n`` stacked copies of a layer."""
+    return tree_map(
+        lambda s: ParamSpec((n, *s.shape), (axis_name, *s.axes), s.init,
+                            s.scale),
+        spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# shared layers
+# ---------------------------------------------------------------------------
+
+def einsum(eq: str, *operands):
+    """``torch.einsum`` over operands promoted to one dtype, as
+    ``jnp.einsum`` promotes mixed dtypes."""
+    dt = operands[0].dtype
+    for o in operands[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in operands))
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., seq, heads, head_dim) or (..., seq, head_dim);
+    positions: (..., seq) int."""
+    head_dim = x.shape[-1]
+    freqs = rope_freqs(head_dim, theta, x.device)              # (hd/2,)
+    angles = positions[..., None].float() * freqs              # (..., seq, hd/2)
+    if x.ndim == angles.ndim + 1:                              # heads present
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean negative log-likelihood over unmasked positions (float32):
+    logits (B, S, V) any float dtype, labels (B, S) int.  The label logit
+    is selected by an index comparison, never a float one-hot."""
+    logits = logits.float()
+    vmax = torch.amax(logits, dim=-1, keepdim=True)
+    shifted = logits - vmax
+    logsumexp = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    is_label = vocab == labels[..., None]
+    label_logit = torch.sum(torch.where(is_label, shifted, 0.0), dim=-1)
+    nll = logsumexp - label_logit
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def dense(x, w, b=None):
+    y = einsum("...d,df->...f", x, w).to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv.  x (B, S, C), w (K, C).  With ``state``
+    (B, K-1, C) given, performs a streaming step (S may be 1) and returns
+    (y, new_state)."""
+    K = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                            # (B, S+K-1, C)
+    # windows: y[t] = sum_k w[k] * xp[t + k]
+    S = x.shape[1]
+    y = sum(xp[:, k: k + S, :] * w[k] for k in range(K))
+    new_state = xp[:, -(K - 1):, :] if K > 1 else torch.zeros_like(pad)
+    return y.to(x.dtype), new_state
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+

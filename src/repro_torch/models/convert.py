@@ -1,0 +1,42 @@
+"""Carry an LM param tree across packages as numpy arrays.
+
+The JAX package's ``init_model`` tree (dicts, the ``prefix`` / ``suffix``
+lists, the stacked ``blocks/s{i}`` groups) and this package's have the same
+keys and shapes, so the mapping is leaf by leaf.  bfloat16 arrays (the
+JAX package's ``ml_dtypes`` type) go through float32, which holds every
+bfloat16 value exactly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..devices import resolve_device
+from .common import tree_map
+
+
+def _leaf_to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def params_from_numpy(tree, device=None):
+    """A param tree of numpy arrays (e.g. the JAX package's params through
+    ``np.asarray``) as tensors on ``device`` (the card unless the CPU is
+    asked for), dtypes kept."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _leaf_to_tensor(a, device), tree)
+
+
+def params_to_numpy(params):
+    """A param tree of tensors as numpy arrays on the host (bfloat16 as
+    float32)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(leaf, params)

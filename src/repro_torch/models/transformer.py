@@ -1,0 +1,389 @@
+"""Decoder assembly: pattern-based layer stacking, forward, loss, and cached
+decode — one code path for all ten LM architectures, as in the JAX
+package's ``models/transformer.py``.
+
+The layer pattern (cfg.layer_pattern, default by family) repeats over the
+depth; the repeating groups' params are stacked on a leading ``groups``
+index (the reference scans over it; here a Python loop walks it), and any
+remainder / prefix layers stand alone.  DeepSeek's leading dense-FFN
+layer(s) are the ``prefix``; RecurrentGemma's (rglru, rglru, attn) pattern
+stacks 3-layer groups.
+
+``forward`` and ``decode_step`` are functions of a dict of tensors, the
+tree the JAX package's functions take (``models/convert.py`` carries one
+across).  ``LM`` wraps the same tensors as an ``nn.Module``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..devices import resolve_device
+from ..sharding import MeshContext, constrain, single_device_context
+from . import blocks, ssm
+from .common import (
+    ParamSpec,
+    abstract_params,
+    cross_entropy_loss,
+    init_params,
+    param_shardings,
+    rms_norm,
+    stack_specs,
+    tree_leaves,
+    tree_map,
+)
+
+LABEL_PAD = -1
+
+
+def layer_pattern(cfg: ArchConfig) -> tuple[str, ...]:
+    if cfg.layer_pattern:
+        return cfg.layer_pattern
+    if cfg.family == "ssm":
+        return ("ssm",)
+    return ("attn",)
+
+
+# ---------------------------------------------------------------------------
+# per-layer specs / apply / cache
+# ---------------------------------------------------------------------------
+
+def _mixer_specs(kind: str, cfg: ArchConfig) -> dict:
+    if kind in ("attn", "local_attn"):
+        return blocks.mla_specs(cfg) if cfg.attention == "mla" else blocks.gqa_specs(cfg)
+    if kind == "rglru":
+        return ssm.rglru_specs(cfg)
+    if kind == "ssm":
+        return ssm.mamba2_specs(cfg)
+    raise ValueError(kind)
+
+
+def _layer_specs(kind: str, cfg: ArchConfig, *, moe: bool) -> dict:
+    d = cfg.d_model
+    specs = {
+        "norm1": ParamSpec((d,), (None,), init="zeros"),
+        "mixer": _mixer_specs(kind, cfg),
+    }
+    if kind != "ssm":  # mamba blocks have no separate FFN
+        specs["norm2"] = ParamSpec((d,), (None,), init="zeros")
+        specs["ffn"] = blocks.moe_specs(cfg) if moe else blocks.mlp_specs(cfg)
+    return specs
+
+
+def _apply_mixer(kind, p, x, cfg, ctx):
+    if kind == "attn":
+        if cfg.attention == "mla":
+            return blocks.mla_attention(p, x, cfg, ctx)
+        return blocks.gqa_attention(p, x, cfg, ctx)
+    if kind == "local_attn":
+        return blocks.gqa_attention(p, x, cfg, ctx, window=cfg.window)
+    if kind == "rglru":
+        return ssm.rglru_block(p, x, cfg, ctx)
+    if kind == "ssm":
+        return ssm.mamba2_block(p, x, cfg, ctx)
+    raise ValueError(kind)
+
+
+def _apply_layer(kind, p, x, cfg, ctx, *, moe: bool):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + _apply_mixer(kind, p["mixer"], h, cfg, ctx)
+    if kind != "ssm":
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        ffn = blocks.moe_block if moe else blocks.mlp
+        x = x + ffn(p["ffn"], h, cfg, ctx)
+    return x
+
+
+def _mixer_decode(kind, p, x, cache, pos, cfg, ctx):
+    if kind == "attn":
+        if cfg.attention == "mla":
+            return blocks.mla_decode(p, x, cache, pos, cfg, ctx)
+        return blocks.gqa_decode(p, x, cache, pos, cfg, ctx)
+    if kind == "local_attn":
+        return blocks.gqa_decode(p, x, cache, pos, cfg, ctx, window=cfg.window)
+    if kind == "rglru":
+        return ssm.rglru_decode(p, x, cache, pos, cfg, ctx)
+    if kind == "ssm":
+        return ssm.mamba2_decode(p, x, cache, pos, cfg, ctx)
+    raise ValueError(kind)
+
+
+def _apply_layer_decode(kind, p, x, cache, pos, cfg, ctx, *, moe: bool):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    mixed, cache = _mixer_decode(kind, p["mixer"], h, cache, pos, cfg, ctx)
+    x = x + mixed
+    if kind != "ssm":
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        ffn = blocks.moe_block if moe else blocks.mlp
+        x = x + ffn(p["ffn"], h, cfg, ctx)
+    return x, cache
+
+
+def _mixer_cache(kind, cfg: ArchConfig, batch: int, max_len: int, dtype,
+                 device):
+    if kind == "attn":
+        if cfg.attention == "mla":
+            return blocks.mla_init_cache(cfg, batch, max_len, dtype, device)
+        return blocks.gqa_init_cache(cfg, batch, max_len, dtype, device)
+    if kind == "local_attn":
+        return blocks.gqa_init_cache(cfg, batch, min(cfg.window, max_len),
+                                     dtype, device)
+    if kind == "rglru":
+        return ssm.rglru_init_cache(cfg, batch, dtype, device)
+    if kind == "ssm":
+        return ssm.mamba2_init_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# model specs / init
+# ---------------------------------------------------------------------------
+
+def _layer_plan(cfg: ArchConfig):
+    """(prefix_kinds, pattern, groups, suffix_kinds): prefix layers are the
+    leading dense-FFN layers; suffix is the non-divisible remainder."""
+    pat = layer_pattern(cfg)
+    prefix = cfg.first_dense_layers
+    rest = cfg.num_layers - prefix
+    groups, rem = divmod(rest, len(pat))
+    return (pat[:1] * prefix, pat, groups, pat[:rem])
+
+
+def model_specs(cfg: ArchConfig) -> dict:
+    moe = cfg.num_experts > 0
+    prefix_kinds, pat, groups, suffix_kinds = _layer_plan(cfg)
+    specs: dict[str, Any] = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", None)),
+        "final_norm": ParamSpec((cfg.d_model,), (None,), init="zeros"),
+        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size), (None, "vocab")),
+        "prefix": [
+            _layer_specs(k, cfg, moe=False) for k in prefix_kinds
+        ],
+        "blocks": {
+            f"s{i}": stack_specs(_layer_specs(k, cfg, moe=moe), groups)
+            for i, k in enumerate(pat)
+        } if groups else {},
+        "suffix": [
+            _layer_specs(k, cfg, moe=moe) for k in suffix_kinds
+        ],
+    }
+    return specs
+
+
+def init_model(cfg: ArchConfig, generator: torch.Generator,
+               dtype=torch.bfloat16, device=None):
+    """Random weights from ``generator`` (see ``common.init_params``)."""
+    return init_params(model_specs(cfg), generator, dtype, device)
+
+
+def abstract_model(cfg: ArchConfig, dtype=torch.bfloat16):
+    return abstract_params(model_specs(cfg), dtype)
+
+
+def model_shardings(cfg: ArchConfig, ctx: MeshContext):
+    return param_shardings(model_specs(cfg), ctx)
+
+
+def count_params(cfg: ArchConfig) -> int:
+    leaves = tree_leaves(model_specs(cfg))
+    return int(sum(np.prod(s.shape) for s in leaves))
+
+
+def count_active_params(cfg: ArchConfig) -> int:
+    """Active params per token (MoE: top_k + shared experts only)."""
+    if cfg.num_experts == 0:
+        return count_params(cfg)
+    total = count_params(cfg)
+    f = cfg.moe_d_ff or cfg.d_ff
+    per_expert = 3 * cfg.d_model * f
+    moe_layers = cfg.num_layers - cfg.first_dense_layers
+    inactive = moe_layers * (cfg.num_experts - cfg.top_k) * per_expert
+    return total - inactive
+
+
+def _group(tree, g: int):
+    """Group ``g`` of a stacked tree (views: writes reach the stack)."""
+    return tree_map(lambda t: t[g], tree)
+
+
+# ---------------------------------------------------------------------------
+# forward / loss
+# ---------------------------------------------------------------------------
+
+def forward(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
+            remat_policy: str = "full", scan_unroll: int | bool = 1,
+            last_token_only: bool = False):
+    """Logits for a full sequence.  batch: {'tokens' (B,S)} or
+    {'embeds' (B,S,d)} for stub-frontend archs.
+
+    ``remat_policy`` and ``scan_unroll`` are the reference's signature; they
+    shape training and the dry-run's compiles and change nothing here."""
+    if cfg.frontend != "none" and "embeds" in batch:
+        x = batch["embeds"]
+    else:
+        x = params["embed"][batch["tokens"].long()]
+    x = constrain(x.to(params["lm_head"].dtype), ctx, ("batch", None, None))
+
+    moe = cfg.num_experts > 0
+    prefix_kinds, pat, groups, suffix_kinds = _layer_plan(cfg)
+
+    for p_layer, kind in zip(params["prefix"], prefix_kinds):
+        x = _apply_layer(kind, p_layer, x, cfg, ctx, moe=False)
+
+    for g in range(groups):
+        group_params = _group(params["blocks"], g)
+        for i, kind in enumerate(pat):
+            x = _apply_layer(kind, group_params[f"s{i}"], x, cfg, ctx, moe=moe)
+
+    for p_layer, kind in zip(params["suffix"], suffix_kinds):
+        x = _apply_layer(kind, p_layer, x, cfg, ctx, moe=moe)
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if last_token_only:
+        x = x[:, -1:, :]  # serving prefill: only the final position's logits
+    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    return constrain(logits, ctx, ("batch", None, "act_model"))
+
+
+def loss_fn(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
+            remat_policy: str = "full", scan_unroll: int | bool = 1):
+    """Mean next-token loss over labels != LABEL_PAD (the value; its
+    gradient belongs to training)."""
+    logits = forward(params, batch, cfg, ctx, remat_policy=remat_policy,
+                     scan_unroll=scan_unroll)
+    labels = batch["labels"]
+    mask = labels != LABEL_PAD
+    return cross_entropy_loss(logits, torch.clamp(labels, min=0).long(), mask)
+
+
+# ---------------------------------------------------------------------------
+# decode (serve_step)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Zeroed decode cache for ``batch`` sequences of up to ``max_len``
+    tokens: the prefix / stacked groups / suffix layers' caches (KV
+    entries in ``dtype``, SSM and LRU states in float32)."""
+    device = resolve_device(device)
+    prefix_kinds, pat, groups, suffix_kinds = _layer_plan(cfg)
+
+    def make(kind):
+        return _mixer_cache(kind, cfg, batch, max_len, dtype, device)
+
+    def stack(tree, n):
+        return tree_map(lambda x: x[None].repeat(n, *([1] * x.ndim)), tree)
+
+    return {
+        "prefix": [make(k) for k in prefix_kinds],
+        "blocks": {
+            f"s{i}": stack(make(k), groups) for i, k in enumerate(pat)
+        } if groups else {},
+        "suffix": [make(k) for k in suffix_kinds],
+    }
+
+
+def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
+                ctx: MeshContext, *, scan_unroll: int | bool = 1):
+    """One decode step.  tokens (B, 1) int; pos the new token's index.
+    Writes the cache in place; returns (logits (B, V), the cache)."""
+    x = params["embed"][tokens.long()]
+    x = constrain(x.to(params["lm_head"].dtype), ctx, ("batch", None, None))
+    moe = cfg.num_experts > 0
+    prefix_kinds, pat, groups, suffix_kinds = _layer_plan(cfg)
+    pos = int(pos)
+
+    for p_layer, kind, c in zip(params["prefix"], prefix_kinds,
+                                cache["prefix"]):
+        x, _ = _apply_layer_decode(kind, p_layer, x, c, pos, cfg, ctx,
+                                   moe=False)
+
+    for g in range(groups):
+        group_params = _group(params["blocks"], g)
+        group_cache = _group(cache["blocks"], g)
+        for i, kind in enumerate(pat):
+            x, _ = _apply_layer_decode(
+                kind, group_params[f"s{i}"], x, group_cache[f"s{i}"],
+                pos, cfg, ctx, moe=moe,
+            )
+
+    for p_layer, kind, c in zip(params["suffix"], suffix_kinds,
+                                cache["suffix"]):
+        x, _ = _apply_layer_decode(kind, p_layer, x, c, pos, cfg, ctx,
+                                   moe=moe)
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])[:, 0]
+    return constrain(logits, ctx, ("batch", "act_model")), cache
+
+
+# ---------------------------------------------------------------------------
+# the same tensors as an nn.Module
+# ---------------------------------------------------------------------------
+
+class _Node(nn.Module):
+    """One dict of the param tree: tensors as parameters, dicts as child
+    nodes, lists as ``ModuleList`` s of nodes."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                setattr(self, k, _Node(v))
+            elif isinstance(v, list):
+                setattr(self, k, nn.ModuleList(_Node(x) for x in v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def tree(self) -> dict:
+        out = {}
+        for k in self._keys:
+            v = getattr(self, k)
+            if isinstance(v, _Node):
+                out[k] = v.tree()
+            elif isinstance(v, nn.ModuleList):
+                out[k] = [x.tree() for x in v]
+            else:
+                out[k] = v
+        return out
+
+
+class LM(nn.Module):
+    """An LM of config ``cfg`` over a param tree (``params``, or random
+    weights from ``generator``).  The parameters are the tree's tensors
+    (no copy); ``forward`` / ``decode_step`` call the module functions
+    above on ``params()``.  Serving only: the parameters take no gradient."""
+
+    def __init__(self, cfg: ArchConfig, params: dict | None = None, *,
+                 generator: torch.Generator | None = None,
+                 dtype=torch.bfloat16, device=None,
+                 ctx: MeshContext | None = None):
+        super().__init__()
+        if params is None:
+            params = init_model(cfg, generator, dtype, device)
+        self.cfg = cfg
+        self.ctx = ctx or single_device_context()
+        self.tree = _Node(params)
+
+    def params(self) -> dict:
+        return self.tree.tree()
+
+    def forward(self, batch: dict, *, last_token_only: bool = False):
+        return forward(self.params(), batch, self.cfg, self.ctx,
+                       last_token_only=last_token_only)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        p = self.tree.embed
+        return init_cache(self.cfg, batch, max_len, dtype or p.dtype,
+                          p.device)
+
+    def decode_step(self, cache, tokens, pos: int):
+        return decode_step(self.params(), cache, tokens, pos, self.cfg,
+                           self.ctx)

@@ -1,16 +1,77 @@
-"""The FM-index query server: micro-batched count/locate over a built
-``SequenceIndex``."""
+"""Serving engine: batched LM generation over the cached decode step, and
+the FM-index query server (micro-batched count/locate over a built
+``SequenceIndex``) — the two serve paths.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
+from ..configs.base import ArchConfig
 from ..core.fm_index import PAD
 from ..devices import resolve_device
+from ..models import transformer as tf
+from ..sharding import MeshContext
+
+
+@dataclasses.dataclass
+class GenerateResult:
+    tokens: np.ndarray       # (B, prompt+gen) int32
+    tokens_per_s: float
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(
+    params,
+    cfg: ArchConfig,
+    ctx: MeshContext,
+    prompts: np.ndarray,     # (B, prompt_len) int32
+    max_new_tokens: int,
+    *,
+    dtype=torch.float32,
+    cache_dtype=None,
+    sample: Callable | None = None,   # logits (B, V) -> token (B,)
+) -> GenerateResult:
+    """Greedy (or custom-sampled) batched generation over one cache written
+    in place, on the device of ``params``.
+
+    ``prompts`` int32[B, prompt_len]; returns all B sequences extended to
+    ``prompt_len + max_new_tokens`` (int32) plus tokens/s.  Prompt tokens
+    are fed one decode step at a time; ``sample`` maps logits float[B, V]
+    -> token int[B] (None = argmax, ties to the lower id).  The cache is
+    ``cache_dtype or dtype`` (e.g. ``torch.float8_e4m3fn``: cast on write,
+    upcast on read).  The clock is read after synchronising the device."""
+    device = params["embed"].device
+    B, prompt_len = prompts.shape
+    total = prompt_len + max_new_tokens
+    cache = tf.init_cache(cfg, B, total, cache_dtype or dtype, device)
+    out = torch.zeros((B, total), dtype=torch.int32, device=device)
+    out[:, :prompt_len] = torch.as_tensor(np.asarray(prompts, np.int32),
+                                          device=device)
+    tok = out[:, :1]
+    _sync(device)
+    t0 = time.perf_counter()
+    for pos in range(total - 1):
+        logits, cache = tf.decode_step(params, cache, tok, pos, cfg, ctx)
+        if pos + 1 < prompt_len:
+            tok = out[:, pos + 1: pos + 2]
+        else:
+            nxt = (torch.argmax(logits, dim=-1) if sample is None
+                   else sample(logits))
+            out[:, pos + 1] = nxt.to(torch.int32)
+            tok = out[:, pos + 1: pos + 2]
+    _sync(device)
+    dt = time.perf_counter() - t0
+    return GenerateResult(out.cpu().numpy(), B * (total - 1) / dt)
 
 
 @dataclasses.dataclass

@@ -578,3 +578,76 @@ def test_dist_launches_required_on_the_card_only():
                                          True, "x")
     with pytest.raises(AssertionError, match="launched on the CPU"):
         chip_smoke.require_dist_launches(need, "dna", False, "x")
+
+
+def test_phase_lm_runs_on_the_cpu():
+    """Phase 11 (a) at its size on the CPU for two reduced configs (GQA at
+    S = 2048 through the chunked path, and MoE + MLA), no full-width part:
+    the CPU against itself agrees and no index kernel launches."""
+    rec, launches = chip_smoke.phase_lm(
+        device="cpu", archs=["qwen2p5_3b", "deepseek_v2_236b"], full=False)
+    qwen, ds = (rec["reduced_configs"][a] for a in ("qwen2p5_3b",
+                                                    "deepseek_v2_236b"))
+    assert qwen["forward_S2048_err"] == 0 and qwen["decode_err"] == 0
+    assert ds["tol"] == chip_smoke.LM_MOE_TOL and "forward_S2048_err" not in ds
+    assert qwen["generate_rows_differ"] == ds["generate_rows_differ"] == 0
+    assert set(launches.values()) == {0}
+
+
+def test_phase_lm_fails_on_a_mismatch(monkeypatch):
+    """Weights that differ on the 'card' fail the phase."""
+    carry = chip_smoke.on_device
+
+    def skewed(params, device):
+        out = carry(params, device)
+        out["lm_head"] = out["lm_head"] * 1.01
+        return out
+
+    monkeypatch.setattr(chip_smoke, "on_device", skewed)
+    with pytest.raises(AssertionError, match="differs from the CPU"):
+        chip_smoke.phase_lm(device="cpu", archs=["minitron_4b"], full=False)
+
+
+def test_generated_tokens_may_differ_only_at_a_tie():
+    import numpy as np
+
+    want = np.array([[1, 2, 3, 4]], np.int32)
+    logits = torch.zeros(1, 3, 8)
+    logits[0, 1, 3] = 1.0          # step 1 -> token 3, a clear winner
+    logits[0, 2, 4] = logits[0, 2, 5] = 1.0   # step 2: a tie of 4 and 5
+    got = want.copy()
+    got[0, 3] = 5
+    assert chip_smoke.tokens_agree(got, want, logits, 1, 1e-4, "t") == 1
+    got[0, 2:] = [6, 7]
+    with pytest.raises(AssertionError, match="top-2"):
+        chip_smoke.tokens_agree(got, want, logits, 1, 1e-4, "t")
+
+
+def test_single_query_parity_runs_on_the_cpu():
+    from repro_torch.core.pipeline import build_index
+    from repro_torch.data.corpus import corpus
+
+    toks = corpus("proteins", 1 << 13)
+    index = build_index(toks, device="cpu")
+    rec, launches = chip_smoke.api_parity(toks, index, index)
+    assert rec["rank_kernel"] == "rank_select" and rec["rpgi_n"] == 4097
+    assert set(launches.values()) == {0}
+
+
+@pytest.mark.parametrize("arch,layers,check", [("minitron_4b", None, 8),
+                                               ("deepseek_v2_236b", 2, 0),
+                                               ("mamba2_1p3b", None, 0)])
+def test_lm_full_part_runs_on_the_cpu(monkeypatch, arch, layers, check):
+    """A full-width part's logic at a reduced width on the CPU: bf16
+    weights, generate, the timed forward and decode against forward."""
+    from repro_torch.configs import base
+
+    monkeypatch.setattr(base, "get_config", base.get_reduced_config)
+    rec = chip_smoke.lm_full(arch, arch, layers, (2, 8, 4), (1, 16), check,
+                             "cpu")
+    assert rec["generate"]["steps"] == 11 and rec["generate"]["new"] == 4
+    assert rec["forward"]["seq"] == 16
+    assert ("reduced" in rec) == (layers is not None)
+    assert ("capacity" in rec["forward"]) == (arch == "deepseek_v2_236b")
+    if check:
+        assert rec["decode_vs_forward"]["positions"] == check
