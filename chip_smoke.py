@@ -156,6 +156,32 @@ script exits nonzero and prints no final result:
      width cut to 3 layers (the dense layer and two MLA + MoE layers of 160
      experts): generate at B = 8 with 16 + 16 tokens, forward at B = 4,
      S = 1024 (capacity 192).  Each part frees its weights before the next
+ 12  LM training (training/*, launch/train.py; float32 matmuls at "highest"
+     precision and cuDNN TF32 off, both printed): (a) each of the ten
+     reduced configs: one make_train_step on the card against the CPU
+     from the same float32 state (made on the CPU from a seeded generator):
+     loss, grad_norm, lr and every updated leaf of params / m / v within
+     1e-4 of 1 + |x| (MoE 1e-3), and the loss under remat "full", "dots"
+     and "none"; (b) test_bitwise_resume's scenario on the card (reduced
+     qwen2p5_3b, vocab 128: 12 steps against 6 and a resume to 12), and
+     the same for reduced deepseek_v2_236b, through ``train`` (which runs
+     with deterministic algorithms; the losses must be equal), and steps
+     repeated from one state with deterministic algorithms on (equal) and
+     off (reported); (c)
+     examples/train_lm.py's pipeline at full width: the english corpus at
+     2^22 tokens indexed on the card and screened by
+     duplicate_window_mask (window 64, stride 256), then qwen2p5_3b at full
+     width and depth (3.40 B params, float32 params, grads and AdamW
+     moments) trained on the screened stream through ``train``: B = 2, S =
+     1024, remat "full", 6 steps: s a step, tokens/s and peak memory beside
+     the float32 bound, a profiled step, deterministic algorithms on
+     against off in turns, and one step under remat "dots" with its peak;
+     (d) mamba2_1p3b at full width with int8 gradient compression, B = 2,
+     S = 2048, 3 steps, the same report; (e) ``python -m
+     repro_torch.launch.train --arch qwen2p5_3b --steps 10 --ckpt-dir``,
+     then the same with --resume from a copy of its checkpoints cut back
+     to step 6: the same final loss and the same step-10 arrays bit for
+     bit
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore, each merge of phase 7, each catalog
@@ -163,9 +189,10 @@ of phase 8: its appends and its serving, each frontend scenario of phase
 9, its launcher call and its dedup, each distributed build of phase 10
 with its two served batches, summed over a world's ranks, and each
 restore of phase 10 with its two batches, phase 4's single-query calls
-per corpus, and phase 11) and read just after it.  Then a ``kernels`` line (launches on the main paths of phases
-2-3 and 7-10 and on each path, parity error, times and bounds), the
-card's
+per corpus, phase 11, and phase 12's screen, its reduced parts and its
+full-width runs) and read just after it.  Then a ``kernels`` line
+(launches on the main paths of phases 2-3, 7-10 and phase 12's screen,
+and on each path, parity error, times and bounds), the card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
 kernel time under its bound (bytes over the card's HBM peak; for the
 merge walks their dependent loads' latency) fails the run as a broken
@@ -4321,6 +4348,504 @@ def phase_lm(device="cuda", archs=None, full: bool = True) -> tuple:
     return rec, launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: LM training
+# --------------------------------------------------------------------------
+
+# test_checkpoint.py's bitwise-resume optimizer; the reduced steps' batch
+TRAIN_ADAMW = dict(lr=1e-3, warmup_steps=2, total_steps=12)
+TRAIN_B, TRAIN_S = 2, 16
+REMAT = ("full", "dots", "none")
+FP32_PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+# the repeated-step probes of (b): reduced configs and their changes (the
+# full deepseek_v2_236b routes each token to 6 experts, the reduced to 2)
+TRAIN_REPEAT = (("qwen2p5_3b", {}), ("deepseek_v2_236b", {}),
+                ("deepseek_v2_236b", {"top_k": 6}))
+# the full-width parts: (config id, batch, seq, steps, compress_grads, a
+# "dots" step)
+TRAIN_FULL = (("qwen2p5_3b", 2, 1024, 6, False, True),
+              ("mamba2_1p3b", 2, 2048, 3, True, False))
+# the screen: the english corpus at 2^22 tokens with a copy of its first
+# 2^18 planted at its end (the corpus has no repeated 64-token window of
+# its own), examples/train_lm.py's window, stride and sample rate
+TRAIN_SCREEN = dict(log2n=22, plant_log2n=18, window=64, stride=256,
+                    sample_rate=64)
+
+
+@contextlib.contextmanager
+def algorithms(deterministic: bool):
+    """``torch.use_deterministic_algorithms(deterministic)`` for the block,
+    the earlier setting back after it (main sets the cuBLAS workspace the
+    deterministic mode needs before any CUDA work)."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def copy_to(tree, device):
+    """A copy of a tensor tree on ``device`` (a copy on its own device
+    too: the train step writes its state in place)."""
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def state_leaves(state) -> list:
+    """(name, tensor) of a train state's params, m and v."""
+    from repro_torch.models.common import tree_leaves
+
+    return [(f"{part}[{i}]", t)
+            for part, tree in (("params", state["params"]),
+                               ("m", state["opt"]["m"]),
+                               ("v", state["opt"]["v"]))
+            for i, t in enumerate(tree_leaves(tree))]
+
+
+def train_parity(arch: str, device) -> dict:
+    """One make_train_step of a reduced config on ``device`` against the
+    CPU from the same float32 state (made on the CPU from a seeded
+    generator, carried over): loss, grad_norm, lr and every updated leaf
+    of params / m / v under remat "full"; the loss (and the state) under
+    "dots" and "none", with deterministic algorithms, as ``train`` runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data.corpus import corpus
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.sharding import single_device_context
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = get_reduced_config(arch)
+    tol = LM_MOE_TOL if cfg.num_experts else LM_TOL
+    ctx = single_device_context()
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_ADAMW))
+    init = init_train_state(cfg, torch.Generator().manual_seed(0), tcfg,
+                            torch.float32, "cpu")
+    toks = corpus("english", 1 << 12) % (cfg.vocab_size - 1) + 1
+    batch = {k: torch.from_numpy(v) for k, v in TokenLoader(
+        toks, LoaderConfig(TRAIN_B, TRAIN_S, seed=3)).batch(0).items()}
+    want_state, want = make_train_step(cfg, ctx, tcfg)(copy_to(init, "cpu"),
+                                                       batch)
+    rec = {"tol": tol}
+    on_card = {}
+    for policy in REMAT:
+        step = make_train_step(cfg, ctx, dataclasses.replace(
+            tcfg, remat_policy=policy))
+        with algorithms(True):
+            state, got = step(copy_to(init, device),
+                              {k: v.to(device) for k, v in batch.items()})
+        on_card[policy] = state
+        rec[f"loss_err_{policy}"] = require_close(
+            got["loss"], want["loss"], tol,
+            f"phase 12 {arch} loss (remat {policy})")
+        if policy != "full":
+            continue
+        for k in ("grad_norm", "lr"):
+            rec[f"{k}_err"] = require_close(got[k], want[k], tol,
+                                            f"phase 12 {arch} {k}")
+        rec["state_err"] = max(
+            require_close(a, b, tol, f"phase 12 {arch} {name}")
+            for (name, a), (_, b) in zip(state_leaves(state),
+                                         state_leaves(want_state)))
+    rec["remat_states_equal"] = all(
+        all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            state_leaves(on_card["full"]), state_leaves(on_card[p])))
+        for p in REMAT[1:])
+    return rec
+
+
+def resume_run(arch: str, device, workdir) -> dict:
+    """test_bitwise_resume's scenario on ``device``: 12 steps, and 6 steps
+    resumed to 12 from their checkpoint; whether the resumed losses equal
+    the uninterrupted run's bit for bit, and the steps' seconds."""
+    import torch
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data.corpus import corpus
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.sharding import single_device_context
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+
+    cfg = get_reduced_config(arch).replace(vocab_size=128)
+    loader = TokenLoader(corpus("english", 8000) % 128,
+                         LoaderConfig(2, 16, seed=3))
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_ADAMW), checkpoint_every=3,
+                       log_every=0)
+    ctx = single_device_context()
+    tag = arch
+    run = dict(seed=7, log=lambda *_: None, device=device)
+    full, full_s = timed(lambda: train(
+        cfg, ctx, tcfg, loader, 12, ckpt_dir=str(workdir / f"{tag}_a"),
+        **run), device)
+    part = train(cfg, ctx, tcfg, loader, 6,
+                 ckpt_dir=str(workdir / f"{tag}_b"), **run)
+    resumed = train(cfg, ctx, tcfg, loader, 12,
+                    ckpt_dir=str(workdir / f"{tag}_b"), resume=True, **run)
+    want = torch.tensor(full["losses"])
+    got = torch.tensor(part["losses"] + resumed["losses"])
+    return {"bitwise": bool(torch.equal(got, want)),
+            "max_loss_diff": float((got - want).abs().max()),
+            "losses": full["losses"], "s_per_step": full_s / 12}
+
+
+def matmul_params(spec_tree) -> int:
+    """Params of the weight matrices in a spec tree: the drawn leaves
+    ("normal" / "small") but the embedding table (a gather) and the
+    depthwise conv taps; norms, biases and the SSM scalars are not."""
+    import numpy as np
+
+    if isinstance(spec_tree, dict):
+        return sum(matmul_params(v) for k, v in spec_tree.items()
+                   if k not in ("embed", "conv_w"))
+    if isinstance(spec_tree, list):
+        return sum(matmul_params(v) for v in spec_tree)
+    return (int(np.prod(spec_tree.shape))
+            if spec_tree.init in ("normal", "small") else 0)
+
+
+def repeat_step(arch: str, device, deterministic: bool, batch: int = 8,
+                seq: int = 256, **replace) -> dict:
+    """One make_train_step of a reduced config (fields ``replace``d) run
+    twice from the same state on ``device``, with deterministic algorithms
+    on or off: whether the two updated states are equal bit for bit, and
+    the largest difference."""
+    import torch
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data.corpus import corpus
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.sharding import single_device_context
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = get_reduced_config(arch).replace(**replace)
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_ADAMW))
+    init = init_train_state(cfg, torch.Generator().manual_seed(0), tcfg,
+                            torch.float32, "cpu")
+    toks = corpus("english", 1 << 16) % (cfg.vocab_size - 1) + 1
+    data = {k: torch.from_numpy(v).to(device) for k, v in TokenLoader(
+        toks, LoaderConfig(batch, seq, seed=5)).batch(0).items()}
+    step = make_train_step(cfg, single_device_context(), tcfg)
+    with algorithms(deterministic):
+        a, b = (step(copy_to(init, device), data)[0] for _ in range(2))
+    diffs = [float((x - y).abs().max()) for (_, x), (_, y) in zip(
+        state_leaves(a), state_leaves(b))]
+    return {"bitwise": max(diffs) == 0, "max_diff": max(diffs),
+            "tokens": batch * seq}
+
+
+def train_flops(cfg, batch: int, seq: int) -> int:
+    """Matmul operations of one training step under remat "full" (dense
+    or SSM configs): 6 N T over the weight matrices; the stacked groups'
+    forward again, but for each group's last product, whose output the
+    backward does not need (the recompute stops before it); and the
+    sequence mixer's own products at four times their forward (the
+    forward, twice that in the backward, the recompute): attention's two
+    S x S products as the port computes them (the whole square, masked
+    after), or the SSD chunks' four contractions."""
+    from repro_torch.models import transformer as tf
+
+    require(cfg.num_experts == 0, "train_flops counts dense and SSM configs")
+    specs = tf.model_specs(cfg)
+    last = specs["blocks"][f"s{len(tf.layer_pattern(cfg)) - 1}"]
+    last = last["mixer"]["out_proj"] if cfg.family == "ssm" else \
+        last["ffn"]["w_down"]
+    T = batch * seq
+    if cfg.family == "ssm":
+        b, l, h = batch, cfg.ssd_chunk, cfg.d_inner // cfg.ssm_headdim
+        c, n, p = seq // l, cfg.ssm_state, cfg.ssm_headdim
+        mixer = 2 * b * c * h * l * l * (n + p) + 4 * b * c * l * h * n * p
+    else:
+        mixer = 4 * batch * cfg.num_heads * seq * seq * cfg.head_dim
+    recompute = matmul_params(specs["blocks"]) - matmul_params(last)
+    return (6 * matmul_params(specs) * T + 2 * recompute * T
+            + 4 * cfg.num_layers * mixer)
+
+
+def screen(toks, device, window: int, stride: int,
+           sample_rate: int) -> tuple:
+    """examples/train_lm.py's dedup stage over all of ``toks``: the index
+    built on ``device``, duplicate_window_mask; (mask, record, launches)."""
+    from repro_torch.data.dedup import (
+        build_corpus_index,
+        duplicate_window_mask,
+    )
+
+    _counts_reset()
+    t0 = time.perf_counter()
+    index, build_s = timed(lambda: build_corpus_index(
+        toks, device=device, sample_rate=sample_rate), device)
+    mask = duplicate_window_mask(index, toks, window=window, stride=stride)
+    _sync(device)
+    dedup_s = time.perf_counter() - t0
+    launches, _ = _counts()
+    del index
+    return mask, {"tokens": len(toks), "window": window, "stride": stride,
+                  "windows": len(range(0, len(toks) - window, stride)),
+                  "build_s": build_s, "dedup_s": dedup_s,
+                  "drop_share": float(mask.mean()),
+                  "dropped_tokens": int(mask.sum())}, launches
+
+
+def train_full(arch: str, cfg, raw, screened, mask, batch: int, seq: int,
+               steps: int, compress: bool, dots: bool, device) -> dict:
+    """``steps`` steps of ``cfg`` through ``train`` (remat "full", no
+    checkpoint) on the screened stream (``screened``, the corpus ``raw``
+    mapped into the vocabulary, with its dedup ``mask``): s a step,
+    tokens/s and peak memory beside the float32 bound; then one profiled
+    step, two steps with deterministic algorithms off against two with
+    them on (in turns), and with ``dots`` two steps under remat "dots",
+    their peak and a profiled third."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import single_device_context
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        make_train_step,
+        train,
+    )
+
+    ctx = single_device_context()
+    require(bool(np.array_equal(raw % (cfg.vocab_size - 1) + 1, screened)),
+            f"phase 12 {arch}: the token map differs from the screened one")
+    loader = TokenLoader(screened, LoaderConfig(batch, seq, seed=0),
+                         drop_mask=mask)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                       total_steps=steps),
+                       remat_policy="full", compress_grads=compress,
+                       checkpoint_every=0, log_every=1)
+    mem = DeviceMemory(device)
+    mem.reset_peak()
+    stamps = []
+    t0 = time.perf_counter()
+    res = train(cfg, ctx, tcfg, loader, steps, seed=0, device=device,
+                log=lambda line: stamps.append(time.perf_counter()))
+    losses = res["losses"]
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"phase 12 {arch}: losses {losses}")
+    step_s = list(np.diff(stamps))
+    s = float(np.median(step_s))
+    flop = train_flops(cfg, batch, seq)
+    rec = {"params": tf.count_params(cfg), "batch": batch, "seq": seq,
+           "steps": steps, "compress_grads": compress, "losses": losses,
+           "init_and_first_step_s": stamps[0] - t0, "step_s": step_s,
+           "s_per_step": s, "tokens_per_s": batch * seq / s,
+           "peak_gib": mem.peak_gib(), "flop_per_step": flop,
+           "bound_s": flop / FP32_PEAK_FLOPS,
+           "bound_share": flop / FP32_PEAK_FLOPS / s}
+    state = res["state"]
+    del res
+    step = make_train_step(cfg, ctx, tcfg)
+    data = {k: torch.as_tensor(v, device=device)
+            for k, v in loader.batch(steps).items()}
+    if mem.cuda:
+        with algorithms(True):
+            prof = profiled(lambda: step(state, data))
+        rec["profile"] = {k: prof[k] for k in ("wall_s", "device_s",
+                                               "device_busy_share",
+                                               "device_launches", "top")}
+    turns = {"deterministic": [], "nondeterministic": []}
+    for name in ("deterministic", "nondeterministic", "nondeterministic",
+                 "deterministic"):
+        with algorithms(name == "deterministic"):
+            _, sec = timed(lambda: step(state, data), device)
+        turns[name].append(sec)
+    rec["determinism_s"] = turns
+    if dots:
+        step = make_train_step(cfg, ctx, dataclasses.replace(
+            tcfg, remat_policy="dots"))
+        mem.reset_peak()
+        with algorithms(True):
+            secs = [timed(lambda: step(state, data), device)[1]
+                    for _ in range(2)]
+        rec["dots"] = {"step_s": secs, "peak_gib": mem.peak_gib()}
+        if mem.cuda:
+            with algorithms(True):
+                prof = profiled(lambda: step(state, data))
+            rec["dots"]["profile"] = {k: prof[k] for k in (
+                "wall_s", "device_s", "device_busy_share",
+                "device_launches")}
+    rec["steps_taken"] = int(state["opt"]["count"])
+    del state
+    mem.reset_peak()
+    return rec
+
+
+def launcher_resume(device, steps: int = 10, cut: int = 6) -> dict:
+    """``python -m repro_torch.launch.train --arch qwen2p5_3b --steps 10
+    --ckpt-dir <a>`` (reduced), then the same with ``--resume`` and a
+    directory that holds only <a>'s step-``cut`` checkpoint (as a run
+    stopped after that step leaves it): the resumed run continues from
+    ``cut``, prints the same final loss, and its step-10 checkpoint holds
+    <a>'s arrays bit for bit."""
+    import numpy as np
+
+    from repro_torch.training.checkpoint import Checkpointer
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_",
+                                 dir=ROOT / "build"))
+    dirs = {"first": work / "first", "resume": work / "resume"}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    rec = {}
+    try:
+        for name, extra in (("first", []), ("resume", ["--resume"])):
+            if name == "resume":
+                step_dir = f"step_{cut:08d}"
+                shutil.copytree(dirs["first"] / step_dir,
+                                dirs["resume"] / step_dir)
+            argv = [sys.executable, "-m", "repro_torch.launch.train",
+                    "--arch", "qwen2p5_3b", "--steps", str(steps),
+                    "--ckpt-dir", str(dirs[name]), "--device", str(device),
+                    *extra]
+            t0 = time.perf_counter()
+            out = subprocess.run(argv, capture_output=True, text=True,
+                                 env=env, cwd=ROOT, timeout=600)
+            require(out.returncode == 0, f"phase 12 launcher {name}: exit "
+                    f"{out.returncode}: {out.stderr[-2000:]}")
+            lines = out.stdout.splitlines()
+            final = [ln for ln in lines if ln.startswith("final loss ")]
+            require(len(final) == 1, f"phase 12 launcher {name}: "
+                    f"{out.stdout[-2000:]}")
+            rec[name] = {"final": final[0], "s": time.perf_counter() - t0,
+                         "resumed": [ln for ln in lines
+                                     if ln.startswith("resumed at step")]}
+        require(rec["resume"]["resumed"] == [f"resumed at step {cut}"],
+                f"phase 12 launcher: {rec['resume']['resumed']}")
+        a, b = (Checkpointer(str(d)).restore_raw(steps)[0]
+                for d in dirs.values())
+        rec["final_arrays_equal"] = a.keys() == b.keys() and all(
+            np.array_equal(a[k], b[k]) for k in a)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(rec["first"]["final"] == rec["resume"]["final"],
+            f"phase 12 launcher: {rec['first']['final']} then "
+            f"{rec['resume']['final']} after --resume")
+    require(rec["final_arrays_equal"], "phase 12 launcher: the resumed "
+            "run's step-10 state differs from the uninterrupted run's")
+    return rec
+
+
+def phase_train(device="cuda", archs=None, full=True,
+                resume_archs=("qwen2p5_3b", "deepseek_v2_236b"),
+                repeat_probes=TRAIN_REPEAT, full_parts=TRAIN_FULL,
+                screen_args=TRAIN_SCREEN, config_of=None,
+                launcher=True) -> tuple:
+    """Phase 12: (a) each reduced config's train step on ``device``
+    against the CPU (``archs``: all ten), (b) bitwise resume, (c) the
+    dedup-screened full-width run, (d) the compressed full-width SSM run
+    (``full_parts``, configs from ``config_of``: ``get_config``), (e) the
+    launcher's --resume.  Returns (record, launches by path): the
+    screen's index kernels, none in training."""
+    import torch
+
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.data.corpus import corpus
+
+    archs = archs or [a for a in ARCH_IDS if a != "bwt_index"]
+    config_of = config_of or get_config
+    precision = torch.get_float32_matmul_precision()
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rec = {"float32_matmul_precision": torch.get_float32_matmul_precision(),
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    launches = {}
+    try:
+        _counts_reset()
+        rec["reduced_configs"] = {a: train_parity(a, device) for a in archs}
+        (ROOT / "build").mkdir(exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_",
+                                     dir=ROOT / "build"))
+        try:
+            rec["resume"] = {}
+            for arch in resume_archs:
+                run = resume_run(arch, device, work)
+                require(run["bitwise"], f"phase 12 {arch}: the resumed "
+                        f"losses differ from the uninterrupted run by "
+                        f"{run['max_loss_diff']}")
+                rec["resume"][arch] = run
+            # a step repeated from one state at 2048 tokens: the MoE
+            # dispatch adds top_k slots into each token, and three or more
+            # addends make the order of index_add_'s atomics show
+            rec["repeat"] = {}
+            for arch, extra in repeat_probes:
+                name = "_".join([arch, *(f"{k}{v}" for k, v in extra.items())])
+                runs = {det: repeat_step(arch, device, det, **extra)
+                        for det in (True, False)}
+                require(runs[True]["bitwise"], f"phase 12 {name}: a repeated "
+                        f"step differs by {runs[True]['max_diff']}")
+                rec["repeat"][name] = {"deterministic": runs[True],
+                                       "nondeterministic": runs[False]}
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        launches["lm_training"], _ = _counts()
+        rec["reduced_s"] = time.perf_counter() - t0
+        if full:
+            raw = corpus("english", 1 << screen_args["log2n"])
+            plant = 1 << screen_args["plant_log2n"]
+            raw[-plant:] = raw[:plant]
+            first = config_of(full_parts[0][0])
+            screened = raw % (first.vocab_size - 1) + 1
+            mask, rec["screen"], launches["train_screen"] = screen(
+                screened, device, screen_args["window"],
+                screen_args["stride"], screen_args["sample_rate"])
+            # every window inside either copy occurs twice
+            inner = plant - screen_args["window"] - screen_args["stride"]
+            copies = (bool(mask[:inner].all()),
+                      bool(mask[len(raw) - plant + screen_args["stride"]:
+                                len(raw) - screen_args["window"]
+                                - screen_args["stride"]].all()))
+            rec["screen"].update(planted_tokens=plant, copies_flagged=copies,
+                                 outside_share=float(mask[plant:len(raw)
+                                                          - plant].mean()))
+            require(all(copies), f"phase 12: the planted copies are not "
+                    f"flagged: {copies}")
+            _counts_reset()
+            for arch, b, s, steps, compress, dots in full_parts:
+                t1 = time.perf_counter()
+                rec[arch] = train_full(arch, config_of(arch), raw, screened,
+                                       mask, b, s, steps, compress, dots,
+                                       device)
+                rec[arch]["part_s"] = time.perf_counter() - t1
+            launches["lm_training_full"], _ = _counts()
+        if launcher:
+            rec["launcher"] = launcher_resume(device)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    for path in ("lm_training", "lm_training_full"):
+        require(sum(launches.get(path, {}).values()) == 0,
+                f"phase 12 launched index kernels on {path}: "
+                f"{launches[path]}")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec, launches
+
+
 # the function of the JAX package each kernel replaces (file:line of the
 # function that reaches pl.pallas_call)
 REPLACES = {
@@ -4368,7 +4893,7 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -4385,6 +4910,11 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.training.train_loop import CUBLAS_WORKSPACE
+
+    # phase 12's deterministic algorithms need a fixed cuBLAS workspace,
+    # which cuBLAS reads at the process's first matmul
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4582,6 +5112,17 @@ def main(argv=None) -> int:
     if 11 in phases:
         rec, path_launches["lm_serving"] = phase_lm()
         emit({"phase": 11, **rec})
+
+    if 12 in phases:
+        rec, launches = phase_train()
+        screened = launches["train_screen"]
+        require(screened["fm_query_packed"] + screened["fm_query_unpacked"]
+                > 0, "phase 12: the screen launched no query kernel")
+        for path, counts in launches.items():
+            path_launches[path] = counts
+        for name, v in screened.items():
+            main_launches[name] += v
+        emit({"phase": 12, **rec})
 
     if {1, 2, 3, 7, 8} <= phases:
         for name in _build.KERNELS:

@@ -32,13 +32,16 @@ class ParamSpec:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
-def tree_map(fn, tree):
-    """``fn`` over the leaves of a tree of dicts and lists."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a tree of dicts and lists (and the leaves
+    at the same places of the ``rest`` trees)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -136,9 +139,12 @@ def apply_rope(x, positions, theta: float = 10000.0):
 def cross_entropy_loss(logits, labels, mask=None):
     """Mean negative log-likelihood over unmasked positions (float32):
     logits (B, S, V) any float dtype, labels (B, S) int.  The label logit
-    is selected by an index comparison, never a float one-hot."""
+    is selected by an index comparison, never a float one-hot.  The max
+    shift takes no gradient (the reference's ``stop_gradient``): its terms
+    cancel exactly, and ``amax``'s backward would split rounding noise
+    among tied maxima."""
     logits = logits.float()
-    vmax = torch.amax(logits, dim=-1, keepdim=True)
+    vmax = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = logits - vmax
     logsumexp = torch.log(torch.sum(torch.exp(shifted), dim=-1))
     vocab = torch.arange(logits.shape[-1], device=logits.device)

@@ -1,4 +1,5 @@
-"""Carry an LM param tree across packages as numpy arrays.
+"""Carry an LM param tree, or a train state, across packages as numpy
+arrays.
 
 The JAX package's ``init_model`` tree (dicts, the ``prefix`` / ``suffix``
 lists, the stacked ``blocks/s{i}`` groups) and this package's have the same
@@ -25,18 +26,24 @@ def _leaf_to_tensor(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device=None):
-    """A param tree of numpy arrays (e.g. the JAX package's params through
-    ``np.asarray``) as tensors on ``device`` (the card unless the CPU is
-    asked for), dtypes kept."""
+    """A tree of numpy arrays (the JAX package's params or train state
+    through ``np.asarray``) as tensors on ``device`` (the card unless the
+    CPU is asked for), leaf by leaf, dtypes kept."""
     device = resolve_device(device)
     return tree_map(lambda a: _leaf_to_tensor(a, device), tree)
 
 
 def params_to_numpy(params):
-    """A param tree of tensors as numpy arrays on the host (bfloat16 as
-    float32)."""
+    """A tree of tensors (params or a train state) as numpy arrays on the
+    host (bfloat16 as float32, as the reference's checkpoints store it)."""
     def leaf(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return tree_map(leaf, params)
+
+
+# a train state {params, opt: {m, v, count}, err?} crosses packages as any
+# tree does
+train_state_from_numpy = params_from_numpy
+train_state_to_numpy = params_to_numpy

@@ -11,16 +11,24 @@ stacks 3-layer groups.
 
 ``forward`` and ``decode_step`` are functions of a dict of tensors, the
 tree the JAX package's functions take (``models/convert.py`` carries one
-across).  ``LM`` wraps the same tensors as an ``nn.Module``.
+across).  ``LM`` wraps the same tensors as an ``nn.Module``.  ``loss_fn``
+is differentiable: ``training/train_loop.py`` takes its gradient with
+autograd, each stacked group rematerialised as ``remat_policy`` says.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ArchConfig
 from ..devices import resolve_device
@@ -211,6 +219,53 @@ def _group(tree, g: int):
     return tree_map(lambda t: t[g], tree)
 
 
+def _groups(tree, groups: int) -> list:
+    """Every group of a stacked tree, from one ``unbind`` per leaf: its
+    backward stacks the groups' gradients once, where a ``t[g]`` per group
+    would add a zero-padded stack-sized gradient per group."""
+    if not groups:
+        return []
+    parts = tree_map(lambda t: t.unbind(0), tree)     # leaves: tuples
+    return [tree_map(lambda p, g=g: p[g], parts) for g in range(groups)]
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("full", "dots", "none")
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The selective-checkpoint counterpart of the reference's
+    ``dots_with_no_batch_dims_saveable``: keep the products with no batch
+    dimension (``mm`` / ``addmm``, and the ``bmm`` of batch 1 that
+    ``torch.einsum`` makes of a ``bsd,dh`` weight product), recompute the
+    rest, attention's batched ``bmm`` included.  (A batched contraction
+    whose batch dims multiply to 1, e.g. attention at B = 1 over one KV
+    head, is kept too: the memory differs, never the values.)"""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, policy: str):
+    """``body`` (x, group params) -> x under ``policy``: "full" keeps only
+    each group's input and recomputes its pass in the backward (the
+    reference's ``jax.checkpoint`` of the scan body), "dots" keeps the
+    weight products too, "none" keeps everything."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} not in {REMAT_POLICIES}")
+    if policy == "none" or not torch.is_grad_enabled():
+        return body
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products)
+    return functools.partial(checkpoint, body, use_reentrant=False, **kw)
+
+
 # ---------------------------------------------------------------------------
 # forward / loss
 # ---------------------------------------------------------------------------
@@ -221,8 +276,10 @@ def forward(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
     """Logits for a full sequence.  batch: {'tokens' (B,S)} or
     {'embeds' (B,S,d)} for stub-frontend archs.
 
-    ``remat_policy`` and ``scan_unroll`` are the reference's signature; they
-    shape training and the dry-run's compiles and change nothing here."""
+    ``remat_policy`` ("full", "dots" or "none") rematerialises each stacked
+    group's pass when a gradient is taken (``_remat``); with grad mode off
+    it changes nothing.  ``scan_unroll`` is the reference's signature and
+    does nothing: the Python loop over the groups is already unrolled."""
     if cfg.frontend != "none" and "embeds" in batch:
         x = batch["embeds"]
     else:
@@ -235,10 +292,14 @@ def forward(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
     for p_layer, kind in zip(params["prefix"], prefix_kinds):
         x = _apply_layer(kind, p_layer, x, cfg, ctx, moe=False)
 
-    for g in range(groups):
-        group_params = _group(params["blocks"], g)
+    def body(x, group_params):
         for i, kind in enumerate(pat):
             x = _apply_layer(kind, group_params[f"s{i}"], x, cfg, ctx, moe=moe)
+        return x
+
+    body = _remat(body, remat_policy)
+    for group_params in _groups(params["blocks"], groups):
+        x = body(x, group_params)
 
     for p_layer, kind in zip(params["suffix"], suffix_kinds):
         x = _apply_layer(kind, p_layer, x, cfg, ctx, moe=moe)
@@ -252,8 +313,8 @@ def forward(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
 
 def loss_fn(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
             remat_policy: str = "full", scan_unroll: int | bool = 1):
-    """Mean next-token loss over labels != LABEL_PAD (the value; its
-    gradient belongs to training)."""
+    """Mean next-token loss over labels != LABEL_PAD (float32);
+    differentiable, with ``forward``'s ``remat_policy``."""
     logits = forward(params, batch, cfg, ctx, remat_policy=remat_policy,
                      scan_unroll=scan_unroll)
     labels = batch["labels"]
@@ -359,7 +420,9 @@ class LM(nn.Module):
     """An LM of config ``cfg`` over a param tree (``params``, or random
     weights from ``generator``).  The parameters are the tree's tensors
     (no copy); ``forward`` / ``decode_step`` call the module functions
-    above on ``params()``.  Serving only: the parameters take no gradient."""
+    above on ``params()``.  The parameters take no gradient here: training
+    runs on the param tree itself (``training/train_loop.py``
+    ``make_train_step`` / ``train``, ``launch/train.py``)."""
 
     def __init__(self, cfg: ArchConfig, params: dict | None = None, *,
                  generator: torch.Generator | None = None,

@@ -46,23 +46,28 @@ from ..testing.faultinject import fault_point
 _SEP = "/"
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf, copy: bool = False) -> np.ndarray:
+    """``leaf`` as a host array; with ``copy`` always a copy of its own
+    (a CPU tensor's ``.cpu()`` is the live storage, which an in-place
+    update would go on writing)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach().to("cpu", copy=copy)
         if t.dtype == torch.bfloat16:
             t = t.float()        # npz-safe, as the reference stores bf16
         return t.numpy()
-    arr = np.asarray(leaf)
+    arr = np.array(leaf, copy=True) if copy else np.asarray(leaf)
     if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
         arr = arr.astype(np.float32)
     return arr
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "",
+             copy: bool = False) -> dict[str, np.ndarray]:
     """Leaves of nested dicts / lists / tuples of tensors or arrays, keyed
     by their path joined with ``/`` (dict keys in sorted order, sequence
     indices as numbers, ``None`` leaves dropped): the keys the reference's
-    ``jax.tree_util`` flattening gives the same structure."""
+    ``jax.tree_util`` flattening gives the same structure.  ``copy``: each
+    leaf copied (``_host``)."""
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (list, tuple)):
@@ -70,11 +75,11 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     elif tree is None:
         return {}
     else:
-        return {prefix: _host(tree)}
+        return {prefix: _host(tree, copy)}
     flat = {}
     for key, value in items:
         flat.update(_flatten(value, f"{prefix}{_SEP}{key}" if prefix
-                             else key))
+                             else key, copy))
     return flat
 
 
@@ -146,7 +151,9 @@ class Checkpointer:
     def save_async(self, step: int, tree, extra: dict[str, Any] | None = None):
         """Snapshot now (host copy), write in the background."""
         self.wait()
-        flat = _flatten(tree)  # the device-to-host copy is the snapshot
+        # the snapshot: a copy of every leaf, CPU tensors included, so
+        # that the caller may update the tree in place while it is written
+        flat = _flatten(tree, copy=True)
         self._thread = threading.Thread(
             target=self._write, args=(step, flat, extra or {}), daemon=True
         )

@@ -32,6 +32,18 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import merge_walk as mw
 from repro_torch.testing import faultinject as fi
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the shapes here are small, and torch's thread
+    pool only adds synchronisation, which turns into many times the work
+    when the host's cores are shared with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # name -> (docs maker, declared sigma, r, SA stride, pack): 2-bit (sigma 2
 # at r = 32), 4-bit (sigma 4, dna), unpacked (sigma 16 and 17 reserve the
 # pad slot past 16; proteins, english; sigma 4 forced unpacked)

@@ -14,6 +14,18 @@ import pytest
 import torch
 from torch.autograd import DeviceType
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the shapes here are small, and torch's thread
+    pool only adds synchronisation, which turns into many times the work
+    when the host's cores are shared with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _ROOT = Path(__file__).resolve().parents[1]
 _SPEC = importlib.util.spec_from_file_location("chip_smoke",
                                                _ROOT / "chip_smoke.py")

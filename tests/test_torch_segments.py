@@ -21,6 +21,18 @@ from repro_torch.core.segments import DistSAConfig
 from repro_torch.core.segments import SegmentedIndex as TSeg
 from repro_torch.serving.engine import FMQueryServer as TServer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the shapes here are small, and torch's thread
+    pool only adds synchronisation, which turns into many times the work
+    when the host's cores are shared with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SIGMA = 7  # tokens 1..6
 CHUNKS = (300, 150, 75, 512)
 KW = dict(sample_rate=16, sa_sample_rate=8)

@@ -28,6 +28,18 @@ from repro_torch.data.corpus import corpus
 from repro_torch.kernels import _build
 from repro_torch.kernels import fm_query as fq
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the shapes here are small, and torch's thread
+    pool only adds synchronisation, which turns into many times the work
+    when the host's cores are shared with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SIZES = (200, 90, 57)
 SA_RATE = 4
 # name -> (declared sigma, r, documents): 2-bit rows (sigma 2 + pad at
