@@ -182,6 +182,27 @@ script exits nonzero and prints no final result:
      then the same with --resume from a copy of its checkpoints cut back
      to step 6: the same final loss and the same step-10 arrays bit for
      bit
+ 13  the launch tools (launch/{specs,roofline,dryrun,perf,report}.py):
+     (a) dryrun.main over every cell: the 40 LM cells (ten configs x
+     train_4k / prefill_32k / decode_32k / long_500k) traced on meta at
+     full width and depth in parallel processes, or skipped for the
+     reference's reason (long_500k of a full-attention config), each
+     with its argument bytes, peak temp bytes and fit against the card's
+     memory, counted FLOPs and bytes and roofline; the two bwt_index
+     cells in a one-rank NCCL world at the config's n = 2^28 on the
+     english corpus (sigma 257): build_index(tokens, mesh) with the
+     config's engine, capacity factor and rounds, and one dist_count
+     batch of 1024 x 32 substrings, each counted (the kernels' reported
+     bytes in it) and timed; (b) perf's targets: qwen2p5_3b train_4k
+     baseline and dots_remat (2 micro-batches of 2 x 4096, the full step
+     extrapolated) where their estimates fit, micro1 estimated;
+     musicgen_medium decode_32k bf16 and fp8 caches at the largest
+     power-of-two batch whose bf16 cell fits; four bwt_build variants at
+     n = 2^28; then report.main's three tables.  A cell that fails to
+     trace, a measured time under its bound (a micro-batch under its
+     FLOPs over the bf16 peak, a decode step or an index cell under its
+     bytes over 3.35 TB/s) or a measured peak more than 10% over its
+     meta estimate fails the run
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore, each merge of phase 7, each catalog
@@ -189,10 +210,11 @@ of phase 8: its appends and its serving, each frontend scenario of phase
 9, its launcher call and its dedup, each distributed build of phase 10
 with its two served batches, summed over a world's ranks, and each
 restore of phase 10 with its two batches, phase 4's single-query calls
-per corpus, phase 11, and phase 12's screen, its reduced parts and its
-full-width runs) and read just after it.  Then a ``kernels`` line
-(launches on the main paths of phases 2-3, 7-10 and phase 12's screen,
-and on each path, parity error, times and bounds), the card's
+per corpus, phase 11, phase 12's screen, its reduced parts and its
+full-width runs, and phase 13's counted index build and served batch and
+its perf bwt_build) and read just after it.  Then a ``kernels`` line
+(launches on the main paths of phases 2-3, 7-10, phase 12's screen and
+phase 13, and on each path, parity error, times and bounds), the card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
 kernel time under its bound (bytes over the card's HBM peak; for the
 merge walks their dependent loads' latency) fails the run as a broken
@@ -252,14 +274,6 @@ def time_ms(fn, reps: int) -> float:
 
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
-
-
-def sector_bytes(word_idx) -> int:
-    """Bytes of the distinct 32-byte sectors holding the int32 words at
-    flat indices ``word_idx``: what a gather of them must read from HBM."""
-    import torch
-
-    return int(torch.unique(word_idx // 8).numel()) * 32
 
 
 def require(cond: bool, what: str) -> None:
@@ -354,30 +368,19 @@ def kernel_device_ms(fn, kernel, reps: int = 20) -> float:
 
 
 def rank_packed_bytes(fused, blk, c, cut, sigma: int, bits: int) -> int:
-    """Bytes a batch of packed rank queries must move: the checkpoint of
-    c and the packed words up to each cutoff's word (their distinct
-    sectors), and four int32 words in and out per query."""
-    import torch
+    """``kernels/traffic.py`` ``rank_packed_bytes`` (the reckoning the kernel
+    wrappers report to ``launch/roofline.py`` ``count``)."""
+    from repro_torch.kernels.traffic import rank_packed_bytes
 
-    W = fused.shape[1] - sigma
-    row0 = blk.long() * (sigma + W)
-    w = torch.arange(W, device=fused.device)
-    upto = torch.clamp(cut.long() // (32 // bits), max=W - 1)
-    packed = (row0[:, None] + sigma + w)[w[None, :] <= upto[:, None]]
-    return sector_bytes(torch.cat([row0 + c.long(), packed])) + \
-        blk.numel() * 16
+    return rank_packed_bytes(fused, blk, c, cut, sigma, bits)
 
 
 def rank_select_bytes(blocks, blk, cut) -> int:
-    """Bytes a batch of unpacked in-block counts must move: the symbols
-    below each query's cut (their distinct sectors), and four int32 words
-    in and out per query."""
-    import torch
+    """``kernels/traffic.py`` ``rank_select_bytes`` (the reckoning the kernel
+    wrappers report to ``launch/roofline.py`` ``count``)."""
+    from repro_torch.kernels.traffic import rank_select_bytes
 
-    r = blocks.shape[1]
-    j = torch.arange(r, device=blocks.device)
-    read = (blk.long()[:, None] * r + j)[j[None, :] < cut.long()[:, None]]
-    return sector_bytes(read) + blk.numel() * 16
+    return rank_select_bytes(blocks, blk, cut)
 
 
 def phase_kernels(log2n_dna: int):
@@ -1259,93 +1262,11 @@ def small_index_checks() -> tuple[dict, list]:
 
 
 def query_bytes(fm, P, k: int) -> tuple[int, int]:
-    """(bytes, walk steps) of one fused query launch on patterns ``P``,
-    replayed in plain PyTorch: the 32-byte sectors of every index word the
-    queries need (a rank: its checkpoint word and the block's symbols below
-    the cut; an LF step: also the symbol at the cut; a walk step: the mark
-    word and its rank; a marked row: its value), plus the patterns, C and
-    the outputs; and the walk's dependent steps (iterations with a live
-    lane)."""
-    import torch
+    """``kernels/traffic.py`` ``query_bytes`` (the reckoning the kernel
+    wrappers report to ``launch/roofline.py`` ``count``)."""
+    from repro_torch.kernels.traffic import query_bytes
 
-    from repro_torch.kernels._bits import popcount32, u32
-    from repro_torch.kernels.fm_query import interval_step, packed_symbol
-    from repro_torch.kernels.rank_select import (
-        rank_packed_plain,
-        rank_select_plain,
-    )
-
-    dev = P.device
-    sigma, r = fm.sigma, fm.sample_rate
-    B, m = P.shape
-    words = {}
-
-    def add(array, idx):
-        words.setdefault(array, []).append(idx.long().reshape(-1))
-
-    def occ(c, p, live, symbol_too=False):
-        blk = torch.clamp(p // r, max=fm.n_blocks - 1)
-        cut = p - blk * r
-        lb, lc, lcut = blk[live].long(), c[live].long(), cut[live].long()
-        if fm.bits:
-            fpw, wid = 32 // fm.bits, fm.fused.shape[1]
-            need = lcut // fpw + 1 if symbol_too else (lcut + fpw - 1) // fpw
-            w = torch.arange(wid - sigma, device=dev)
-            add("fused", lb * wid + lc)
-            add("fused", (lb[:, None] * wid + sigma + w)[
-                w[None, :] < need[:, None]])
-            return rank_packed_plain(fm.fused, blk, c, cut, bits=fm.bits,
-                                     sigma=sigma)
-        need = lcut + 1 if symbol_too else lcut
-        j = torch.arange(r, device=dev)
-        add("occ_samples", lb * sigma + lc)
-        add("bwt", (lb[:, None] * r + j)[j[None, :] < need[:, None]])
-        return fm.occ_samples[blk.long(), c.long()] + rank_select_plain(
-            fm.bwt.view(fm.n_blocks, r), blk, c, cut)
-
-    sp = torch.zeros(B, dtype=torch.int32, device=dev)
-    ep = torch.full((B,), fm.length, dtype=torch.int32, device=dev)
-    for j in range(m - 1, -1, -1):
-        c = P[:, j].contiguous()
-        live = (c >= 1) & (c < sigma) & (ep > sp)
-        sp, ep = interval_step(c, sp, ep, sigma, lambda cs, p: (
-            fm.c_array[cs.long()] + occ(cs, p, live)))
-    walk = 0
-    if k:
-        rows = sp[:, None] + torch.arange(k, dtype=torch.int32,
-                                          device=dev)[None, :]
-        valid = (rows < ep[:, None]).reshape(-1)
-        rows = torch.where(valid, rows.reshape(-1), 0)
-        done = ~valid
-        for _ in range(fm.sa_sample_rate):
-            live = ~done
-            if not bool(live.any()):
-                break
-            walk += 1
-            w = (rows // 32).long()
-            add("sa_marks", w[live])
-            add("sa_mark_ranks", w[live])
-            word = u32(fm.sa_marks[w])
-            b = (rows % 32).to(torch.int64)
-            marked = ((word >> b) & 1).bool()
-            idx = fm.sa_mark_ranks[w].long() + popcount32(
-                word & ((torch.ones_like(b) << b) - 1))
-            hit = idx[live & marked]
-            if fm.sa_val_bits:
-                bp = hit * fm.sa_val_bits
-                add("sa_vals", torch.cat([bp // 32,
-                                          (bp + fm.sa_val_bits - 1) // 32]))
-            else:
-                add("sa_vals", hit)
-            sym = (packed_symbol(fm.fused, rows // r, rows % r, sigma=sigma,
-                                 bits=fm.bits) if fm.bits
-                   else fm.bwt[rows.long()])
-            nxt = fm.c_array[sym.long()] + occ(sym, rows, live & ~marked,
-                                               symbol_too=True)
-            done = done | marked
-            rows = torch.where(done, rows, nxt)
-    nbytes = sum(sector_bytes(torch.cat(v)) for v in words.values())
-    return nbytes + 4 * (P.numel() + sigma + 2 * B + B * k), walk
+    return query_bytes(fm, P, k)
 
 
 def query_timing(fm, toks, pats, seed: int) -> dict:
@@ -2134,44 +2055,19 @@ def stacked_bucket_bytes(st) -> dict:
 
 
 def segment_view(st, s: int):
-    """Segment ``s`` of a stacked bucket as an FM index of its own (the
-    fields ``query_bytes`` and the single-index plain versions read):
-    views of its rows, checkpoints, C row and SA sample (raw values)."""
-    import types
+    """``kernels/traffic.py`` ``segment_view`` (the reckoning the kernel
+    wrappers report to ``launch/roofline.py`` ``count``)."""
+    from repro_torch.kernels.traffic import segment_view
 
-    NB, nb = st.blocks_pad, int(st.n_blocks[s])
-    S = st.seg_pad
-    MW = st.sa_marks.shape[0] // S if st.sa_marks is not None else 0
-    MV = st.sa_vals.shape[0] // S if st.sa_vals is not None else 0
-    sample = {}
-    if st.sa_sample_rate:
-        sample = dict(sa_marks=st.sa_marks[s * MW: (s + 1) * MW],
-                      sa_mark_ranks=st.sa_mark_ranks[s * MW: (s + 1) * MW],
-                      sa_vals=st.sa_vals[s * MV: (s + 1) * MV])
-    return types.SimpleNamespace(
-        sigma=st.sigma, sample_rate=st.sample_rate, n_blocks=nb,
-        length=int(st.lengths[s]), bits=st.bits, c_array=st.c_array[s],
-        fused=None if st.fused is None else st.fused[s * NB: s * NB + nb],
-        bwt=(None if st.blocks is None
-             else st.blocks[s * NB: s * NB + nb].reshape(-1)),
-        occ_samples=None if st.occ is None else st.occ[s, :nb],
-        sa_val_bits=0, sa_sample_rate=st.sa_sample_rate, device=st.device,
-        **sample)
+    return segment_view(st, s)
 
 
 def stacked_query_bytes(st, P, k: int) -> tuple[int, int]:
-    """(bytes, walk steps) of one stacked query launch on patterns ``P``:
-    ``query_bytes`` of each real segment (its own rows, checkpoints and SA
-    sample; segments own disjoint, sector-aligned slices), the patterns
-    counted once, and the pad segments' output rows; the walk steps are
-    the largest segment's."""
-    total, walk = 0, 0
-    for s in range(st.n_seg):
-        nbytes, w = query_bytes(segment_view(st, s), P, k)
-        total += nbytes - (4 * P.numel() if s else 0)
-        walk = max(walk, w)
-    B = P.shape[0]
-    return total + 4 * (st.seg_pad - st.n_seg) * (2 * B + B * k), walk
+    """``kernels/traffic.py`` ``stacked_query_bytes`` (the reckoning the kernel
+    wrappers report to ``launch/roofline.py`` ``count``)."""
+    from repro_torch.kernels.traffic import stacked_query_bytes
+
+    return stacked_query_bytes(st, P, k)
 
 
 def stacked_fns(st):
@@ -4846,6 +4742,155 @@ def phase_train(device="cuda", archs=None, full=True,
     return rec, launches
 
 
+# --------------------------------------------------------------------------
+# phase 13: the launch tools (dryrun, perf, report)
+# --------------------------------------------------------------------------
+
+LAUNCH_LM_CELLS = 40             # ten configs x four shapes
+LAUNCH_PEAK_SLACK = 1.10         # measured peak over its meta estimate
+LAUNCH_NEEDED = {"dryrun_index_build": ("radix_hist", "radix_pos",
+                                        "char_histogram"),
+                 "dryrun_index_serve": ("rank_select",)}
+
+
+def check_launch_cell(rec: dict, what: str) -> None:
+    """A measured time under its roofline bound, or a measured peak over
+    its meta estimate by more than ``LAUNCH_PEAK_SLACK``, is a broken
+    measurement (an estimate that says "fits" where the card runs out is
+    the failure that matters)."""
+    require(rec["measured_s"] >= rec["bound_s"],
+            f"{what}: {rec['measured_s']} s is under its {rec['bound_by']} "
+            f"bound {rec['bound_s']} s")
+    peak, est = rec.get("peak_bytes"), rec["estimate"]["memory"]
+    if peak is not None:
+        require(peak <= LAUNCH_PEAK_SLACK * est["total_bytes"],
+                f"{what}: measured peak {peak} B exceeds its estimate "
+                f"{est['total_bytes']} B by more than "
+                f"{LAUNCH_PEAK_SLACK - 1:.0%}")
+
+
+def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
+                 max_decode_batch=None, workdir=None) -> tuple:
+    """Phase 13: (a) ``dryrun.main`` over every cell (the LM cells traced
+    on meta in ``jobs`` processes, long_500k skipped where the reference
+    skips it; the two bwt_index cells built and served in a one-rank
+    world), (b) ``perf``'s three targets, then ``report.main``'s tables.
+    Returns (record, launches by path: the index cells' own counts, reset
+    just before each counted run and read just after, and perf's
+    bwt_build, reset before it and read after)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun, perf, report
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.specs import shape_skip_reason
+
+    config_of = config_of or get_config
+    jobs = jobs or min(8, os.cpu_count() or 1)
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    rec, launches = {}, {}
+    if cuda:    # what earlier phases still hold: perf's budget is the rest
+        rec["allocated_at_start"] = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_",
+                                     dir=workdir) as tmp:
+        dr_dir, pf_dir = Path(tmp) / "dryrun", Path(tmp) / "perf"
+        cells = dryrun.main(["--out", str(dr_dir), "--jobs", str(jobs)],
+                            config_of=config_of, index_cfg=icfg,
+                            index_device=device)
+        rec["dryrun_s"] = time.perf_counter() - t0
+        lm = [c for c in cells if c["arch"] != "bwt_index"]
+        require(len(lm) == LAUNCH_LM_CELLS, f"phase 13: {len(lm)} LM cells")
+        for c in lm:
+            cfg = config_of(c["arch"])
+            skip = shape_skip_reason(cfg, c["shape"])
+            require(c["status"] == ("skipped" if skip else "traced")
+                    and c.get("reason") == skip,
+                    f"phase 13: cell {c['arch']} x {c['shape']}: "
+                    f"{c['status']} ({c.get('reason')})")
+        rec["lm_cells"] = {
+            f"{c['arch']}__{c['shape']}": (
+                {"status": "skipped"} if c["status"] == "skipped" else
+                {"status": "traced",
+                 "total_gib": c["memory"]["total_bytes"] / 2**30,
+                 "fits": c["memory"]["fits"], "trace_s": c["trace_s"],
+                 "flops": c["counts"]["flops"],
+                 "bytes": c["counts"]["bytes"],
+                 "bottleneck": c["roofline"]["bottleneck"],
+                 "useful_flops_ratio": c["roofline"]["useful_flops_ratio"]})
+            for c in lm}
+        rec["lm_traced"] = sum(c["status"] == "traced" for c in lm)
+        rec["lm_trace_s"] = sum(c.get("trace_s", 0.0) for c in lm)
+        for c in cells:
+            if c["arch"] != "bwt_index":
+                continue
+            path = f"dryrun_index_{c['shape']}"
+            launches[path] = c["launches"]
+            counts = c["counts"]
+            # on the card each needed kernel launched and reported its
+            # bytes; on the CPU the plain versions ran inside the wrappers
+            require(bool(counts["kernel_bytes"]),
+                    f"phase 13 {path}: no kernel wrapper reported bytes")
+            bound = counts["bytes"] / rf.HBM_BW
+            if cuda:
+                for name in LAUNCH_NEEDED[path]:
+                    require(c["launches"][name] > 0
+                            and counts["kernel_bytes"].get(name, 0) > 0,
+                            f"phase 13: kernel {name} never launched on "
+                            f"{path}")
+                require(c["seconds"] >= bound,
+                        f"phase 13 {path}: {c['seconds']} s is under its "
+                        f"bytes bound {bound} s")
+            rec[path] = {k: c[k] for k in (
+                "tokens", "seconds", "peak_bytes", "collectives",
+                "launches", "roofline") if k in c}
+            rec[path].update(bound_s=bound, bytes=counts["bytes"],
+                             kernel_bytes=counts["kernel_bytes"],
+                             in_scope_bytes=counts["in_scope_bytes"],
+                             count_s=counts["seconds"])
+        t1 = time.perf_counter()
+        runs = perf.qwen_train(out_dir=pf_dir, device=device,
+                               config_of=config_of)
+        runs += perf.musicgen_decode(out_dir=pf_dir, device=device,
+                                     config_of=config_of,
+                                     max_batch=max_decode_batch)
+        _counts_reset()
+        runs += perf.bwt_build(out_dir=pf_dir, device=device, icfg=icfg)
+        launches["perf_bwt_build"], _ = _counts()
+        rec["perf_s"] = time.perf_counter() - t1
+        for r in runs:
+            what = f"phase 13 {r['target']}/{r['variant']}"
+            if r["status"] == "measured" and "bound_s" in r:
+                if cuda:
+                    check_launch_cell(r, what)
+                require(r["finite"], f"{what}: non-finite values")
+        base = [r for r in runs if r["target"] == "bwt_build"
+                and r["variant"] == "baseline"]
+        require(len(base) == 1 and base[0]["sa_equals_baseline"],
+                "phase 13: bwt_build baseline")
+        rec["perf"] = {f"{r['target']}/{r['variant']}": {
+            k: r[k] for k in (
+                "status", "reason", "measured_s", "bound_s", "micro_s",
+                "adamw_s", "extrapolated_step_s", "ms_per_step", "batch",
+                "peak_bytes", "sa_equals_baseline", "sa_positions_differing",
+                "capacity_factor_used", "overflow_retried") if k in r}
+            | ({"estimate_bytes": r["estimate"]["memory"]["total_bytes"],
+                "estimate_fits": r["estimate"]["memory"]["fits"]}
+               if "estimate" in r else {})
+            for r in runs}
+        require(not cuda or launches["perf_bwt_build"]["radix_hist"] > 0,
+                "phase 13: perf's bwt_build launched no radix_hist")
+        report.main(["--dryrun", str(dr_dir), "--perf", str(pf_dir)])
+    if cuda:
+        total = torch.cuda.get_device_properties(0).total_memory
+        rec["hbm_bytes"] = {"card": total, "roofline": rf.HBM_BYTES}
+        require(total >= rf.HBM_BYTES,
+                f"phase 13: the card holds {total} B, under the estimates' "
+                f"HBM_BYTES {rf.HBM_BYTES}")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec, launches
+
+
 # the function of the JAX package each kernel replaces (file:line of the
 # function that reaches pl.pallas_call)
 REPLACES = {
@@ -4893,7 +4938,8 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -5123,6 +5169,14 @@ def main(argv=None) -> int:
         for name, v in screened.items():
             main_launches[name] += v
         emit({"phase": 12, **rec})
+
+    if 13 in phases:
+        rec, launches = phase_launch()
+        for path, counts in launches.items():
+            path_launches[path] = counts
+            for name, v in counts.items():
+                main_launches[name] += v
+        emit({"phase": 13, **rec})
 
     if {1, 2, 3, 7, 8} <= phases:
         for name in _build.KERNELS:

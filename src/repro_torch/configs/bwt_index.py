@@ -10,6 +10,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class BWTIndexConfig:
     name: str = "bwt_index"
+    family: str = "index"
     n: int = 1 << 28              # 256 Mi tokens (PROTEINS/DNA-scale, §3)
     sigma: int = 257              # byte alphabet + sentinel
     # the mesh build's engine (core/dist_suffix_array.py DistSAConfig):
@@ -25,6 +26,9 @@ class BWTIndexConfig:
     sample_rate: int = 64         # FM Occ checkpoint spacing
     query_batch: int = 1024
     query_len: int = 32
+    # the mesh build's doubling rounds (DistSAConfig.rounds); None ->
+    # ceil(log2 n).  A capped budget can leave long repeats unsorted.
+    rounds: int | None = None
 
     # query engine: pack/sa_sample_rate feed pipeline.build_index, the
     # serve_* knobs feed serving.engine.FMQueryServer.from_config
@@ -93,7 +97,7 @@ CONFIG = BWTIndexConfig()
 
 
 def reduced() -> BWTIndexConfig:
-    return CONFIG.replace(n=1 << 12, query_batch=8, query_len=8,
+    return CONFIG.replace(n=1 << 12, query_batch=8, query_len=8, rounds=None,
                           sa_sample_rate=8, locate_k=4,
                           serve_length_buckets=(4, 8), serve_max_batch=8,
                           serve_queue_depth=64, serve_max_wait_ms=1.0)

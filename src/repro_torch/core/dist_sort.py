@@ -8,7 +8,9 @@ shard (SPMD: every rank makes the same calls in the same order).
 the rank in it.
 
 Collectives (``all_gather``, ``gather``, ``ppermute``, ``all_to_all``,
-``psum``, ``pmax``), counted per call in ``COLLECTIVES``:
+``psum``, ``pmax``), counted per call in ``COLLECTIVES``, their input and
+output bytes summed per kind in ``COLLECTIVE_BYTES`` (what
+``launch/roofline.py`` ``collective_bytes`` turns into bytes moved):
 
 * an NCCL group (one rank per card) takes CUDA tensors as they are;
 * a gloo group takes CPU tensors as they are, and CUDA tensors (ranks that
@@ -47,11 +49,21 @@ AXIS = "parts"
 # collective calls made by this rank, by kind
 COLLECTIVES = {"all_gather": 0, "gather": 0, "ppermute": 0, "all_to_all": 0,
                "psum": 0, "pmax": 0}
+# [input bytes, output bytes] of this rank's collective calls, by kind
+COLLECTIVE_BYTES = {name: [0, 0] for name in COLLECTIVES}
 
 
 def reset_collectives() -> None:
     for name in COLLECTIVES:
         COLLECTIVES[name] = 0
+        COLLECTIVE_BYTES[name] = [0, 0]
+
+
+def _record(name: str, t_in: torch.Tensor, t_out: torch.Tensor | None):
+    """One call of collective ``name``: its count and its bytes."""
+    COLLECTIVES[name] += 1
+    COLLECTIVE_BYTES[name][0] += t_in.nbytes
+    COLLECTIVE_BYTES[name][1] += 0 if t_out is None else t_out.nbytes
 
 
 def pad_value(dtype=torch.int32) -> int:
@@ -144,8 +156,9 @@ def all_gather(info: ShardInfo, x: torch.Tensor) -> torch.Tensor:
     t = _wire(info, x)
     out = [torch.empty_like(t) for _ in range(info.parts)]
     dist.all_gather(out, t, group=info.group)
-    COLLECTIVES["all_gather"] += 1
-    return _back(torch.stack(out), x)
+    gathered = torch.stack(out)
+    _record("all_gather", t, gathered)
+    return _back(gathered, x)
 
 
 def gather(info: ShardInfo, x: torch.Tensor) -> torch.Tensor | None:
@@ -157,7 +170,7 @@ def gather(info: ShardInfo, x: torch.Tensor) -> torch.Tensor | None:
                        device=t.device) if _me(info) == 0 else None)
     dist.gather(t, None if out is None else list(out.unbind(0)),
                 dst=dist.get_global_rank(info.group, 0), group=info.group)
-    COLLECTIVES["gather"] += 1
+    _record("gather", t, out)
     return None if out is None else _back(out, x)
 
 
@@ -178,7 +191,7 @@ def ppermute(info: ShardInfo, x: torch.Tensor, perm) -> torch.Tensor:
     recv = [0] * info.parts
     send[dst[me]] = recv[src[me]] = t.numel()
     dist.all_to_all_single(out, t, recv, send, group=info.group)
-    COLLECTIVES["ppermute"] += 1
+    _record("ppermute", t, out)
     return _back(out.view(x.shape), x)
 
 
@@ -188,7 +201,7 @@ def all_to_all(info: ShardInfo, buf: torch.Tensor) -> torch.Tensor:
     t = _wire(info, buf)
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=info.group)
-    COLLECTIVES["all_to_all"] += 1
+    _record("all_to_all", t, out)
     return _back(out, buf)
 
 
@@ -197,7 +210,7 @@ def _all_reduce(info: ShardInfo, x: torch.Tensor, op, name: str):
     if t is x:
         t = t.clone()
     dist.all_reduce(t, op=op, group=info.group)
-    COLLECTIVES[name] += 1
+    _record(name, t, t)
     return _back(t, x)
 
 
@@ -423,28 +436,40 @@ def samplesort_sharded(info: ShardInfo, operands: Sequence[torch.Tensor],
     overflow = (counts > cap).any()
 
     # 4. padded send blocks (P, cap) of every operand plus the validity
-    # plane, shuffled in one all_to_all
+    # plane, shuffled in one all_to_all (written in place, and every
+    # temporary freed before the next full-size one: at a full shard these
+    # are the build's largest arrays)
     slot = torch.arange(cap, device=dev)
     valid_send = slot[None, :] < torch.clamp(counts, max=cap)[:, None]
     take = torch.clamp(starts[:, None] + slot[None, :], 0, m - 1)
-    planes = [torch.where(valid_send, x[take], pads[i] if i < num_keys
-                          else 0) for i, x in enumerate(ops)]
-    planes.append(valid_send.to(torch.int32))
-    recv = all_to_all(info, torch.stack(planes, 1))        # (P, K+1, cap)
-    flat = recv.transpose(0, 1).reshape(len(planes), P * cap)
+    del slot
+    send = torch.empty((P, len(ops) + 1, cap), dtype=torch.int32,
+                       device=dev)
+    for i, x in enumerate(ops):
+        send[:, i] = x[take]
+        send[:, i].masked_fill_(~valid_send, pads[i] if i < num_keys else 0)
+    send[:, -1] = valid_send
+    K = len(ops)
+    del take, valid_send, ops, keys_s
+    recv = all_to_all(info, send)                          # (P, K+1, cap)
+    del send
+    flat = recv.transpose(0, 1).reshape(K + 1, P * cap)
+    del recv
 
     # 5. local sort of the received slots; invalid slots forced to the pad
     # on every key and ordered after the valid ones by the validity key
     vmask = flat[-1].bool()
-    flat = tuple(torch.where(vmask, x, pads[i]) if i < num_keys else x
-                 for i, x in enumerate(flat[:-1]))
+    flat = tuple(torch.where(vmask, x, pads[i]) if i < num_keys
+                 else x.clone() for i, x in enumerate(flat[:-1]))
     inv = (~vmask).to(torch.int32)
+    n_valid = vmask.sum(dtype=torch.int32)
+    del vmask
     tb_bits = None if key_bits is None else (*tuple(key_bits), 1)
     final = kernel_ops.local_sort(
         (*flat[:num_keys], inv, *flat[num_keys:]), num_keys + 1,
         engine=local_sort, key_bits=tb_bits)
+    del flat, inv
     final = (*final[:num_keys], *final[num_keys + 1:])
-    n_valid = vmask.sum(dtype=torch.int32)
     return SampleSortResult(final, n_valid, pmax(info, overflow).bool())
 
 
@@ -458,28 +483,37 @@ def scatter_to_index_samplesort(info: ShardInfo, gidx: torch.Tensor,
     P, m = info.parts, info.part_size
     slots = gidx.shape[0]
     dev = gidx.device
+    cap = _capacity(info, capacity_factor)
     dest = torch.where(valid, gidx // m, P)  # P == "nowhere"
 
-    # stable bucket slot: position among same-destination elements
+    # stable bucket slot: position among same-destination elements (each
+    # temporary freed as soon as the next is made: at a full shard these
+    # are the build's largest arrays)
     order = torch.sort(dest, stable=True).indices
     dest_s = dest[order]
-    first = torch.searchsorted(dest_s, dest_s)
-    slot_s = torch.arange(slots, device=dev) - first
-    cap = _capacity(info, capacity_factor)
+    del dest
+    slot_s = torch.arange(slots, device=dev) - torch.searchsorted(dest_s,
+                                                                  dest_s)
     live = dest_s < P
     overflow = (live & (slot_s >= cap)).any()
 
-    # send blocks (P, cap) of gidx and the values, -1 where unused; row P
-    # takes whatever does not fit and is cut off
+    # send blocks (P, K, cap) of gidx and the values, -1 where unused; row
+    # P takes whatever does not fit and is cut off
     ok = live & (slot_s < cap)
+    del live
     row = torch.where(ok, dest_s, P)
+    del ok, dest_s
     col = torch.clamp(slot_s, 0, cap - 1)
-    payload = torch.stack([gidx, *values])[:, order]
-    send = torch.full((payload.shape[0], P + 1, cap), -1,
-                      dtype=torch.int32, device=dev)
-    send[:, row, col] = payload
-    recv = all_to_all(info, send[:, :P].transpose(0, 1))   # (P, K, cap)
-    recv = recv.transpose(0, 1).reshape(payload.shape[0], P * cap)
+    del slot_s
+    planes = (gidx, *values)
+    send = torch.full((P + 1, len(planes), cap), -1, dtype=torch.int32,
+                      device=dev)
+    for i, x in enumerate(planes):
+        send[row, i, col] = x[order]
+    del row, col, order
+    recv = all_to_all(info, send[:P])                      # (P, K, cap)
+    del send
+    recv = recv.transpose(0, 1).reshape(len(planes), P * cap)
     local = torch.where(recv[0] >= 0, recv[0] % m, m).long()
     outs = []
     for v in recv[1:]:

@@ -235,13 +235,16 @@ def dist_qgram_init(info: ShardInfo, cfg: DistSAConfig, eng: str,
         info, (*words, gidx), num_keys=nw,
         capacity_factor=cfg.capacity_factor, key_pads=pads,
         local_sort=eng, key_bits=kb)
+    del words
     ranks_s, active_s = dist_rerank(info, res.operands[:nw], res.n_valid,
                                     grouped=False, want_active=True)
-    pos = torch.arange(res.operands[0].shape[0], device=dev)
+    gidx_s, n_valid, bad = res.operands[nw], res.n_valid, res.overflow
+    del res
+    valid = torch.arange(gidx_s.shape[0], device=dev) < n_valid
     (rank, act), ovf = scatter_to_index_samplesort(
-        info, res.operands[nw], (ranks_s, active_s.to(torch.int32)),
-        valid=pos < res.n_valid, capacity_factor=cfg.capacity_factor)
-    bad = res.overflow | ovf
+        info, gidx_s, (ranks_s, active_s.to(torch.int32)), valid=valid,
+        capacity_factor=cfg.capacity_factor)
+    bad = bad | ovf
     rank = torch.where(bad, OVERFLOWED, rank)
     return rank, act.bool(), q, bad
 

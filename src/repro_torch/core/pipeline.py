@@ -72,6 +72,17 @@ def dist_sa_config(cfg) -> DistSAConfig:
                         qgram_words=cfg.qgram_words, discard=cfg.discard)
 
 
+def mesh_sa_config(cfg) -> DistSAConfig:
+    """The mesh build's ``DistSAConfig`` of a ``BWTIndexConfig``: its
+    engine, capacity factor and doubling rounds, and its build-engine
+    knobs (the reference's dry run builds the same one)."""
+    return DistSAConfig(engine=cfg.engine,
+                        capacity_factor=cfg.capacity_factor,
+                        rounds=cfg.rounds, qgram=cfg.qgram,
+                        qgram_words=cfg.qgram_words, discard=cfg.discard,
+                        local_sort=cfg.local_sort)
+
+
 @dataclasses.dataclass
 class SequenceIndex:
     """A built full-text index plus query methods.  On a mesh, ``fm``,
@@ -86,6 +97,9 @@ class SequenceIndex:
     text_length: int     # true length incl. sentinel
     build_stats: BuildStats | None = None
     mesh: object = None  # the DeviceMesh of a distributed index
+    # the DistSAConfig a mesh build finished with: its capacity factor is
+    # the requested one doubled once per samplesort overflow retry
+    mesh_config: DistSAConfig | None = None
 
     @property
     def device(self) -> torch.device:
@@ -232,4 +246,4 @@ def build_index(
                              compress_sa=compress_sa,
                              sa=sa if sa_sample_rate else None, **sa_kw)
     return SequenceIndex(fm, sa, bwt_arr, fm.row, sigma, len(s), text_length,
-                         mesh=mesh)
+                         mesh=mesh, mesh_config=cfg)

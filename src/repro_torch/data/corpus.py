@@ -36,7 +36,12 @@ def proteins(n: int, seed: int = 0) -> np.ndarray:
 
 
 def english(n: int, seed: int = 0) -> np.ndarray:
-    """Zipf-distributed 'words' over bytes — Gutenberg-ish statistics."""
+    """Zipf-distributed 'words' over bytes — Gutenberg-ish statistics.
+
+    The reference's draws, in its order (the word table, then chunks of
+    4096 words until the stream holds n tokens), with the stream assembled
+    by one gather over a table of the words (each one's letters + 1 and a
+    space) instead of a Python loop over the words."""
     rng = np.random.default_rng(np.random.SeedSequence([seed, 0xE16]))
     vocab_words = 2048
     ranks = np.arange(1, vocab_words + 1)
@@ -44,21 +49,24 @@ def english(n: int, seed: int = 0) -> np.ndarray:
     word_lens = rng.integers(2, 9, vocab_words)
     letters = [rng.integers(ord("a"), ord("z") + 1, L).astype(np.uint8)
                for L in word_lens]
-    out = np.empty(n + 16, dtype=np.int32)
-    i = 0
-    # vectorised-ish assembly in chunks
-    while i < n:
+    table = np.concatenate([np.append(w.astype(np.int32) + 1, ord(" ") + 1)
+                            for w in letters]).astype(np.int32)
+    lens = word_lens + 1
+    starts = np.cumsum(lens) - lens
+    chunks, total = [], 0
+    while total < n:
         words = rng.choice(vocab_words, size=4096, p=p)
-        for w in words:
-            ltrs = letters[w]
-            j = min(len(ltrs), n + 16 - i - 1)
-            out[i : i + j] = ltrs[:j].astype(np.int32) + 1
-            i += j
-            out[i] = ord(" ") + 1
-            i += 1
-            if i >= n:
-                break
-    return out[:n]
+        chunks.append(words)
+        total += int(lens[words].sum())
+    words = np.concatenate(chunks) if chunks else np.zeros(0, np.int64)
+    ends = np.cumsum(lens[words])
+    words = words[:int(np.searchsorted(ends, n)) + 1]
+    wl = lens[words].astype(np.int32)
+    first = np.cumsum(wl, dtype=np.int64) - wl    # stream offset of a word
+    # token t of the stream is table[starts[word] + t - first[word]]
+    idx = np.repeat((starts[words] - first).astype(np.int32), wl)[:n]
+    idx += np.arange(len(idx), dtype=np.int32)
+    return table[idx]
 
 
 GENERATORS = {"dna": dna, "proteins": proteins, "english": english}

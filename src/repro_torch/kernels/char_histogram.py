@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, traffic
 
 MAX_SIGMA = 12288   # sigma int32 bins in 48 KiB of shared memory per block
 
@@ -21,6 +21,8 @@ def char_histogram_plain(tokens: torch.Tensor, sigma: int) -> torch.Tensor:
     return torch.bincount(keep, minlength=sigma + 1)[:sigma].to(torch.int32)
 
 
+@traffic.reports("char_histogram", lambda tokens, sigma:
+                 traffic.char_histogram_bytes(tokens.numel(), sigma))
 def char_histogram(tokens: torch.Tensor, sigma: int) -> torch.Tensor:
     """Token histogram; the plain version for CPU tensors, the CUDA kernel
     otherwise."""

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, traffic
 from ._bits import popcount32, u32
 from .rank_select import rank_packed_plain, rank_select_plain
 
@@ -209,6 +209,8 @@ def _launch(name, fm, patterns, k, tensors, layout_args):
     return sp, ep, pos
 
 
+@traffic.reports("fm_query_packed",
+                 lambda fm, patterns, k=0: traffic.query_bytes(fm, patterns, k)[0])
 def fm_query_packed(fm, patterns, k: int = 0):
     """(sp, ep, positions) over the fused packed rows (``fm.bits`` 2 or
     4); the plain version for CPU tensors, one kernel launch otherwise."""
@@ -223,6 +225,8 @@ def fm_query_packed(fm, patterns, k: int = 0):
         fm.sample_rate))
 
 
+@traffic.reports("fm_query_unpacked",
+                 lambda fm, patterns, k=0: traffic.query_bytes(fm, patterns, k)[0])
 def fm_query_unpacked(fm, patterns, k: int = 0):
     """(sp, ep, positions) over int32 blocks plus ``occ_samples``; the
     plain version for CPU tensors, one kernel launch otherwise."""
@@ -353,6 +357,8 @@ def _stacked_launch(name, st, patterns, k, tensors, layout_args):
     return sp, ep, pos
 
 
+@traffic.reports("fm_query_stacked_packed",
+                 lambda st, patterns, k=0: traffic.stacked_query_bytes(st, patterns, k)[0])
 def fm_query_stacked_packed(st, patterns, k: int = 0):
     """(sp, ep, positions) of every pattern in every segment of a packed
     bucket (``st.bits`` 2 or 4); the plain version for CPU tensors, one
@@ -369,6 +375,8 @@ def fm_query_stacked_packed(st, patterns, k: int = 0):
                                       st.sample_rate))
 
 
+@traffic.reports("fm_query_stacked_unpacked",
+                 lambda st, patterns, k=0: traffic.stacked_query_bytes(st, patterns, k)[0])
 def fm_query_stacked_unpacked(st, patterns, k: int = 0):
     """(sp, ep, positions) of every pattern in every segment of an
     unpacked bucket; the plain version for CPU tensors, one kernel launch

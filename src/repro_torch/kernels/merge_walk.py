@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, traffic
 from .fm_query import packed_symbol
 from .rank_select import rank_packed_plain, rank_select_plain
 
@@ -110,6 +110,9 @@ def merge_walk_plain(a_fused, a_blocks, a_occ, a_c, b_c, clf, ends, *,
     return ins
 
 
+@traffic.reports("merge_walk", lambda a_fused, a_blocks, a_occ, a_c, b_c,
+                 clf, ends, **_: traffic.walk_bytes(
+                     clf.shape[0], a_c, b_c, clf, ends) + 4 * clf.shape[0])
 def merge_walk(a_fused, a_blocks, a_occ, a_c, b_c, clf, ends, *, sigma: int,
                bits: int, r: int):
     """Pairwise interleave counts ins int32[nB] (``merge_walk_plain``'s
@@ -198,6 +201,10 @@ def kway_walk_plain(fused, blocks, occ, c_mat, nb_vec, row_vec, last_vec,
     return ins
 
 
+@traffic.reports("merge_walk", lambda fused, blocks, occ, c_mat, nb_vec,
+                 row_vec, last_vec, lens, **_: traffic.walk_bytes(
+                     sum(lens[1:]), c_mat, nb_vec, row_vec, last_vec)
+                 + 4 * sum(lens[1:]))
 def kway_walk(fused, blocks, occ, c_mat, nb_vec, row_vec, last_vec, lens, *,
               sigma: int, bits: int, r: int):
     """K-way interleave counts (``kway_walk_plain``'s contract); one kernel

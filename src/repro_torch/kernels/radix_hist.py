@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, traffic
 from ._bits import u32
 
 TILE = 8192                 # the sort engine's tile on the card
@@ -42,6 +42,8 @@ def radix_hist_plain(keys, shift: int, *, block: int = 1024):
     return flat.view(n // block, 256).to(torch.int32)
 
 
+@traffic.reports("radix_hist", lambda keys, shift, *, block=1024:
+                 traffic.radix_hist_bytes(keys.shape[0], block))
 def radix_hist(keys, shift: int, *, block: int = 1024):
     """Per-block digit histograms, int32 values of shape (n/block, 256);
     the plain version for CPU tensors, the CUDA kernel otherwise.

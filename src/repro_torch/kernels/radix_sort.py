@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, traffic
 from ._bits import u32
 from .radix_hist import TILE, _check_blocks, check_tile, radix_hist
 
@@ -91,6 +91,8 @@ def _launch_pos(keys, base, shift, block, pos_out, operands, outs):
                       len(operands), *ins, *ots)
 
 
+@traffic.reports("radix_pos", lambda keys, base, shift, *, block=1024:
+                 traffic.radix_pass_bytes(keys, base, positions=True))
 def radix_pos(keys, base, shift: int, *, block: int = 1024):
     """Destination of every key for one 8-bit pass (int32[n]); the plain
     version for CPU tensors, the CUDA kernel otherwise.  ``base`` holds
@@ -112,6 +114,8 @@ def radix_scatter_plain(keys, base, shift: int, operands, outs, *,
         dst[pos] = src
 
 
+@traffic.reports("radix_pos", lambda keys, base, shift, operands, outs, *,
+                 block=1024: traffic.radix_pass_bytes(keys, base, operands))
 def radix_scatter(keys, base, shift: int, operands, outs, *,
                   block: int = 1024) -> None:
     """One stable pass: ``outs[k][pos[i]] = operands[k][i]`` for every

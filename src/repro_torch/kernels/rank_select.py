@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, traffic
 from ._bits import i32, popcount32, u32
 
 # LSB of every 2-bit / 4-bit field: replicating a symbol across fields is
@@ -88,6 +88,9 @@ def rank_packed_plain(fused, block_idx, c, cutoff, *, bits: int, sigma: int):
     return (base.to(torch.int64) + cnt).to(torch.int32)
 
 
+@traffic.reports("rank_packed", lambda fused, block_idx, c, cutoff, *, bits,
+                 sigma: traffic.rank_packed_bytes(fused, block_idx, c, cutoff,
+                                                  sigma, bits))
 def rank_packed(fused, block_idx, c, cutoff, *, bits: int, sigma: int):
     """Occ(c_i, block_idx_i * r + cutoff_i) over the fused packed layout;
     the plain version for CPU tensors, the CUDA kernel otherwise."""
@@ -118,6 +121,8 @@ def rank_select_plain(bwt_blocks, block_idx, c, cutoff):
     return hit.sum(dim=1).to(torch.int32)
 
 
+@traffic.reports("rank_select", lambda bwt_blocks, block_idx, c, cutoff:
+                 traffic.rank_select_bytes(bwt_blocks, block_idx, cutoff))
 def rank_select(bwt_blocks, block_idx, c, cutoff):
     """In-block counts over unpacked int32 blocks (checkpoint NOT
     included); the plain version for CPU tensors, the CUDA kernel

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, traffic
 
 TILE = 4096      # pairs per tile of the kernel (WARPS * WARP_SPAN)
 HEAD_INTS = 4    # scratch before the status words: counter, num_groups, pad
@@ -32,6 +32,7 @@ def rerank_scan_plain(r1: torch.Tensor, r2: torch.Tensor):
     return heads[group.long()], (group[-1] + 1).to(torch.int32)
 
 
+@traffic.reports("rerank_scan", traffic.rerank_scan_bytes)
 def rerank_scan(r1: torch.Tensor, r2: torch.Tensor):
     """Re-rank of sorted int32 pairs; the plain version for CPU tensors,
     the CUDA kernel otherwise.  Equal pairs must be adjacent, as any sorted

@@ -145,7 +145,6 @@ def _serve(ap, args, icfg, dev, mesh):
     any) joined: every rank of a world runs it, making the same calls."""
     import torch.distributed as dist
 
-    from ..core.dist_suffix_array import DistSAConfig
     from ..testing import faultinject
 
     say = print if mesh is None or dist.get_rank() == 0 else _quiet
@@ -163,7 +162,7 @@ def _serve(ap, args, icfg, dev, mesh):
         restore_index,
         save_index,
     )
-    from ..core.pipeline import build_index
+    from ..core.pipeline import build_index, mesh_sa_config
     from ..core.segments import SegmentedIndex, unstored_knobs
     from ..data.corpus import corpus
 
@@ -232,7 +231,8 @@ def _serve(ap, args, icfg, dev, mesh):
         t0 = time.perf_counter()
         index = build_index(toks, mesh, sample_rate=icfg.sample_rate,
                             sa_sample_rate=icfg.sa_sample_rate,
-                            sa_config=DistSAConfig(engine=args.engine),
+                            sa_config=mesh_sa_config(
+                                icfg.replace(engine=args.engine)),
                             device=dev)
         sync()
         say(f"index built over {len(toks)} tokens on {where} in "

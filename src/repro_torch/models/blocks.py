@@ -104,7 +104,7 @@ def _attend_chunked(q, k, v, *, window: int = 0, chunk: int = ATTN_CHUNK):
         kpos = c0 * chunk + torch.arange(chunk, dtype=torch.int32,
                                          device=dev)
         logits = einsum("bskgd,btkd->bkgst", qr, kb).float()
-        logits = logits * scale.to(dev)
+        logits = logits * scale
         mask = kpos[None, :] <= qpos[:, None]
         if window > 0:
             mask &= kpos[None, :] > qpos[:, None] - window
@@ -235,6 +235,8 @@ def _mla_kv_latent(p, x, cfg: ArchConfig):
 
 
 def _mla_scale(cfg: ArchConfig):
+    """The softmax scale as a 0-d float32 CPU tensor: it multiplies tensors
+    on any device with no copy to theirs."""
     return 1.0 / torch.sqrt(torch.tensor(cfg.qk_nope_dim + cfg.qk_rope_dim,
                                          dtype=torch.float32))
 
@@ -246,7 +248,7 @@ def _mla_attend(p, q_nope, q_rope, ckv, k_rope, cfg: ArchConfig, mask):
     logits = (
         einsum("bshk,bthk->bhst", q_nope, k_nope)
         + einsum("bshk,btk->bhst", q_rope, k_rope)
-    ).float() * _mla_scale(cfg).to(q_nope.device)
+    ).float() * _mla_scale(cfg)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return einsum("bhst,bthk->bshk", probs, v)
@@ -259,7 +261,7 @@ def _mla_attend_chunked(p, q_nope, q_rope, ckv, k_rope, cfg: ArchConfig,
     B, S, H, _ = q_nope.shape
     nc = S // chunk
     dev = q_nope.device
-    scale = _mla_scale(cfg).to(dev)
+    scale = _mla_scale(cfg)
     qpos = torch.arange(S, dtype=torch.int32, device=dev)
     hd_v = cfg.v_head_dim
 

@@ -331,7 +331,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Zeroed decode cache for ``batch`` sequences of up to ``max_len``
     tokens: the prefix / stacked groups / suffix layers' caches (KV
     entries in ``dtype``, SSM and LRU states in float32)."""
-    device = resolve_device(device)
+    device = resolve_device(device, allow_meta=True)
     prefix_kinds, pat, groups, suffix_kinds = _layer_plan(cfg)
 
     def make(kind):
