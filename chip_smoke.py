@@ -70,16 +70,27 @@ script exits nonzero and prints no final result:
      no other query or rank launch, counts by brute force inside the
      segments, every located position, every batch equal to the sequential
      path (one single-index query per segment) and the stacked kernel equal
-     to its plain version, its time beside its bytes bound over n_seg x B
-     lanes and its dependent steps; then phase 7's eight documents appended
-     with maybe_compact after each (the bucket re-stacks at 32 segments,
-     the eighth compacts through the backstop; answers equal across the
-     compaction), forced k-way and rebuild compactions of them on two more
-     catalogs (equal to each other and to the served catalog's), save ->
+     to its plain version (the served buckets; edge patterns at k = 0, 1,
+     16, 64; the bucket cut to n_seg = 1, 2, 4, 8, 16, rows [:n_seg]), its
+     time beside its bytes bound over n_seg x B lanes, its latency floor
+     (dependent loads x one load's latency from scripts/pointer_chase.cu
+     over the bucket's words) and its dependent steps; the stacked kernel
+     before its redesign (scripts/fm_query_stacked_lanes.cu, built beside
+     the kernels) held to the plain version the same way and timed in turns
+     with it, L2-cold: at B = 1024 and 64, for count, on short patterns,
+     over the n_seg sweep, with both kernels' registers, resident blocks and
+     waves, and the packed kernel at each tile size; then phase 7's eight
+     documents appended with maybe_compact after each (the bucket
+     re-stacks at 32 segments, the eighth compacts through the backstop;
+     answers equal across the compaction), forced k-way and rebuild
+     compactions of them on two more catalogs (equal to each other and to
+     the served catalog's), save ->
      load of the catalog (same catalog, same answers) and a second save
      after one more append (only the new segment's files written); (b)
      proteins at n = 2^24 in 4 segments: fm_query_stacked_unpacked, the
-     same serving checks
+     same serving checks, and the same corpus in 16 segments for the
+     unpacked kernel's sweep; (c) a 2-bit catalog of 5 segments (seg_pad
+     8), the same kernel checks
   9  the async frontend (serving/frontend.py) on the card: (a) phase 2's
      DNA index (parked on the host through phases 7-8) behind
      FMQueryServer.from_config and AsyncQueryFrontend.from_config, 16,384
@@ -249,6 +260,24 @@ ROOT = Path(__file__).resolve().parent
 # out, stream)
 CHASE_SRC = ROOT / "scripts" / "pointer_chase.cu"
 CHASE_ARGTYPES = ("c_void_p", "c_int", "c_void_p", "c_void_p")
+# the stacked query kernel before its redesign (one thread per segment,
+# pattern and slot), timed in turns with the port's: its source and its C
+# entries' argument types (the port's stacked wrappers' C arguments up to
+# k, then sp, ep, positions, stream; the occupancy query: unpacked, bits,
+# sigma, out)
+LANES_SRC = ROOT / "scripts" / "fm_query_stacked_lanes.cu"
+_LANES_TAIL = ("c_void_p",) * 4 + ("c_longlong", "c_longlong", "c_int",
+                                   "c_void_p", "c_int", "c_int", "c_int") \
+    + ("c_void_p",) * 4
+LANES_ARGTYPES = {
+    "stacked_lanes_packed_launch": ("c_void_p", "c_int", "c_int", "c_int",
+                                    "c_int", "c_int", "c_int", "c_int",
+                                    "c_void_p", "c_void_p") + _LANES_TAIL,
+    "stacked_lanes_unpacked_launch": ("c_void_p", "c_void_p", "c_int",
+                                      "c_int", "c_int", "c_int", "c_int",
+                                      "c_void_p", "c_void_p") + _LANES_TAIL,
+    "stacked_lanes_occupancy": ("c_int", "c_int", "c_int", "c_void_p"),
+}
 
 
 def emit(obj) -> None:
@@ -1599,29 +1628,45 @@ def timed(fn, device):
     return out, time.perf_counter() - t0
 
 
-def start_chase_build():
-    """Start ``nvcc`` on ``CHASE_SRC``, this script's pointer chase (a
-    measurement, not a kernel of the port), beside the kernels' build;
-    returns a function that waits for it and gives its C entry."""
+def start_script_build(src: Path, entries: dict):
+    """Start ``nvcc`` on ``src``, one of this script's own CUDA sources
+    under scripts/ (a measurement, not a kernel of the port), beside the
+    kernels' build; returns a function that waits for it and gives its C
+    entries, ``entries`` mapping each name to its ctypes argument types."""
     import ctypes
 
     from repro_torch.kernels import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / "pointer_chase.so"
+    out = _build.BUILD_DIR / f"{src.stem}.so"
     proc = subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(CHASE_SRC)],
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish():
         log, _ = proc.communicate()
-        require(proc.returncode == 0, f"pointer chase build failed:\n{log}")
-        fn = ctypes.CDLL(str(out)).pointer_chase_launch
-        fn.argtypes = [getattr(ctypes, t) for t in CHASE_ARGTYPES]
-        fn.restype = ctypes.c_int
-        return fn
+        require(proc.returncode == 0, f"{src.name} build failed:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        fns = {}
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [getattr(ctypes, t) for t in argtypes]
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        fns["ptxas"] = [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln
+                        or "entry function" in ln]
+        return fns
 
     return finish
+
+
+def start_chase_build():
+    """``start_script_build`` of the pointer chase; its finish gives the C
+    entry."""
+    finish = start_script_build(CHASE_SRC,
+                                {"pointer_chase_launch": CHASE_ARGTYPES})
+    return lambda: finish()["pointer_chase_launch"]
 
 
 def dependent_load_ns(chase, n: int, steps: int = 1 << 16,
@@ -2081,18 +2126,23 @@ def stacked_fns(st):
             fq.fm_query_stacked_unpacked_plain)
 
 
-def check_stacked(st, cases, what: str) -> int:
-    """Every case through the bucket's stacked kernel and its plain version
-    on the same tensors: sp, ep and the positions equal; the max abs error
-    (0)."""
+def check_stacked(st, cases, what: str, lanes=None) -> int:
+    """Every case through the bucket's stacked kernel (and the
+    pre-redesign one, given ``lanes``) and its plain version on the same
+    tensors: sp, ep and the positions equal; the max abs error (0)."""
     name, kern, plain = stacked_fns(st)
     err = 0
     for case, P, k in cases:
-        got, want = kern(st, P, k), plain(st, P, k)
-        tag = f"{name} {what} {case} k={k}"
-        err = max(err, same(got[0], want[0], f"{tag} sp"),
-                  same(got[1], want[1], f"{tag} ep"),
-                  same(got[2], want[2], f"{tag} positions"))
+        want = plain(st, P, k)
+        runs = [(name, kern(st, P, k))]
+        if lanes is not None:
+            runs.append((f"pre-redesign {name}", lanes_query(lanes, st, P,
+                                                             k)))
+        for who, got in runs:
+            tag = f"{who} {what} {case} k={k}"
+            err = max(err, same(got[0], want[0], f"{tag} sp"),
+                      same(got[1], want[1], f"{tag} ep"),
+                      same(got[2], want[2], f"{tag} positions"))
     return err
 
 
@@ -2108,6 +2158,182 @@ def stacked_timing(st, P, k: int) -> dict:
         plain_ms=time_ms(lambda: plain(st, P, k), 1),
         bound_ms=bound_ms(nbytes), bytes=nbytes,
         dependent_steps={"search": P.shape[1], "walk": walk})
+
+
+SWEEP_SEGMENTS = (1, 2, 4, 8, 16)   # the n_seg views of the segment sweep
+SMALL_BATCH = 64                    # near the frontend's coalesced batches
+EDGE_KS = (0, 1, LOCATE_K, 64)
+
+
+def lanes_query(lanes, st, P, k: int):
+    """The stacked kernel before its redesign (``LANES_SRC``, built by
+    ``start_script_build``) on the bucket, with the port wrapper's C
+    arguments: one launch, ``(sp, ep, positions)``."""
+    import torch
+
+    from repro_torch.kernels import fm_query as fq
+
+    name = stacked_fns(st)[0]
+    out, args = fq.stacked_launch_args(name, st, P, k)
+    entry = ("stacked_lanes_packed_launch" if st.bits
+             else "stacked_lanes_unpacked_launch")
+    if P.shape[0]:
+        err = lanes[entry](*args, *(t.data_ptr() for t in out),
+                           torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"{entry} failed: CUDA error {err}")
+    return out
+
+
+def lanes_blocks(st, B: int, k: int) -> int:
+    """Blocks of the pre-redesign launch: 128-thread blocks over B x
+    max(k, 1) lanes (packed) or B x 16 * ceil(k / 16) lanes, at least 16
+    (unpacked), times seg_pad."""
+    lanes = max(k, 1) if st.bits else 16 * max(-(-k // 16), 1)
+    return -(-(B * lanes) // 128) * st.seg_pad
+
+
+def occupancy(query, st) -> dict:
+    """Registers, spilled bytes and resident blocks per SM of the
+    bucket's kernel, from an occupancy entry (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    err = query(0 if st.bits else 1, st.bits or 4, st.sigma, out)
+    require(err == 0, f"occupancy query failed: CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "registers", "threads", "local_bytes"),
+                    list(out)))
+
+
+def waves(blocks: int, blocks_per_sm: int, sms: int) -> float:
+    """Resident waves a grid of ``blocks`` takes: blocks over the card's
+    resident capacity (blocks per SM x SMs)."""
+    return blocks / (blocks_per_sm * sms)
+
+
+def latency_floor(st, P, walk: int, latency_ns) -> dict:
+    """The chain of dependent loads one stacked launch cannot beat: the
+    longest pattern's search steps (one round trip each: a PAD step loads
+    nothing), then ``walk`` walk steps (one round trip a step on the packed
+    layout; two on the unpacked, whose checkpoint waits for the symbol) and
+    the sampled value, each one dependent load of ``latency_ns(words)`` ns
+    over the bucket's row words."""
+    from repro_torch.core.fm_index import PAD
+
+    search = int((P != PAD).sum(1).max()) if P.numel() else 0
+    loads = search + (walk * (1 if st.bits else 2) + 1 if walk else 0)
+    words = (st.fused.numel() if st.bits
+             else st.blocks.numel() + st.occ.numel())
+    ns = latency_ns(words)
+    return {"dependent_loads": loads, "latency_ns": ns,
+            "latency_floor_ms": loads * ns / 1e6}
+
+
+def stacked_edge_cases(st, seg_tokens, seed: int = 5) -> list:
+    """(what, patterns, k) aimed at the walk list: the edge patterns
+    (all-PAD, every length-1 pattern: more than k hits in every segment,
+    symbols at and past sigma, the sentinel, absent ones) and a 40-symbol
+    cut from inside the second segment (hits there alone), at k = 0, 1,
+    16, 64."""
+    import numpy as np
+
+    toks = np.concatenate(seg_tokens)
+    one = seg_tokens[min(1, len(seg_tokens) - 1)]
+    mid = len(one) // 2
+    pats = edge_patterns(toks, st.sigma, seed) + [one[mid: mid + 40]]
+    E = pad_patterns(pats, 128, st.device)
+    return [("edge", E, k) for k in EDGE_KS]
+
+
+def check_views(st, P, k: int, lanes=None, segs=SWEEP_SEGMENTS) -> list:
+    """The bucket cut to n_seg = s for each s of ``segs`` up to its own
+    (``dataclasses.replace``: the rows past s become pad segments): rows
+    [:s] of the kernel (and of the pre-redesign one, given ``lanes``)
+    equal to the plain version's.  Returns the views checked."""
+    import dataclasses
+
+    name, kern, plain = stacked_fns(st)
+    done = []
+    for s in segs:
+        if s > st.n_seg:
+            break
+        v = dataclasses.replace(st, n_seg=s)
+        want = plain(v, P, k)
+        runs = [("kernel", kern(v, P, k))]
+        if lanes is not None:
+            runs.append(("pre-redesign", lanes_query(lanes, v, P, k)))
+        for what, got in runs:
+            for i, field in enumerate(("sp", "ep", "positions")):
+                same(got[i][:s], want[i][:s],
+                     f"{name} {what} n_seg={s} {field}")
+        done.append(s)
+    return done
+
+
+_L2_FLUSH = []     # the buffer ``cold_ms`` passes over, made at first use
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Median device ms of ``fn`` over ``reps`` calls after one warm-up,
+    each call L2-cold: a pass over 256 MB of random words (read and
+    written: five times the card's 50 MB L2, and not compressible as zeros
+    are) runs before it, as a served batch of new patterns finds the
+    bucket's rows out of L2 (a catalog's rows are ten times the L2).  CUDA
+    events bracket the call alone; the pass gives the host time to queue
+    it, so the events hold device time.  The median drops a stray
+    reading."""
+    import statistics
+
+    import torch
+
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(1 << 26, dtype=torch.int32,
+                                     device="cuda").random_())
+    buf = _L2_FLUSH[0]
+    fn()
+    marks = []
+    for _ in range(reps):
+        buf.add_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
+def in_turns(fns: dict, turns=("old", "new", "new", "old")) -> dict:
+    """L2-cold device ms (``cold_ms``) of each named function of ``fns``
+    timed in ``turns``: every reading, per name in turn order."""
+    out = {name: [] for name in fns}
+    for name in turns:
+        out[name].append(cold_ms(fns[name]))
+    return out
+
+
+def stacked_sweep(st, P, k: int, lanes, latency_ns,
+                  segs=SWEEP_SEGMENTS) -> list:
+    """The port's stacked kernel ("new") and the pre-redesign one ("old")
+    on views of the bucket at n_seg = s for each s of ``segs``: L2-cold
+    device ms of each in turns (old, new, new, old) beside the view's
+    bytes bound and latency floor."""
+    import dataclasses
+
+    kern = stacked_fns(st)[1]
+    rows = []
+    for s in segs:
+        if s > st.n_seg:
+            break
+        v = dataclasses.replace(st, n_seg=s)
+        t = in_turns({"old": lambda: lanes_query(lanes, v, P, k),
+                      "new": lambda: kern(v, P, k)})
+        nbytes, walk = stacked_query_bytes(v, P, k)
+        rows.append(dict(n_seg=s, old_ms=t["old"], new_ms=t["new"],
+                         bound_ms=bound_ms(nbytes),
+                         **latency_floor(v, P, walk, latency_ns)))
+    return rows
 
 
 def catalog_answers(cat, buckets) -> list:
@@ -2176,7 +2402,8 @@ def catalog_config(n: int, merge_log2n: int):
 
 
 def catalog_path(kind: str, toks, n_seg: int, cfg, device="cuda",
-                 requests: int = 1024, seed: int = 8) -> dict:
+                 requests: int = 1024, seed: int = 8, lanes=None,
+                 latency_ns=None) -> dict:
     """One catalog main path: ``SegmentedIndex.from_config`` with
     ``n_seg`` appends of ``np.array_split(toks, n_seg)`` (the launcher's
     --segments), then ``requests`` count and ``requests`` locate requests
@@ -2185,7 +2412,11 @@ def catalog_path(kind: str, toks, n_seg: int, cfg, device="cuda",
     launch; counts by brute force inside the segments and every located
     position; every bucket's answers equal to the sequential path's
     (``parallel=False``: one single-index query per segment); the stacked
-    kernel equal to its plain version on the served buckets.  Returns the
+    kernel equal to its plain version on the served buckets, on
+    ``stacked_edge_cases`` and on the n_seg views of the bucket
+    (``check_views``).  On the card, with ``lanes`` (the pre-redesign
+    kernel) and ``latency_ns`` (the pointer chase): both kernels held to
+    the plain version the same way, then ``stacked_measure``.  Returns the
     record, with ``catalog``, ``pats``, ``launches`` and the kernel's
     ``row`` (its timing on the card) beside it."""
     import numpy as np
@@ -2251,17 +2482,19 @@ def catalog_path(kind: str, toks, n_seg: int, cfg, device="cuda",
     cat.parallel = cfg.serve_parallel_segments
     cases = [(f"requests m={P.shape[1]}", P, k) for P in buckets
              for k in (0, LOCATE_K)]
-    err = check_stacked(st, cases, f"{kind} n={len(toks)}")
-    row = None
+    edge = stacked_edge_cases(st, [s.tokens for s in cat.segments])
+    err = check_stacked(st, cases + edge, f"{kind} n={len(toks)}", lanes)
+    views = check_views(st, buckets[-1], LOCATE_K, lanes)
+    row, measured = None, {}
     if cuda:
         P = pad_patterns(sample_patterns(toks, 1024, seed, 17, 32), 32,
                          device)
-        t = stacked_timing(st, P, LOCATE_K)
-        row = dict(max_abs_err=err, ms=t["ms"], device_ms=t["device_ms"],
-                   plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                   library_ms=None, dependent_steps=t["dependent_steps"],
-                   shape=f"{kind} n={len(toks)} in {n_seg} segments: locate "
-                         f"B=1024, m=32, k={LOCATE_K}")
+        heavy = pad_patterns(sample_patterns(toks, 1024, seed, 3, 8), 8,
+                             device)
+        row, measured = stacked_measure(
+            st, P, heavy, lanes, latency_ns, f"{kind} n={len(toks)} in "
+                                             f"{n_seg} segments")
+        row["max_abs_err"] = err
     rec = {"kind": kind, "n": len(toks), "segments": n_seg,
            "sigma": cat.segments[0].index.sigma, "bits": st.bits,
            "bucket": want_bytes, "append_s": append_s,
@@ -2271,18 +2504,122 @@ def catalog_path(kind: str, toks, n_seg: int, cfg, device="cuda",
            "serve_batches": batches, "launches_build": build_launches,
            "launches_serve": serve, "max_abs_err": err,
            "checks": "stacked == sequential, 16 brute force counts, every "
-                     "located position", **extra}
+                     "located position",
+           "edge_cases": sorted({f"{w} k={k}" for w, _, k in edge}),
+           "views": views, "row": row, **measured, **extra}
     return dict(rec=rec, catalog=cat, pats=pats, launches=launches, row=row)
 
 
+def stacked_measure(st, P, heavy, lanes, latency_ns, what: str) -> tuple:
+    """The stacked kernel on the card at ``P`` (B=1024, m=32) and k =
+    LOCATE_K: its kernels-line row (``stacked_timing`` with the latency
+    floor beside the bytes bound), and the measurements against the
+    pre-redesign kernel: both in turns (``stacked_turns``, also at the
+    short patterns ``heavy``: 1024 of 3 to 8 symbols, the flush's m = 8
+    bucket, most pairs with every slot live), the segment
+    sweep (``stacked_sweep``), registers, resident blocks per SM and waves
+    of both launches, and the packed kernel at each tile
+    (``plan_trial``)."""
+    import torch
+
+    from repro_torch.kernels import fm_query as fq
+
+    t = stacked_timing(st, P, LOCATE_K)
+    row = dict(ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+               bound_ms=t["bound_ms"], library_ms=None,
+               dependent_steps=t["dependent_steps"],
+               **latency_floor(st, P, t["dependent_steps"]["walk"],
+                               latency_ns),
+               shape=f"{what}: locate B={P.shape[0]}, m={P.shape[1]}, "
+                     f"k={LOCATE_K}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    old = occupancy(lanes["stacked_lanes_occupancy"], st)
+    blocks = lanes_blocks(st, P.shape[0], LOCATE_K)
+    old.update(blocks=blocks, sms=sms,
+               waves=waves(blocks, old["blocks_per_sm"], sms))
+    new = dict(fq.stacked_occupancy(st))
+    tile = (fq.stacked_plan(P.shape[0], st.n_seg, new["blocks_per_sm"] * sms)
+            if st.bits else fq.STACKED_THREADS // fq.STACKED_GROUP)
+    grid = fq.stacked_grid(P.shape[0], st.seg_pad, tile)
+    real = fq.stacked_grid(P.shape[0], st.n_seg, tile)
+    new.update(tile=tile, blocks=grid, real_blocks=real,
+               waves=waves(real, new["blocks_per_sm"], sms))
+    measured = {"in_turns": stacked_turns(st, P, heavy, lanes, latency_ns),
+                "occupancy": {"old": old, "new": new},
+                "sweep": stacked_sweep(st, P, LOCATE_K, lanes, latency_ns)}
+    if st.bits:
+        measured["plan_trial"] = plan_trial(st, P, heavy)
+    return row, measured
+
+
+def live_rows(st, P, k: int) -> int:
+    """The walks one launch makes: min(ep - sp, k) summed over the real
+    (segment, pattern) pairs, from the plain version's intervals."""
+    sp, ep, _ = stacked_fns(st)[2](st, P, 0)
+    return int((ep - sp)[: st.n_seg].clamp(max=k).sum())
+
+
+def stacked_turns(st, P, heavy, lanes, latency_ns) -> dict:
+    """The port's kernel ("new") and the pre-redesign one ("old") in
+    turns (old, new, new, old), L2-cold device ms: at ``P`` and k =
+    LOCATE_K, the same for count (k = 0), its first ``SMALL_BATCH``
+    patterns, and the short patterns ``heavy`` (most slots live); each
+    with its latency floor and live rows."""
+    kern = stacked_fns(st)[1]
+    out = {}
+    for what, Q, k in ((f"B={P.shape[0]}", P, LOCATE_K),
+                       (f"B={P.shape[0]} count", P, 0),
+                       (f"B={SMALL_BATCH}", P[:SMALL_BATCH], LOCATE_K),
+                       (f"B={heavy.shape[0]} m={heavy.shape[1]}", heavy,
+                        LOCATE_K)):
+        rec = in_turns({"old": lambda: lanes_query(lanes, st, Q, k),
+                        "new": lambda: kern(st, Q, k)})
+        walk = stacked_query_bytes(st, Q, k)[1]
+        rec.update(latency_floor(st, Q, walk, latency_ns),
+                   live_rows=live_rows(st, Q, k))
+        out[what] = rec
+    return out
+
+
+def plan_trial(st, P, heavy, tiles=(1, 2, 4, 8, 16, 32, 64, 128)) -> dict:
+    """The packed kernel at each tile size of ``tiles`` and at the one
+    ``fm_query.stacked_plan`` picks for each shape: L2-cold (``cold_ms``)
+    device ms at ``P``, its first ``SMALL_BATCH`` patterns and ``heavy``,
+    k = LOCATE_K, each answer equal to the plain version's (the plan set
+    for the trial and restored)."""
+    from repro_torch.kernels import fm_query as fq
+
+    name, kern, plain = stacked_fns(st)
+    shapes = {"ms": P, "small_ms": P[:SMALL_BATCH], "heavy_ms": heavy}
+    want = {what: plain(st, Q, LOCATE_K) for what, Q in shapes.items()}
+    plan, out = fq.stacked_plan, {}
+    try:
+        for tile in (*tiles, "planned"):
+            if tile != "planned":
+                fq.stacked_plan = lambda *args, tile=tile: tile
+            else:
+                fq.stacked_plan = plan
+            for what, Q in shapes.items():
+                got = kern(st, Q, LOCATE_K)
+                for i in range(3):
+                    same(got[i], want[what][i], f"{name} tile {tile} {what}")
+            out[tile] = {what: cold_ms(lambda: kern(st, Q, LOCATE_K))
+                         for what, Q in shapes.items()}
+    finally:
+        fq.stacked_plan = plan
+    return out
+
+
 def catalog_two_bit(cfg, device, log2n: int, requests: int,
-                    n_seg: int = 5, seed: int = 9) -> dict:
+                    n_seg: int = 5, seed: int = 9, lanes=None) -> dict:
     """A small 2-bit catalog (two symbols: with the sentinel and the
     catalog's reserved pad symbol, each segment's sigma is 4) of
     ``n_seg`` segments of unequal length, so that pad segments follow the
     real ones: the 2-bit instantiation of ``fm_query_stacked_packed``
-    against its plain version on every flush bucket (k = 0 and
-    LOCATE_K), and the catalog's answers against the sequential path."""
+    (and of the pre-redesign kernel, given ``lanes``) against its plain
+    version on every flush bucket (k = 0 and LOCATE_K), on
+    ``stacked_edge_cases`` and on the n_seg views, and the catalog's
+    answers against the sequential path."""
     import numpy as np
 
     from repro_torch.core.segments import SegmentedIndex
@@ -2300,15 +2637,44 @@ def catalog_two_bit(cfg, device, log2n: int, requests: int,
             "segments")
     pats = sample_patterns(np.concatenate(docs), requests, seed=seed)
     buckets = flush_buckets(pats, device)
+    edge = stacked_edge_cases(st, docs)
     err = check_stacked(st, [(f"m={P.shape[1]}", P, k) for P in buckets
-                             for k in (0, LOCATE_K)], "2-bit")
+                             for k in (0, LOCATE_K)] + edge, "2-bit", lanes)
+    views = check_views(st, buckets[-1], LOCATE_K, lanes)
     stacked = catalog_answers(cat, buckets)
     cat.parallel = False
     same_answers(stacked, catalog_answers(cat, buckets),
                  "2-bit catalog: stacked against sequential")
     return {"segments": n_seg, "seg_pad": st.seg_pad, "bits": st.bits,
             "n": sum(len(d) for d in docs), "requests": len(pats),
-            "max_abs_err": err}
+            "edge_cases": sorted({f"{w} k={k}" for w, _, k in edge}),
+            "views": views, "max_abs_err": err}
+
+
+def catalog_sweep(kind: str, toks, n_seg: int, cfg, device, lanes,
+                  latency_ns, seed: int = 8) -> dict:
+    """The corpus as a catalog of ``n_seg`` segments (the launcher's
+    --segments split), for the stacked kernels alone: both held to the
+    plain version on the n_seg views, then ``stacked_measure``."""
+    import numpy as np
+
+    from repro_torch.core.segments import SegmentedIndex
+
+    cat = SegmentedIndex.from_config(int(toks.max()) + 1, cfg,
+                                     device=device)
+    for chunk in np.array_split(toks, n_seg):
+        cat.append(chunk)
+    st = cat._stacked()
+    require(st is not None and st.n_seg == n_seg,
+            f"{kind} sweep catalog: not stacked in {n_seg} segments")
+    P = pad_patterns(sample_patterns(toks, 1024, seed, 17, 32), 32, device)
+    heavy = pad_patterns(sample_patterns(toks, 1024, seed, 3, 8), 8, device)
+    views = check_views(st, P, LOCATE_K, lanes)
+    row, measured = stacked_measure(
+        st, P, heavy, lanes, latency_ns, f"{kind} n={len(toks)} in "
+                                         f"{n_seg} segments")
+    return {"kind": kind, "n": len(toks), "segments": n_seg,
+            "views": views, "row": row, **measured}
 
 
 def catalog_growth(cat, docs, pats, device, requests: int = 1024) -> dict:
@@ -2428,28 +2794,40 @@ def catalog_save_load(cat, extra_doc, pats, device) -> dict:
 
 
 def phase_catalog(dna_toks, proteins_log2n: int, merge_log2n: int,
-                  device="cuda", requests: int = 1024):
+                  device="cuda", requests: int = 1024, lanes=None,
+                  chase=None):
     """Phase 8: (a) the DNA corpus in ``DNA_SEGMENTS`` segments
     (``catalog_path``), then phase 7's eight documents appended with
     ``maybe_compact`` (``catalog_growth``), forced k-way and rebuild
     compactions of them on two more catalogs (``catalog_kway``) and save
     -> load (``catalog_save_load``); (b) proteins in ``PROTEIN_SEGMENTS``
-    segments; (c) a small 2-bit catalog (``catalog_two_bit``).  The
+    segments, and on the card the same corpus in 16 segments for the
+    stacked kernel's segment sweep (``catalog_sweep``); (c) a small 2-bit
+    catalog (``catalog_two_bit``).  ``lanes`` (the pre-redesign stacked
+    kernel) and ``chase`` (the pointer chase, for the latency floors) are
+    the card's.  The
     config is the card's, with ``segment_min_tokens`` cut
     to a segment's size when the corpus is (a reduced run) and the
     documents kept under it.  At full size the eight documents compact
     exactly once, at the eighth (the ``compact_max_small`` backstop).
     Returns (record, launches per path, kernels-line rows)."""
+    import functools
+
     import torch
 
     from repro_torch.data.corpus import corpus
 
     cuda = torch.device(device).type == "cuda"
+    latency_ns = None
+    if chase is not None:
+        latency_ns = functools.lru_cache(maxsize=None)(
+            functools.partial(dependent_load_ns, chase))
     cfg, full, top, docs = catalog_config(len(dna_toks), merge_log2n)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    a = catalog_path("dna", dna_toks, DNA_SEGMENTS, cfg, device, requests)
+    a = catalog_path("dna", dna_toks, DNA_SEGMENTS, cfg, device, requests,
+                     lanes=lanes, latency_ns=latency_ns)
     cat = a["catalog"]
     growth = catalog_growth(cat, docs, a["pats"], device, requests)
     require(growth["merges"] >= 1, "growth: the run never compacted")
@@ -2469,11 +2847,16 @@ def phase_catalog(dna_toks, proteins_log2n: int, merge_log2n: int,
     del a["catalog"], cat
     if cuda:
         torch.cuda.empty_cache()
-    b = catalog_path("proteins", corpus("proteins", 1 << proteins_log2n),
-                     PROTEIN_SEGMENTS, cfg, device, requests)
+    prot = corpus("proteins", 1 << proteins_log2n)
+    b = catalog_path("proteins", prot, PROTEIN_SEGMENTS, cfg, device,
+                     requests, lanes=lanes, latency_ns=latency_ns)
     del b["catalog"]
+    sweep16 = None
+    if cuda:
+        sweep16 = catalog_sweep("proteins", prot, DNA_SEGMENTS, cfg, device,
+                                lanes, latency_ns)
     two_bit = catalog_two_bit(cfg, device, min(16, proteins_log2n - 2),
-                              requests // 4)
+                              requests // 4, lanes=lanes)
     if a["row"] is not None:
         a["row"]["max_abs_err"] = max(a["row"]["max_abs_err"],
                                       two_bit["max_abs_err"])
@@ -2481,8 +2864,8 @@ def phase_catalog(dna_toks, proteins_log2n: int, merge_log2n: int,
                 "catalog_proteins": b["launches"]}
     rows = {"fm_query_stacked_packed": a["row"],
             "fm_query_stacked_unpacked": b["row"]}
-    return ({"dna": rec_a, "proteins": b["rec"], "two_bit": two_bit},
-            launches, rows)
+    return ({"dna": rec_a, "proteins": b["rec"], "two_bit": two_bit,
+             "proteins_16_segments": sweep16}, launches, rows)
 
 
 # --------------------------------------------------------------------------
@@ -4928,10 +5311,10 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
          "launches_by_path": {p: v[name] for p, v in path_launches.items()},
          "shape": rows[name]["shape"],
          # merge_walk's plain walks run on small walks only; the query
-         # kernels' chains of dependent steps; the rank kernels on the
-         # distributed indexes of phase 10
+         # kernels' chains of dependent steps (the stacked ones' latency
+         # floors); the rank kernels on the distributed indexes of phase 10
          **{k: rows[name][k] for k in ("plain_shape", "dependent_steps",
-                                       "dist")
+                                       "latency_floor_ms", "dist")
             if k in rows[name]}}
         for name in _build.KERNELS]}
 
@@ -4968,16 +5351,21 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     t0 = time.perf_counter()
-    finish_chase = start_chase_build() if 7 in phases else None
+    finish_chase = start_chase_build() if phases & {7, 8} else None
+    finish_lanes = (start_script_build(LANES_SRC, LANES_ARGTYPES)
+                    if 8 in phases else None)
     try:
         _build.build_all()
     finally:
         chase = finish_chase() if finish_chase else None
+        lanes = finish_lanes() if finish_lanes else None
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "entry function" in ln]
              for name, log in _build.BUILD_LOG.items()}
+    if lanes is not None:
+        ptxas[LANES_SRC.stem] = lanes["ptxas"]
     emit({"phase": 0, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "ptxas": ptxas})
@@ -5093,7 +5481,8 @@ def main(argv=None) -> int:
     if 8 in phases:
         t0 = time.perf_counter()
         rec, launches, stacked_rows = phase_catalog(
-            dna_toks, args.proteins_log2n, args.merge_log2n)
+            dna_toks, args.proteins_log2n, args.merge_log2n, lanes=lanes,
+            chase=chase)
         rec["phase_s"] = time.perf_counter() - t0
         rows.update(stacked_rows)
         for path, counts in launches.items():

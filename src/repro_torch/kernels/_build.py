@@ -75,10 +75,11 @@ SIGNATURES = {
                         _I, _P, _P],
     # stacked catalog: layout (fused, wid | blocks, occ), NB, sigma, (bits),
     # r, n_seg, seg_pad, n_blocks, lengths, C, SA sample (marks, ranks,
-    # vals, MW, MV, rate), patterns, B, m, k, sp, ep, positions, stream
+    # vals, MW, MV, rate), patterns, B, m, k, (the packed entry's tile),
+    # sp, ep, positions, stream
     "fm_query_stacked_packed": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                                _P, _P, _P, _L, _L, _I, _P, _I, _I, _I, _P,
-                                _P, _P, _P],
+                                _P, _P, _P, _L, _L, _I, _P, _I, _I, _I, _I,
+                                _P, _P, _P, _P],
     "fm_query_stacked_unpacked": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                                   _P, _P, _P, _L, _L, _I, _P, _I, _I, _I,
                                   _P, _P, _P, _P],
@@ -184,6 +185,20 @@ def launch(name: str, *args, entry: str | None = None) -> None:
                            f"error {err}")
     with _LOCK:
         LAUNCHES[name] += 1
+
+
+def query(name: str, symbol: str, argtypes, *args) -> int:
+    """Call the C function ``symbol`` of kernel ``name``'s library, of
+    ``argtypes``: a query such as an occupancy, which launches nothing and
+    is not counted; returns its result."""
+    with _LOCK:
+        if symbol not in _entries:
+            fn = getattr(library(KERNELS[name]), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _entries[symbol] = fn
+        fn = _entries[symbol]
+    return fn(*args)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -23,7 +23,12 @@ The stacked wrappers (``fm_query_stacked_packed`` / ``_unpacked``, one
 launch of ``csrc/fm_query_stacked.cu``) take a segment catalog's bucket
 (``core.fm_index.StackedFMIndex``) and answer every pattern against every
 segment: ``(sp, ep)`` int32[S, B] and positions int32[S, B, k], row s
-being segment s's own answer (pad segments: zeros).  Their plain versions
+being segment s's own answer (pad segments: zeros).  The kernel searches
+each (segment, pattern) pair once and walks only its live rows (the first
+min(ep - sp, k)); the packed entry's blocks hold as few pairs as still
+make the launch one resident wave of the card (``stacked_occupancy``,
+``stacked_plan``) and share each block's walks among its threads, the
+unpacked entry's 8 pairs a block of 16 lanes each.  Their plain versions
 are the JAX package's stacked step loops, one batched rank call per step
 over the flat segment x batch lanes.
 """
@@ -328,9 +333,20 @@ def fm_query_stacked_unpacked_plain(st, patterns, k: int = 0):
     return _stacked_steps(st, patterns, k, occ, symbol)
 
 
-def _stacked_launch(name, st, patterns, k, tensors, layout_args):
-    """Check the CUDA arguments, allocate the [S, B] / [S, B, k] outputs
-    and launch ``name`` once for the whole catalog and batch."""
+def stacked_launch_args(name, st, patterns, k: int):
+    """Check the CUDA arguments of stacked kernel ``name`` (the bucket's
+    layout) and allocate its [S, B] / [S, B, k] outputs; returns the
+    outputs ``(sp, ep, positions)`` and the C arguments up to ``k``: the
+    layout, the bucket's strides and per-segment vectors, the SA sample,
+    the patterns, B, m and k."""
+    if st.bits:
+        tensors = (st.fused,)
+        layout = (st.fused.data_ptr(), st.fused.shape[1], st.blocks_pad,
+                  st.sigma, st.bits, st.sample_rate)
+    else:
+        tensors = (st.blocks, st.occ)
+        layout = (st.blocks.data_ptr(), st.occ.data_ptr(), st.blocks_pad,
+                  st.sigma, st.sample_rate)
     sample, MW, MV = (), 0, 0
     if k:
         if st.sa_sample_rate == 0 or st.sa_marks is None:
@@ -344,17 +360,80 @@ def _stacked_launch(name, st, patterns, k, tensors, layout_args):
         raise ValueError(f"{name}: patterns must be int32[B, m], k >= 0")
     S, (B, m) = st.seg_pad, patterns.shape
     dev = patterns.device
-    sp = torch.empty((S, B), dtype=torch.int32, device=dev)
-    ep = torch.empty((S, B), dtype=torch.int32, device=dev)
-    pos = torch.empty((S, B, k), dtype=torch.int32, device=dev)
-    if B:
-        ptrs = [t.data_ptr() for t in sample] or [None] * 3
-        _build.launch(name, *layout_args, st.n_seg, S, st.n_blocks.data_ptr(),
-                      st.lengths.data_ptr(), st.c_array.data_ptr(), *ptrs,
-                      MW, MV, st.sa_sample_rate if k else 0,
-                      patterns.data_ptr(), B, m, k, sp.data_ptr(),
-                      ep.data_ptr(), pos.data_ptr())
-    return sp, ep, pos
+    out = (torch.empty((S, B), dtype=torch.int32, device=dev),
+           torch.empty((S, B), dtype=torch.int32, device=dev),
+           torch.empty((S, B, k), dtype=torch.int32, device=dev))
+    ptrs = [t.data_ptr() for t in sample] or [None] * 3
+    return out, (*layout, st.n_seg, S, st.n_blocks.data_ptr(),
+                 st.lengths.data_ptr(), st.c_array.data_ptr(), *ptrs, MW, MV,
+                 st.sa_sample_rate if k else 0, patterns.data_ptr(), B, m, k)
+
+
+STACKED_THREADS = 128   # threads a block of the stacked kernels
+STACKED_GROUP = 16      # unpacked: lanes that search one pair together
+# the C occupancy query's argument types: unpacked, bits, sigma, out
+OCCUPANCY_ARGTYPES = ("c_int", "c_int", "c_int", "c_void_p")
+_occupancy: dict = {}
+
+
+def stacked_occupancy(st) -> dict:
+    """Registers, spilled bytes and resident blocks per SM of the bucket's
+    stacked kernel on its card (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), with the card's
+    SMs; asked once per kernel and card."""
+    import ctypes
+
+    dev = st.c_array.device
+    key = (dev.index, st.bits, st.sigma)
+    if key not in _occupancy:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            err = _build.query(
+                "fm_query_stacked_packed", "fm_query_stacked_occupancy",
+                [getattr(ctypes, t) for t in OCCUPANCY_ARGTYPES],
+                0 if st.bits else 1, st.bits or 4, st.sigma, out)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if err:
+            raise RuntimeError(f"fm_query_stacked_occupancy failed: CUDA "
+                               f"error {err}")
+        _occupancy[key] = dict(zip(("blocks_per_sm", "registers", "threads",
+                                    "local_bytes"), list(out)), sms=sms)
+    return _occupancy[key]
+
+
+def stacked_plan(B: int, n_seg: int, resident: int) -> int:
+    """Pairs (segment, pattern) a block of a packed stacked launch, whose
+    grid is a block for each ``tile`` pairs of each segment: the fewest
+    whose real segments' blocks fit the ``resident`` blocks the card holds
+    at once, so that the launch is one resident wave spread over the most
+    blocks (the pairs' searches over the most SMs, the most threads for
+    their walks); 128 (a lane a pair) when none does.  ceil(B / tile)
+    blocks a segment fit ``resident // n_seg`` just when tile >= B over
+    it."""
+    per_seg = resident // n_seg
+    return min(-(-B // per_seg), STACKED_THREADS) if per_seg else \
+        STACKED_THREADS
+
+
+def stacked_grid(B: int, seg_pad: int, tile: int) -> int:
+    """Blocks of a stacked launch: one for each ``tile`` pairs of each of
+    the bucket's segments (the unpacked entry's tile is 8 pairs, 16 lanes
+    a pair)."""
+    return seg_pad * -(-B // tile)
+
+
+def _stacked_launch(name, st, patterns, k):
+    """Launch ``name`` once for the whole catalog and batch; the packed
+    entry in tiles of ``stacked_plan``'s size."""
+    out, args = stacked_launch_args(name, st, patterns, k)
+    if patterns.shape[0]:
+        plan = ()
+        if st.bits:
+            occ = stacked_occupancy(st)
+            plan = (stacked_plan(patterns.shape[0], st.n_seg,
+                                 occ["blocks_per_sm"] * occ["sms"]),)
+        _build.launch(name, *args, *plan, *(t.data_ptr() for t in out))
+    return out
 
 
 @traffic.reports("fm_query_stacked_packed",
@@ -369,10 +448,7 @@ def fm_query_stacked_packed(st, patterns, k: int = 0):
                          f"(bits={st.bits}, sigma={st.sigma})")
     if _build.on_cpu(fused, st.c_array, patterns):
         return fm_query_stacked_packed_plain(st, patterns, k)
-    return _stacked_launch("fm_query_stacked_packed", st, patterns, k,
-                           (fused,), (fused.data_ptr(), fused.shape[1],
-                                      st.blocks_pad, st.sigma, st.bits,
-                                      st.sample_rate))
+    return _stacked_launch("fm_query_stacked_packed", st, patterns, k)
 
 
 @traffic.reports("fm_query_stacked_unpacked",
@@ -383,7 +459,4 @@ def fm_query_stacked_unpacked(st, patterns, k: int = 0):
     otherwise."""
     if _build.on_cpu(st.blocks, st.occ, st.c_array, patterns):
         return fm_query_stacked_unpacked_plain(st, patterns, k)
-    return _stacked_launch("fm_query_stacked_unpacked", st, patterns, k,
-                           (st.blocks, st.occ), (
-                               st.blocks.data_ptr(), st.occ.data_ptr(),
-                               st.blocks_pad, st.sigma, st.sample_rate))
+    return _stacked_launch("fm_query_stacked_unpacked", st, patterns, k)

@@ -303,7 +303,10 @@ def test_stacked_bound_sums_the_segments(pack):
 def test_phase_catalog_runs_on_the_cpu():
     """Phase 8 at a tiny size on the CPU (plain versions, no launch): the
     catalog's checks pass (the 2-bit catalog's too), segment_min_tokens shrinks with the corpus, the
-    growth compacts and the save -> load and second save pass."""
+    growth compacts and the save -> load and second save pass; every
+    bucket's edge cases (k = 0, 1, 16, 64) and n_seg views up to its own
+    were held to the plain version; the card's records (the kernels-line
+    rows, the 16-segment proteins sweep) are empty here."""
     from repro_torch.data.corpus import corpus
 
     rec, launches, rows = chip_smoke.phase_catalog(
@@ -321,6 +324,115 @@ def test_phase_catalog_runs_on_the_cpu():
     assert all(set(v.values()) == {0} for v in launches.values())
     assert rows == {"fm_query_stacked_packed": None,
                     "fm_query_stacked_unpacked": None}
+    edge = ["edge k=0", "edge k=1", "edge k=16", "edge k=64"]
+    for r, views in ((dna, [1, 2, 4, 8, 16]), (prot, [1, 2, 4]),
+                     (two_bit, [1, 2, 4])):
+        assert r["edge_cases"] == edge and r["views"] == views
+    assert dna["row"] is None and "sweep" not in dna
+    assert rec["proteins_16_segments"] is None
+
+
+@pytest.mark.parametrize("pack", [None, False])
+def test_latency_floor_by_hand(pack):
+    """The longest pattern's symbols (PADs load nothing), then the walk's
+    steps (one round trip a step packed, two unpacked) and the value, at
+    the chase's latency over the bucket's row words."""
+    import torch
+
+    fms, st = _small_catalog(pack)
+    P = torch.full((3, 8), -1, dtype=torch.int32)
+    P[0, :5] = 1
+    P[1, :7] = 2                       # the longest: 7 search steps
+    P[2, :2] = 3
+    seen = []
+
+    def ns(words):
+        seen.append(words)
+        return 250.0
+
+    floor = chip_smoke.latency_floor(st, P, 4, ns)
+    per_step = 1 if st.bits else 2
+    words = (st.fused.numel() if st.bits
+             else st.blocks.numel() + st.occ.numel())
+    assert seen == [words]
+    assert floor["dependent_loads"] == 7 + 4 * per_step + 1
+    assert floor["latency_floor_ms"] == pytest.approx(
+        (7 + 4 * per_step + 1) * 250.0 / 1e6)
+    count = chip_smoke.latency_floor(st, P, 0, ns)   # count: no walk
+    assert count["dependent_loads"] == 7
+
+
+def test_pre_redesign_launch_geometry_by_hand():
+    """The replaced kernel's grid: 128-thread blocks over B x max(k, 1)
+    lanes (packed) or B x 16 per 16 slots (unpacked), times seg_pad; waves
+    over the card's resident blocks."""
+    import types
+
+    packed = types.SimpleNamespace(bits=4, seg_pad=16)
+    unpacked = types.SimpleNamespace(bits=0, seg_pad=4)
+    assert chip_smoke.lanes_blocks(packed, 1024, 16) == 2048
+    assert chip_smoke.lanes_blocks(packed, 1024, 0) == 128
+    assert chip_smoke.lanes_blocks(packed, 64, 16) == 128
+    assert chip_smoke.lanes_blocks(unpacked, 1024, 16) == 512
+    assert chip_smoke.lanes_blocks(unpacked, 1024, 17) == 1024
+    assert chip_smoke.lanes_blocks(unpacked, 1024, 0) == 512
+    assert chip_smoke.waves(2048, 10, 132) == pytest.approx(1.5515, 1e-4)
+
+
+def test_pre_redesign_source_declares_its_signatures():
+    """The pre-redesign kernel's C entries take as many parameters as the
+    argument types chip_smoke passes (a file read, no nvcc)."""
+    import re
+
+    src = chip_smoke.LANES_SRC.read_text()
+    for entry, types_ in chip_smoke.LANES_ARGTYPES.items():
+        m = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src)
+        assert m and len(m.group(1).split(",")) == len(types_), entry
+
+
+def test_check_views_refuses_a_wrong_row(monkeypatch):
+    """A kernel whose row of a real segment of a cut view differs from
+    the plain version's fails; rows past the cut are not compared."""
+    import torch
+
+    fms, st = _small_catalog(None, seg_pad=4)
+    P = torch.tensor([[1, 2, -1], [3, 1, -1]], dtype=torch.int32)
+    name, kern, plain = chip_smoke.stacked_fns(st)
+
+    def past_the_cut(v, P, k):
+        sp, ep, pos = plain(v, P, k)
+        sp = sp.clone()
+        sp[v.n_seg:] += 1              # rows of pad segments: not compared
+        return sp, ep, pos
+
+    monkeypatch.setattr(chip_smoke, "stacked_fns",
+                        lambda st: (name, past_the_cut, plain))
+    assert chip_smoke.check_views(st, P, 2) == [1, 2]
+
+    def wrong(v, P, k):
+        sp, ep, pos = plain(v, P, k)
+        return sp, ep + (v.n_seg == 2), pos
+
+    monkeypatch.setattr(chip_smoke, "stacked_fns",
+                        lambda st: (name, wrong, plain))
+    with pytest.raises(AssertionError, match="n_seg=2 ep"):
+        chip_smoke.check_views(st, P, 2)
+
+
+def test_edge_cases_aim_at_the_walk_list():
+    """All-PAD, every length-1 pattern, out-of-alphabet symbols and a cut
+    from inside the second segment, padded to 128, at k = 0, 1, 16, 64."""
+    import numpy as np
+    import torch
+
+    fms, st = _small_catalog(None)
+    toks = [np.arange(1, 301, dtype=np.int32) % 5 + 1 for _ in range(3)]
+    cases = chip_smoke.stacked_edge_cases(st, toks)
+    assert [k for _, _, k in cases] == [0, 1, 16, 64]
+    E = cases[0][1]
+    assert E.shape[1] == 128 and bool((E[0] == -1).all())
+    cut = torch.as_tensor(toks[1][150:190])
+    assert any(bool((row[:40] == cut).all()) for row in E)
 
 
 def test_kernels_line_lists_every_kernel_with_every_key():
