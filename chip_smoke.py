@@ -14,8 +14,10 @@ script exits nonzero and prints no final result:
   1  every kernel against its plain PyTorch version on the card (exact
      equality: all outputs are integers), timed beside its bound and,
      where one exists, a single PyTorch library call; torch.profiler gives
-     each kernel's device time alone, per launch it recorded.  rerank_scan
-     on an edge sweep (tile edges, aliased and misaligned operands, runs
+     each kernel's device time alone, per launch it recorded; the
+     single-batch rank kernels' latency floors (one dependent load over
+     their operand, from scripts/pointer_chase.cu, plus an empty
+     launch).  rerank_scan on an edge sweep (tile edges, aliased and misaligned operands, runs
      of whole tiles, INT32_MAX tails) and timed on the q-gram words (also
      aliased), the seed builder's first-round pairs, all-equal pairs at
      2^28 and 2^14 pairs, each beside a streaming torch.add of the same
@@ -50,19 +52,24 @@ script exits nonzero and prints no final result:
   7  the rebuild-free BWT merge: the merge_walk kernel against its plain
      walks on small walks (about 2^12 steps; pairwise and k-way, packed and
      unpacked, k = 2, 3, 8, 33; a 1100-segment run against the rebuild),
-     then three merges of documents prepared as segment appends (r = 64,
-     SA stride 32): (a) DNA k-way over eight documents of 2^20, 2^19 x 2,
-     2^18 x 2 and 2^17 x 3 tokens, (b) the pairwise fold of the same eight,
-     (c) proteins k-way over 2^19, 2^18 x 2 and 2^17, each run once
-     through the entry points.  Each walk's ins equals the one the
-     suffix arrays of the documents and of the rebuild imply; each merge
-     equals the rebuild of the concatenation in every field and answers
-     1024 count and 1024 locate requests identically; each walk is one
-     merge_walk launch, rank kernels launch only for the fold's batched LF
-     maps; walk time beside its latency bound (one dependent load per
-     step x one load's latency, from scripts/pointer_chase.cu over the
-     left operand's size), precompute, splice + build_fm_index, the
-     rebuild, and the card's merge cost constants
+     each also at the SA rate's seed stride and twice it, and its seeds'
+     meeting steps equal to the plain chained model's
+     (merge_walk.chained_walk), then three merges of documents prepared as
+     segment appends (r = 64, SA stride 32): (a) DNA k-way over eight
+     documents of 2^20, 2^19 x 2, 2^18 x 2 and 2^17 x 3 tokens, (b) the
+     pairwise fold of the same eight, (c) proteins k-way over 2^19, 2^18 x
+     2 and 2^17, each run once through the entry points.  Each walk's ins
+     equals the one the suffix arrays of the documents and of the rebuild
+     imply, its seeds' meeting steps the model's; each merge equals the
+     rebuild of the concatenation in every field and answers 1024 count
+     and 1024 locate requests identically; each walk is one merge_walk
+     launch and one rank launch (the walked rows' LF map); per walk its
+     chains (seed stride, chains, seeds met / tried, median and maximum
+     steps to meet, longest chain), its time beside its bytes bound and
+     its latency floor (the longest chain's steps, seed included, x one
+     load's latency, from scripts/pointer_chase.cu over the left
+     operand's size), precompute, splice + build_fm_index, the rebuild,
+     and the card's merge cost constants
   8  the segmented catalog: (a) the DNA corpus of phase 2 split into 16
      segments as the launcher's --segments does (SegmentedIndex.from_config,
      the card's config), 1024 count + 1024 locate requests through
@@ -227,10 +234,9 @@ its perf bwt_build) and read just after it.  Then a ``kernels`` line
 (launches on the main paths of phases 2-3, 7-10, phase 12's screen and
 phase 13, and on each path, parity error, times and bounds), the card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
-kernel time under its bound (bytes over the card's HBM peak; for the
-merge walks their dependent loads' latency) fails the run as a broken
-measurement.  Exits nonzero without a result when no CUDA device is
-present.
+kernel time under its bound (bytes over the card's HBM peak), or a merge
+walk under its latency floor, fails the run as a broken measurement.
+Exits nonzero without a result when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -412,7 +418,28 @@ def rank_select_bytes(blocks, blk, cut) -> int:
     return rank_select_bytes(blocks, blk, cut)
 
 
-def phase_kernels(log2n_dna: int):
+def empty_launch_ms(chase) -> float:
+    """Device milliseconds of a launch that does no work: the pointer
+    chase ``chase`` at 0 steps (one thread writes one word), per recorded
+    launch of the profiler (``kernel_device_ms``)."""
+    import torch
+
+    nxt = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+
+    def run():
+        err = chase(nxt.data_ptr(), 0, out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"pointer chase launch failed: CUDA error {err}")
+
+    return kernel_device_ms(run, "chase_kernel")
+
+
+def phase_kernels(log2n_dna: int, chase=None):
+    """Phase 1's kernels against their plain versions; with ``chase``
+    (``start_chase_build``) the single-batch rank kernels' latency floors:
+    one dependent load over their operand's words (every query's row loads
+    issued together) plus an empty launch."""
     import torch
 
     from repro_torch.kernels import radix_sort as rs
@@ -557,6 +584,13 @@ def phase_kernels(log2n_dna: int):
     }
     for name, fn in calls.items():
         rows[name]["device_ms"] = kernel_device_ms(fn, f"{name}_kernel")
+    if chase is not None:
+        empty = empty_launch_ms(chase)
+        for name, words in (("rank_packed", fused_p.numel()),
+                            ("rank_select", blocks.numel())):
+            lat = dependent_load_ns(chase, words)
+            rows[name].update(latency_ns=lat, empty_launch_ms=empty,
+                              latency_floor_ms=lat / 1e6 + empty)
     del keys, ops3
     torch.cuda.empty_cache()
     return rows
@@ -1704,28 +1738,37 @@ def dependent_load_ns(chase, n: int, steps: int = 1 << 16,
 @contextlib.contextmanager
 def observed_merge(device):
     """Run the merge entry points as they are while recording what they
-    call in ``core/bwt_merge``: each precompute (``_pairwise_walk_inputs``
-    / ``_kway_walk_inputs``) timed between two synchronizes, and each walk
-    (``merge_walk`` / ``kway_walk``, one kernel launch on the card) timed
-    the same way and, on the card, by CUDA events around it, with its
-    arguments and its ``ins`` kept.  Yields {"pre_s": [seconds],
-    "walks": [{"args", "kw", "ins", "s", "device_ms"}]} in call order; the
-    module's functions are restored on exit."""
+    call in ``core/bwt_merge``: the precompute of each walk
+    (``_pairwise_walk_inputs`` / ``_kway_walk_inputs`` and
+    ``_walk_seeds``; an outermost call timed between two synchronizes, the
+    calls before a walk summed) and each walk (``merge_walk`` /
+    ``kway_walk``, one kernel launch on the card) timed the same way and,
+    on the card, by CUDA events around it, with its name, arguments and
+    ``ins`` kept.  Yields {"pre_s": [seconds], "walks": [{"name", "args",
+    "kw", "ins", "s", "device_ms"}]} in call order; the module's functions
+    are restored on exit."""
     import torch
 
     from repro_torch.core import bwt_merge as bm
 
     cuda = torch.device(device).type == "cuda"
     seen = {"pre_s": [], "walks": []}
+    pending, depth = [0.0], [0]
 
     def precompute(fn):
         def run(*args, **kw):
-            out, s = timed(lambda: fn(*args, **kw), device)
-            seen["pre_s"].append(s)
+            if depth[0]:
+                return fn(*args, **kw)
+            depth[0] += 1
+            try:
+                out, s = timed(lambda: fn(*args, **kw), device)
+            finally:
+                depth[0] -= 1
+            pending[0] += s
             return out
         return run
 
-    def walk(fn):
+    def walk(fn, name):
         def run(*args, **kw):
             events = None
             if cuda:
@@ -1740,15 +1783,19 @@ def observed_merge(device):
                 events[1].record()
             _sync(device)
             seen["walks"].append(dict(
-                args=args, kw=kw, ins=ins, s=time.perf_counter() - t0,
+                name=name, args=args, kw=kw, ins=ins,
+                s=time.perf_counter() - t0,
                 device_ms=events[0].elapsed_time(events[1]) if events
                 else None))
+            seen["pre_s"].append(pending[0])
+            pending[0] = 0.0
             return ins
         return run
 
     wraps = {"_pairwise_walk_inputs": precompute,
-             "_kway_walk_inputs": precompute,
-             "merge_walk": walk, "kway_walk": walk}
+             "_kway_walk_inputs": precompute, "_walk_seeds": precompute,
+             "merge_walk": lambda fn: walk(fn, "merge_walk"),
+             "kway_walk": lambda fn: walk(fn, "kway_walk")}
     saved = {name: getattr(bm, name) for name in wraps}
     for name, wrap in wraps.items():
         setattr(bm, name, wrap(saved[name]))
@@ -1757,6 +1804,95 @@ def observed_merge(device):
     finally:
         for name, fn in saved.items():
             setattr(bm, name, fn)
+
+
+# the plain walks take a walk's layout arguments only: the pairwise walk's
+# first 7, the k-way walk's first 8 (no clf, no seeds)
+PLAIN_ARGS = {"merge_walk": 7, "kway_walk": 8}
+
+
+def plain_walk(w):
+    """The plain walk of an observed walk ``w``, on its arguments."""
+    from repro_torch.kernels import merge_walk as mw
+
+    plain = (mw.merge_walk_plain if w["name"] == "merge_walk"
+             else mw.kway_walk_plain)
+    return plain(*w["args"][:PLAIN_ARGS[w["name"]]],
+                 **{k: w["kw"][k] for k in ("sigma", "bits", "r")})
+
+
+def walk_form(w):
+    """(``WalkForm``, seeds, walked lengths) of an observed walk, for the
+    plain chained model."""
+    from repro_torch.kernels import merge_walk as mw
+
+    args, kw = w["args"], {k: w["kw"][k] for k in ("sigma", "bits", "r")}
+    if w["name"] == "merge_walk":
+        seeds = args[7] if len(args) > 7 else w["kw"].get("seeds")
+        return (mw.pairwise_form(*args[:7], **kw), seeds,
+                [args[5].shape[0]])
+    return mw.kway_form(*args[:9], **kw), args[9], list(args[7][1:])
+
+
+def walk_chains(w, device, want, what: str, strides=()) -> dict:
+    """The chains of an observed walk ``w``: on the card its wrapper
+    called again with a report (the plan, the seed table, the seeds'
+    meeting steps; its ``ins`` equal to ``want``) and the plain chained
+    model on the same seed table, whose ``ins`` must equal ``want`` and
+    whose meeting steps the kernel's; then the wrapper at each of
+    ``strides`` too, each ``ins`` equal to ``want``, and the kernel's
+    device time alone (``kernel_device_ms``: the profiler over 20 calls of
+    the wrapper, per recorded launch).  On the CPU (the plain walk ran:
+    one chain) the model alone, at twice the SA rate.  Returns
+    ``merge_walk.chain_stats`` with the stride, the source of the chains
+    and the bytes the wrapper reports (``kernels/traffic.py``)."""
+    import types
+
+    import torch
+
+    from repro_torch.kernels import merge_walk as mw
+    from repro_torch.kernels import traffic
+
+    form, seeds, lens = walk_form(w)
+    steps = sum(lens) - 1
+    wrapper = getattr(mw, w["name"])
+    moved = {}
+    sink = types.SimpleNamespace(
+        kernel_bytes=lambda name, n: moved.__setitem__(name, n))
+    rep = {}
+    with traffic.recording(sink):
+        ins = wrapper(*w["args"], **w["kw"], report=rep)
+    out = {"bytes": moved["merge_walk"]}
+    if torch.device(device).type == "cuda":
+        same(ins, want, f"{what} (called again)")
+        table, stride = rep["seeds"], rep["plan"]["stride"]
+        meets = rep["meets"]
+        out.update(source="kernel", registers=rep["plan"].get("registers"),
+                   blocks_per_sm=rep["plan"].get("blocks_per_sm"))
+        kernel = ("pairwise_kernel" if w["name"] == "merge_walk" else
+                  "kway_chain_kernel" if mw.chain_lanes(len(lens) + 1)
+                  else "kway_block_kernel")
+        out["kernel"] = kernel
+        out["kernel_device_ms"] = kernel_device_ms(
+            lambda: wrapper(*w["args"], **w["kw"]), kernel)
+        for extra in strides:
+            if seeds is not None and extra != stride:
+                same(wrapper(*w["args"], **w["kw"], stride=extra), want,
+                     f"{what} at stride {extra}")
+    else:
+        stride = 2 * seeds.rate if seeds is not None else 0
+        table = (mw.seed_table(seeds, lens, stride) if stride else
+                 torch.zeros((0, 4), dtype=torch.int32))
+        meets = None
+        out["source"] = "plain model"
+    model = mw.chained_walk(form, table)
+    same(model["ins"], want, f"{what}: the chained model", ref="plain")
+    if meets is not None:
+        same(meets, model["meets"], f"{what}: the seeds' meeting steps",
+             ref="the plain model's")
+    else:
+        meets = model["meets"]
+    return {"stride": stride, **mw.chain_stats(table, meets, steps), **out}
 
 
 def prepared_indexes(docs, sigma_decl: int, device):
@@ -1827,18 +1963,49 @@ def expected_ins(flavour: str, sas, sa_u, lens) -> list:
     return out
 
 
+def stride_sweep(w, strides) -> list:
+    """The kernel of an observed walk ``w`` on the card at each seed stride
+    of ``strides``: its device time alone (``kernel_device_ms``) beside
+    its chains (fewer, longer chains as the stride grows: how a step's
+    time moves with the chains in flight)."""
+    from repro_torch.kernels import merge_walk as mw
+
+    _, _, lens = walk_form(w)
+    wrapper = getattr(mw, w["name"])
+    kernel = ("pairwise_kernel" if w["name"] == "merge_walk"
+              else "kway_chain_kernel")
+    out = []
+    for stride in strides:
+        rep = {}
+        wrapper(*w["args"], **w["kw"], stride=stride, report=rep)
+        stats = mw.chain_stats(rep["seeds"], rep["meets"], sum(lens) - 1)
+        ms = kernel_device_ms(
+            lambda: wrapper(*w["args"], **w["kw"], stride=stride), kernel)
+        out.append({"stride": stride, "kernel_device_ms": ms,
+                    "chains": stats["chains"],
+                    "longest_chain": stats["longest_chain"],
+                    "us_per_longest_step": ms * 1e3
+                    / stats["longest_chain"]})
+    return out
+
+
 def merge_walk_parity(device="cuda", log2n: int = 12, ks=(2, 3, 8, 33),
-                      many: int = 1100) -> tuple[int, list, dict]:
+                      many: int = 1100,
+                      chains: dict | None = None) -> tuple[int, list, dict]:
     """``merge_walk`` against its plain walks on the same tensors, on small
     walks of about 2^log2n steps: the walk each merge entry point launched
     (``observed_merge``) held against the plain walk of its arguments,
     pairwise and k-way over ``ks``, packed (DNA, 4-bit) and unpacked
-    (proteins), and each merge equal to the rebuild.  Then a run of
-    ``many`` one- and two-token segments (past 1024 lanes the block kernel
-    strides its threads over the lanes) merged and held against the
-    rebuild.  Returns (max error, cases, the kernel's ms (CUDA events,
+    (proteins), and each merge equal to the rebuild; each walk's chains
+    (``walk_chains``: the kernel again at the plan's stride, at the SA rate
+    and at twice it, the plain chained model on the plan's seeds, its
+    meeting steps the kernel's).  Then a run of ``many`` one- and
+    two-token segments (past 32 lanes one chain; past 1024 the block
+    kernel strides its threads over the lanes) merged and held against
+    the rebuild.  Returns (max error, cases, the kernel's ms (CUDA events,
     five calls) and the plain walk's (host clock, the parity call) on the
-    DNA pairwise and k = 8 walks; empty off the card)."""
+    DNA pairwise and k = 8 walks; empty off the card); ``chains``, a dict,
+    receives each case's chains."""
     import torch
 
     from repro_torch.core import bwt_merge as bm
@@ -1848,19 +2015,23 @@ def merge_walk_parity(device="cuda", log2n: int = 12, ks=(2, 3, 8, 33),
 
     cuda = torch.device(device).type == "cuda"
     err, cases, times = 0, [], {}
+    chains = {} if chains is None else chains
 
-    def walked(merge, preps, sig, plain, what):
-        """The one walk ``merge`` launches, held against ``plain`` on its
-        arguments; the merge held against the rebuild.  (walk, plain s)"""
+    def walked(merge, preps, sig, what):
+        """The one walk ``merge`` launches, held against its plain walk
+        and its chains checked; the merge held against the rebuild.
+        (walk, plain s)"""
         with observed_merge(device) as seen:
             merged = merge()
         require(len(seen["walks"]) == 1, f"{what}: one walk per merge")
         mm = fm_mismatch(merged, rebuild(preps, sig, device).fm)
         require(mm == [], f"{what}: merge != rebuild: {mm}")
         w = seen["walks"][0]
-        want, plain_s = timed(lambda: plain(*w["args"], **w["kw"]), device)
+        want, plain_s = timed(lambda: plain_walk(w), device)
         nonlocal err
         err = max(err, same(w["ins"], want, what))
+        chains[what] = walk_chains(w, device, want, what,
+                                   strides=(MERGE_SRATE, 2 * MERGE_SRATE))
         return w, plain_s
 
     for kind, sig_decl in (("dna", 6), ("proteins", 22)):
@@ -1868,8 +2039,7 @@ def merge_walk_parity(device="cuda", log2n: int = 12, ks=(2, 3, 8, 33),
             [corpus(kind, 1 << (log2n - 1), seed=1),
              corpus(kind, 1 << log2n, seed=2)], sig_decl, device)
         w, plain_s = walked(lambda: bm.merge_fm_indexes(left, right), preps,
-                            sig, mw.merge_walk_plain,
-                            f"merge_walk pairwise {kind}")
+                            sig, f"merge_walk pairwise {kind}")
         cases.append(f"pairwise {kind} bits={left.bits} "
                      f"steps={right.length - 1}")
         if cuda and kind == "dna":
@@ -1883,7 +2053,6 @@ def merge_walk_parity(device="cuda", log2n: int = 12, ks=(2, 3, 8, 33),
                 for i in range(k - 1)]
             preps, sig, fms, _ = prepared_indexes(docs, sig_decl, device)
             w, plain_s = walked(lambda: bm.merge_kway(fms), preps, sig,
-                                mw.kway_walk_plain,
                                 f"merge_walk k-way {kind} k={k}")
             steps = bm.kway_walk_steps(f.length for f in fms)
             cases.append(f"k-way {kind} k={k} steps={steps}")
@@ -1905,7 +2074,8 @@ def merge_walk_parity(device="cuda", log2n: int = 12, ks=(2, 3, 8, 33),
 
 
 def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
-              device="cuda", latency_ns=None) -> tuple[dict, dict]:
+              device="cuda", latency_ns=None,
+              sweep=()) -> tuple[dict, dict]:
     """One merge path at real scale: documents of 2^(log2n - d) tokens for
     d in ``shape``, merged k-way or by the pairwise fold (the accumulator
     starts from the last document, each earlier one merges in on its
@@ -1915,12 +2085,17 @@ def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
     merge's time).  Then the rebuild of the concatenation and the checks:
     each walk's ``ins`` equal to the one the suffix arrays imply
     (``expected_ins``), the merge equal to the rebuild in every field,
-    1024 count and 1024 locate (k = 16) answers equal, one walk launch per
-    walk, and rank launches only for the pairwise precomputes.  With
-    ``latency_ns(n)`` (ns of one dependent load over n words) each walk
-    gets its bound, steps x latency (one dependent row fetch per step,
-    either flavour), and a walk under it fails.  Returns (record,
-    launches)."""
+    1024 count and 1024 locate (k = 16) answers equal, one walk launch and
+    one rank launch (the walked rows' LF map) per walk.  Each walk's chains
+    (``walk_chains``: on the card the kernel's seeds and their meeting
+    steps, equal to the plain chained model's) and its bytes bound (the
+    bytes its wrapper reports over the HBM peak): a walk's device time
+    under it fails.  With ``latency_ns(n)`` (ns of one dependent load over
+    n words) each walk gets its latency floor, ``bound_s``: its longest
+    chain's steps, seed included, x latency (one dependent row fetch a
+    step, either flavour), and a walk under it fails.  On the card the
+    last walk is also timed at each seed stride of ``sweep``
+    (``stride_sweep``).  Returns (record, launches)."""
     import math
 
     import numpy as np
@@ -1952,8 +2127,7 @@ def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
     cuda = torch.device(device).type == "cuda"
     n_walks = 1 if flavour == "kway" else len(fms) - 1
     rank = "rank_packed" if bits else "rank_select"
-    want = {"merge_walk": n_walks, "char_histogram": n_walks,
-            rank: 0 if flavour == "kway" else n_walks,
+    want = {"merge_walk": n_walks, "char_histogram": n_walks, rank: n_walks,
             ("rank_select" if bits else "rank_packed"): 0}
     for name, n in want.items():
         got = launches[name]
@@ -1964,11 +2138,13 @@ def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
             f"{kind} {flavour}: {len(walks)} walks observed, want {n_walks}")
 
     built, rebuild_s = timed(lambda: rebuild(preps, sig, device), device)
-    err = 0
+    err, chains = 0, []
     for i, (w, ins) in enumerate(zip(walks, expected_ins(flavour, sas,
                                                          built.sa, lens))):
         err = max(err, same(w["ins"], ins, f"{kind} {flavour} walk {i}",
                             ref="the rebuild's suffix arrays"))
+        chains.append(walk_chains(w, device, ins, f"{kind} {flavour} walk "
+                                                  f"{i}"))
     mm = fm_mismatch(merged, built.fm)
     require(mm == [], f"{kind} {flavour}: merge != rebuild: {mm}")
     pats = sample_patterns(np.concatenate(docs), 1024, seed=70)
@@ -1986,17 +2162,24 @@ def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
         shapes = [(lens[d], sum(lens[d + 1:]) - 1, sum(lens[d:]))
                   for d in range(len(lens) - 2, -1, -1)]
     stages = []
-    for (left_n, steps, merged_n), w, pre_s in zip(shapes, walks,
-                                                   seen["pre_s"]):
+    for (left_n, steps, merged_n), w, pre_s, ch in zip(
+            shapes, walks, seen["pre_s"], chains):
         st = dict(left_n=left_n, steps=steps, merged_n=merged_n,
                   precompute_s=pre_s, walk_s=w["s"],
                   walk_device_ms=w["device_ms"],
-                  us_per_step=w["s"] * 1e6 / max(steps, 1))
+                  us_per_step=w["s"] * 1e6 / max(steps, 1), chains=ch,
+                  bytes_bound_ms=bound_ms(ch["bytes"]))
+        if cuda:
+            for t in (w["device_ms"], ch["kernel_device_ms"]):
+                require(t >= st["bytes_bound_ms"],
+                        f"{kind} {flavour}: walk {t} ms is under its bytes "
+                        f"bound {st['bytes_bound_ms']} ms")
         if latency_ns is not None:
             lat = latency_ns(left_n)
             st["latency_ns"] = lat
-            st["bound_s"] = steps * lat / 1e9
-            for t in (st["walk_s"] * 1e3, st["walk_device_ms"]):
+            st["bound_s"] = ch["longest_chain"] * lat / 1e9
+            for t in (st["walk_s"] * 1e3, st["walk_device_ms"],
+                      ch.get("kernel_device_ms")):
                 if t is not None:
                     require(t >= st["bound_s"] * 1e3,
                             f"{kind} {flavour}: walk {t} ms is under its "
@@ -2017,8 +2200,13 @@ def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
            "sort_ns_per_token_log2n": rebuild_s * 1e9 / (N * math.log2(N)),
            "launches": launches, "fm_mismatch": [], "ins_max_abs_err": err,
            "answers": "1024 count + 1024 locate identical to the rebuild"}
+    rec["bytes_bound_ms"] = sum(st["bytes_bound_ms"] for st in stages)
+    if cuda and sweep:
+        stages[-1]["stride_sweep"] = stride_sweep(walks[-1], sweep)
     if cuda:
         rec["walk_device_ms"] = sum(st["walk_device_ms"] for st in stages)
+        rec["kernel_device_ms"] = sum(st["chains"]["kernel_device_ms"]
+                                      for st in stages)
     if latency_ns is not None:
         rec["bound_s"] = sum(st["bound_s"] for st in stages)
     return rec, launches
@@ -2028,21 +2216,24 @@ def phase_merge(log2n: int, chase):
     """Phase 7: the walk kernel against its plain versions, then merges
     (a) DNA k-way, (b) DNA pairwise fold of the same eight documents, (c)
     proteins k-way, with ``chase`` (``start_chase_build``) for the latency
-    bound.  Returns (record, launches per path, the merge_walk row of the
+    floors.  Returns (record, launches per path, the merge_walk row of the
     kernels line)."""
     import functools
 
-    err, cases, small = merge_walk_parity()
+    small_chains = {}
+    err, cases, small = merge_walk_parity(chains=small_chains)
     latency_ns = functools.lru_cache(maxsize=None)(
         functools.partial(dependent_load_ns, chase))
 
     runs, launches = {}, {}
+    sweep = (32, 64, 128, 256, 512, 1024)
     for name, args in (("dna_kway", ("dna", 6, log2n, DNA_RUN, "kway")),
                        ("dna_fold", ("dna", 6, log2n, DNA_RUN, "pairwise")),
                        ("proteins_kway", ("proteins", 22, log2n - 1,
                                           PROTEIN_RUN, "kway"))):
         runs[name], launches[f"merge_{name}"] = merge_run(
-            *args, latency_ns=latency_ns)
+            *args, latency_ns=latency_ns,
+            sweep=sweep if name.startswith("dna") else ())
     a, b, c = runs["dna_kway"], runs["dna_fold"], runs["proteins_kway"]
     costs = {"pairwise_step_ns": b["walk_s"] * 1e9 / b["steps"],
              "kway_step_ns": a["walk_s"] * 1e9 / a["steps"],
@@ -2050,19 +2241,28 @@ def phase_merge(log2n: int, chase):
              "token_ns": a["splice_ns_per_token"],
              "token_ns_fold": b["splice_ns_per_token"],
              "sort_ns_per_token_log2n": a["sort_ns_per_token_log2n"]}
-    # walk (a) on the merge path: its time (synchronized host clock), its
-    # device time (CUDA events), its ins against the suffix arrays' (every
-    # walk of (a)-(c)) and against the plain walks (the small walks)
+    # walk (a) on the merge path: its time (synchronized host clock; CUDA
+    # events around the wrapper call), the kernel's device time alone
+    # (profiler) beside its bytes bound and latency floor, its ins against
+    # the suffix arrays' (every walk of (a)-(c)) and against the plain
+    # walks (the small walks)
+    (st,) = a["stages"]
     row = dict(max_abs_err=max(err, *(r["ins_max_abs_err"]
                                       for r in runs.values())),
-               ms=a["walk_s"] * 1e3, device_ms=a["walk_device_ms"],
+               ms=a["walk_s"] * 1e3, events_ms=a["walk_device_ms"],
+               device_ms=st["chains"]["kernel_device_ms"],
                plain_ms=small["kway"]["plain_ms"],
-               bound_ms=a["bound_s"] * 1e3, bound_by="latency",
-               library_ms=None,
+               bound_ms=st["bytes_bound_ms"], bound_by="bytes",
+               latency_floor_ms=st["bound_s"] * 1e3, library_ms=None,
+               chains={k: st["chains"].get(k) for k in (
+                   "stride", "chains", "seeds_met", "seeds_tried",
+                   "median_steps_to_meet", "max_steps_to_meet",
+                   "longest_chain", "registers", "blocks_per_sm")},
                shape=f"DNA k-way walk, k=8, {a['steps']} steps",
                plain_shape=f"DNA k-way walk, k=8, "
                f"{small['kway']['steps']} steps")
-    rec = {"walk_parity": {"max_abs_err": err, "cases": cases},
+    rec = {"walk_parity": {"max_abs_err": err, "cases": cases,
+                           "chains": small_chains},
            "small_walks": small, "runs": runs, "cost_constants": costs}
     return rec, launches, row
 
@@ -5310,11 +5510,14 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
          "device_ms": rows[name]["device_ms"],
          "launches_by_path": {p: v[name] for p, v in path_launches.items()},
          "shape": rows[name]["shape"],
-         # merge_walk's plain walks run on small walks only; the query
-         # kernels' chains of dependent steps (the stacked ones' latency
-         # floors); the rank kernels on the distributed indexes of phase 10
+         # merge_walk's plain walks run on small walks only, and its
+         # chains; the query kernels' chains of dependent steps (the
+         # latency floors of the stacked, merge and single-batch rank
+         # kernels); the rank kernels on the distributed indexes of
+         # phase 10
          **{k: rows[name][k] for k in ("plain_shape", "dependent_steps",
-                                       "latency_floor_ms", "dist")
+                                       "latency_floor_ms", "chains",
+                                       "events_ms", "dist")
             if k in rows[name]}}
         for name in _build.KERNELS]}
 
@@ -5351,7 +5554,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     t0 = time.perf_counter()
-    finish_chase = start_chase_build() if phases & {7, 8} else None
+    finish_chase = start_chase_build() if phases & {1, 7, 8} else None
     finish_lanes = (start_script_build(LANES_SRC, LANES_ARGTYPES)
                     if 8 in phases else None)
     try:
@@ -5378,7 +5581,7 @@ def main(argv=None) -> int:
 
     rows = {}
     if 1 in phases:
-        rows = phase_kernels(args.dna_log2n)
+        rows = phase_kernels(args.dna_log2n, chase)
         built = phase_build_kernels(dna_toks)
         for name, row in zip(("radix_hist", "radix_pos"),
                              built.pop("radix_qgram")):

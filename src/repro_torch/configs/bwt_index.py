@@ -74,17 +74,20 @@ class BWTIndexConfig:
     compact_trigger_ratio: float = 0.5
     compact_max_small: int = 8
     compact_trigger_cost_ratio: float = 0.75
-    # cost-model constants measured on the card (chip_smoke.py phase 7, run
-    # Z1 in PERF.md; NVIDIA H100 80GB HBM3, power limit 700.00 W): one
-    # pairwise walk step 739.7 ns and one k-way step 1051.2 ns (DNA, packed
-    # rows), 8.49 ns per merged token for the splice and build_fm_index of
-    # walk (a), 0.286 ns per token*log2(n) for the rebuild, and 970 us per
-    # merge for its precompute (0.985 ms for (a)'s k-way stack, 0.954 ms
-    # per pairwise fold of (b)).  With them a walk step costs about 2600
-    # times a rebuild's token*log2(n), so the planner rebuilds every run
-    # under segment_min_tokens.
-    compact_cost_walk_ns: float = 739.7
-    compact_cost_kway_walk_ns: float = 1051.2
+    # cost-model constants measured on the card (chip_smoke.py phase 7;
+    # NVIDIA H100 80GB HBM3, power limit 700.00 W): one pairwise walk step
+    # 0.334 ns and one k-way step 0.393 ns (DNA, packed rows: the chained
+    # merge_walk kernel, each walk's host-clock time over its steps, run M5
+    # in PERF.md; the one-chain kernel before it took 739.7 and 1051.2 ns
+    # in run Z1), 8.49 ns per merged token for the splice and
+    # build_fm_index of walk (a), 0.286 ns per token*log2(n) for the
+    # rebuild, and 970 us per merge for its precompute (0.985 ms for (a)'s
+    # k-way stack, 0.954 ms per pairwise fold of (b)), these three from
+    # run Z1.  The splice and build alone cost more per token than the
+    # sort, so the planner still rebuilds every run under
+    # segment_min_tokens.
+    compact_cost_walk_ns: float = 0.334
+    compact_cost_kway_walk_ns: float = 0.393
     compact_cost_token_ns: float = 8.49
     compact_cost_sort_ns: float = 0.286
     compact_cost_merge_us: float = 970.0

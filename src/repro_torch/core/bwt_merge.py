@@ -26,8 +26,9 @@ with ``NEXT_j = [row_{j+1} < I_{j+1}]`` (1 for the last segment), and the
 current suffix's merged position is the sum of the states.  The first
 segment is never walked.
 
-Here the right side's symbol and LF maps are one batched rank call per
-merge, each walk is one launch of the ``merge_walk`` kernel
+Here the walked operands' symbol and LF maps are one batched rank call
+per walk, the walked operands' rows at their SA sample's positions seed
+the walk's chains, each walk is one launch of the ``merge_walk`` kernel
 (``kernels/merge_walk.py``; the plain step loop for CPU tensors), and the
 splice, the SA-sample splice and ``build_fm_index`` of the merged BWT run
 with torch on the operands' device.  The result is bit-identical to
@@ -41,7 +42,12 @@ import torch
 
 from ..kernels import ops
 from ..kernels.fm_query import packed_symbol
-from ..kernels.merge_walk import kway_walk, merge_walk
+from ..kernels.merge_walk import (
+    MAX_CHAIN_LANES,
+    Seeds,
+    kway_walk,
+    merge_walk,
+)
 from ..testing.faultinject import fault_point
 from .fm_index import (
     FMIndex,
@@ -98,30 +104,55 @@ def _last(fm: FMIndex) -> torch.Tensor:
     return fm.bwt[fm.row.long()]
 
 
+def _symbols_lf(fused, blocks, occ, blk, cut, rows, c_of, last, row0, *,
+                sigma: int, bits: int) -> torch.Tensor:
+    """(symbol, LF) int32[n, 2] of walked rows from one batched rank call:
+    row ``rows`` sits in block ``blk`` at ``cut`` of the rank rows;
+    ``c_of(c)`` is its index's C[c], ``last`` / ``row0`` its last character
+    and the BWT row of its suffix 0 (per row, or one for all)."""
+    if bits:
+        c_all = packed_symbol(fused, blk, cut, sigma=sigma, bits=bits)
+    else:
+        c_all = blocks[blk.long(), cut.long()]
+    c_all = torch.clamp(c_all, 0, sigma - 1).contiguous()
+    lf = (c_of(c_all)
+          + ops.rank_walkers(fused, blocks, occ, blk, c_all, cut, bits=bits,
+                             sigma=sigma)
+          + ((c_all == last) & (rows <= row0)).to(torch.int32))
+    return torch.stack([c_all, lf.to(torch.int32)], dim=1).contiguous()
+
+
 def _pairwise_walk_inputs(left: FMIndex, right: FMIndex):
     """(clf, ends) of a pairwise walk: the right operand's (symbol, LF)
     row pairs int32[nB, 2], from one batched rank call, and int32[4] =
     (rowA, lastA, rowB, lastB)."""
-    r, sigma, bits = right.sample_rate, right.sigma, right.bits
-    nB = right.length
-    rows = torch.arange(nB, dtype=torch.int32, device=right.device)
+    r = right.sample_rate
+    rows = torch.arange(right.length, dtype=torch.int32, device=right.device)
     blk = rows // r
-    cut = rows - blk * r
-    if bits:
-        c_all = packed_symbol(right.fused, blk, cut, sigma=sigma, bits=bits)
-    else:
-        c_all = right.bwt[:nB]
-    c_all = torch.clamp(c_all, 0, sigma - 1).contiguous()
-    fused, blocks, occ = _rank_rows(right)
     lastB = _last(right)
-    lf = (right.c_array[c_all.long()]
-          + ops.rank_walkers(fused, blocks, occ, blk, c_all, cut, bits=bits,
-                             sigma=sigma)
-          + ((c_all == lastB) & (rows <= right.row)).to(torch.int32))
-    clf = torch.stack([c_all, lf.to(torch.int32)], dim=1).contiguous()
+    clf = _symbols_lf(*_rank_rows(right), blk, rows - blk * r, rows,
+                      lambda c: right.c_array[c.long()], lastB, right.row,
+                      sigma=right.sigma, bits=right.bits)
     ends = torch.stack([left.row, _last(left), right.row, lastB]).to(
         torch.int32)
     return clf, ends
+
+
+def _walk_seeds(fms: list[FMIndex]) -> Seeds | None:
+    """The walked operands' own rows at text positions 0, s, 2s, ... (each
+    one's SA sample by position, s its rate), back to back: where the
+    walk's chains may start.  None without an SA sample."""
+    rate = fms[0].sa_sample_rate
+    if not rate:
+        return None
+    parts = []
+    for fm in fms:
+        by_pos = torch.empty(-(-fm.length // rate), dtype=torch.int32,
+                             device=fm.device)
+        by_pos[(sa_values(fm) // rate).long()] = sample_marked_rows(fm).to(
+            torch.int32)
+        parts.append(by_pos)
+    return Seeds(torch.cat(parts), rate)
 
 
 def _splice(fms: list[FMIndex], ins: torch.Tensor, *,
@@ -190,8 +221,8 @@ def merge_fm_indexes(
     clf, ends = _pairwise_walk_inputs(left, right)
     fused, blocks, occ = _rank_rows(left)
     ins = merge_walk(fused, blocks, occ, left.c_array, right.c_array, clf,
-                     ends, sigma=left.sigma, bits=left.bits,
-                     r=left.sample_rate)
+                     ends, _walk_seeds([right]), sigma=left.sigma,
+                     bits=left.bits, r=left.sample_rate)
     # a crash here leaves the operands untouched and no merged index
     fault_point("merge.mid")
     return _splice([left, right], ins, compress_sa=compress_sa, pack=pack)
@@ -271,18 +302,38 @@ def kway_walk_steps(lengths) -> int:
 def _kway_walk_inputs(fms: list[FMIndex]):
     """The k-way walk's arguments: ``stack_rank_arrays`` at ``k_pad`` =
     next power of two lanes, each segment's suffix-0 row and last
-    character (0 for pad lanes), and the real lengths."""
+    character (0 for pad lanes), the real lengths, the walked segments'
+    (symbol, LF) rows in ``ins``'s layout from one batched rank call over
+    the stacked rows, and their seeds (``_walk_seeds``; None past
+    ``MAX_CHAIN_LANES`` segments, where the walk is one chain)."""
     k = len(fms)
     k_pad = _next_pow2(k)
-    fused, blocks, occ, c_mat, nb_vec, _ = stack_rank_arrays(fms,
-                                                             seg_pad=k_pad)
-    pad = torch.zeros(k_pad - k, dtype=torch.int32, device=fms[0].device)
+    f0, dev = fms[0], fms[0].device
+    fused, blocks, occ, c_mat, nb_vec, NB = stack_rank_arrays(fms,
+                                                              seg_pad=k_pad)
+    pad = torch.zeros(k_pad - k, dtype=torch.int32, device=dev)
     row_vec = torch.cat([torch.stack([fm.row for fm in fms]).to(torch.int32),
                          pad])
     last_vec = torch.cat([torch.stack([_last(fm) for fm in fms]).to(
         torch.int32), pad])
-    return (fused, blocks, occ, c_mat, nb_vec, row_vec, last_vec,
-            [fm.length for fm in fms])
+    lens = [fm.length for fm in fms]
+    n = sum(lens[1:])
+    walked = torch.tensor(lens[1:], device=dev)
+    seg = torch.repeat_interleave(
+        torch.arange(1, k, dtype=torch.int32, device=dev), walked,
+        output_size=n)
+    first = torch.cumsum(walked, 0) - walked
+    rows = (torch.arange(n, dtype=torch.int32, device=dev)
+            - first.repeat_interleave(walked, output_size=n).to(torch.int32))
+    r = f0.sample_rate
+    blk = rows // r
+    clf = _symbols_lf(fused, blocks, occ, seg * NB + blk, rows - blk * r,
+                      rows, lambda c: c_mat[seg.long(), c.long()],
+                      last_vec[seg.long()], row_vec[seg.long()],
+                      sigma=f0.sigma, bits=f0.bits)
+    seeds = _walk_seeds(fms[1:]) if k <= MAX_CHAIN_LANES else None
+    return (fused, blocks, occ, c_mat, nb_vec, row_vec, last_vec, lens, clf,
+            seeds)
 
 
 def merge_kway(

@@ -66,13 +66,15 @@ SIGNATURES = {
     "fm_query_unpacked": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                           _I, _P, _I, _I, _I, _P, _P, _P, _P],
     # pairwise walk: left rows (fused, blocks, occ, wid, n_blocks), sigma,
-    # bits, r, cA, cB, right (symbol, LF) pairs, nB, ends, ins, stream
+    # bits, r, cA, cB, right (symbol, LF) pairs, nB, ends, seed rows, SA
+    # rate, seed stride, seeds, meets, ins, stream
     "merge_walk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
-                   _P],
+                   _I, _I, _I, _P, _P, _P],
     # k-way walk: stacked rows (fused, blocks, occ, wid, NB), sigma, bits,
-    # r, c_mat, nb, row, last, len, k, ins, stream
+    # r, c_mat, nb, row, last, len, k, walked (symbol, LF) pairs, seed
+    # rows, SA rate, seed stride, seeds, meets, ins, stream
     "merge_walk_kway": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                        _I, _P, _P],
+                        _I, _P, _P, _I, _I, _I, _P, _P, _P],
     # stacked catalog: layout (fused, wid | blocks, occ), NB, sigma, (bits),
     # r, n_seg, seg_pad, n_blocks, lengths, C, SA sample (marks, ranks,
     # vals, MW, MV, rate), patterns, B, m, k, (the packed entry's tile),

@@ -117,7 +117,7 @@ def rank_walkers(fused, blocks, occ, block_idx, c, cutoff, *, bits: int,
     plus the unpacked in-block rank over ``blocks``.  ``block_idx`` may
     address a stacked multi-segment array (``fm_index.stack_rank_arrays``)
     with the segment base folded in by the caller.  The BWT merge calls it
-    once per merge for the right operand's LF map; its walks run in the
+    once per walk for the walked operands' LF maps; its walks run in the
     ``merge_walk`` kernel."""
     if bits:
         return rank_packed(fused, block_idx, c, cutoff,
