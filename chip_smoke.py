@@ -17,8 +17,16 @@ script exits nonzero and prints no final result:
      each kernel's device time alone, per launch it recorded; the
      single-batch rank kernels' latency floors (one dependent load over
      their operand, from scripts/pointer_chase.cu, plus an empty
-     launch).  rerank_scan on an edge sweep (tile edges, aliased and misaligned operands, runs
-     of whole tiles, INT32_MAX tails) and timed on the q-gram words (also
+     launch).  rank_select at every group size its plan can return over r
+     = 7, 32, 64, 128, 512, sigma 23 and 258, batches of 1, 7, 1024,
+     16,384 queries (cut 0 and r among them) and 655,360 consecutive rows,
+     on 16-byte aligned blocks and on a view 4 bytes off; at B = 1024,
+     16,384 and the consecutive rows its plan, every group size's time and
+     the kernel before its redesign (scripts/rank_select_warp.cu) beside
+     it, L2-cold in turns and with clock64() stamps of both
+     (scripts/rank_select_stamps.cu).  rerank_scan on an edge sweep (tile
+     edges, aliased and misaligned operands, runs of whole tiles,
+     INT32_MAX tails) and timed on the q-gram words (also
      aliased), the seed builder's first-round pairs, all-equal pairs at
      2^28 and 2^14 pairs, each beside a streaming torch.add of the same
      bytes.  The fused query kernels first on a 2-bit index at n = 2^20
@@ -32,9 +40,10 @@ script exits nonzero and prints no final result:
      and build, count and locate traced with torch.profiler (device time by
      kernel, device-busy share).  On the built index the fused query kernel
      against its plain version (the requests as served, edge patterns, k =
-     0, 1, 16, 64), its time per length bucket beside its bound and
-     dependent steps, and the earlier one-rank-launch-per-step design
-     against it in turns
+     0, 1, 16, 64), its time per length bucket beside its bound, dependent
+     steps and latency floor (the steps x one load's latency from
+     scripts/pointer_chase.cu), and the earlier one-rank-launch-per-step
+     design against it in turns
   3  the same for proteins at n = 2^24 (sigma 23: the unpacked layout)
   4  cross-device parity at n = 2^16 for dna, proteins and english: the CPU
      build (plain versions) and the CUDA build (kernels) must agree bit for
@@ -69,7 +78,10 @@ script exits nonzero and prints no final result:
      its latency floor (the longest chain's steps, seed included, x one
      load's latency, from scripts/pointer_chase.cu over the left
      operand's size), precompute, splice + build_fm_index, the rebuild,
-     and the card's merge cost constants
+     and the card's merge cost constants; the LF map of each merge's last
+     walk (one rank_packed or rank_select batch over every walked row)
+     timed beside its bytes bound and latency floor, rank_select's beside
+     the kernel before its redesign
   8  the segmented catalog: (a) the DNA corpus of phase 2 split into 16
      segments as the launcher's --segments does (SegmentedIndex.from_config,
      the card's config), 1024 count + 1024 locate requests through
@@ -137,8 +149,9 @@ script exits nonzero and prints no final result:
      launches and collectives per build and per served batch, the stages
      of a second DNA build (prepare, ISA with its rounds, BWT, FM build),
      rank_packed / rank_select on the one-part indexes at the locate
-     walk's 16,384 lanes against their plain versions and their bytes
-     bounds; (b) gloo worlds of 2 and 4 ranks sharing the card (their
+     walk's 16,384 lanes against their plain versions, beside their bytes
+     bounds and latency floors (rank_select also beside the kernel before
+     its redesign); (b) gloo worlds of 2 and 4 ranks sharing the card (their
      collectives staged through pinned host buffers): DNA 2^24 and
      proteins 2^22 by both engines and DNA by samplesort from a capacity
      factor of 0.5, which overflows (shown by a first ISA build) and
@@ -266,6 +279,19 @@ ROOT = Path(__file__).resolve().parent
 # out, stream)
 CHASE_SRC = ROOT / "scripts" / "pointer_chase.cu"
 CHASE_ARGTYPES = ("c_void_p", "c_int", "c_void_p", "c_void_p")
+# the unpacked single-batch rank kernel before its redesign (one query a
+# warp), timed in turns with the port's: its source and its C entry's
+# argument types (blocks, r, blk, sym, cut, out, B, stream)
+WARP_SRC = ROOT / "scripts" / "rank_select_warp.cu"
+WARP_ARGTYPES = {"rank_select_warp_launch": ("c_void_p", "c_int") +
+                 ("c_void_p",) * 4 + ("c_int", "c_void_p")}
+# both rank_select kernels with clock64() stamps: its source and its C
+# entry's argument types (blocks, r, blk, sym, cut, out, B, group, stamps,
+# stream)
+STAMPS_SRC = ROOT / "scripts" / "rank_select_stamps.cu"
+STAMPS_ARGTYPES = {"rank_select_stamps_launch": ("c_void_p", "c_int") +
+                   ("c_void_p",) * 4 + ("c_int", "c_int", "c_void_p",
+                                        "c_void_p")}
 # the stacked query kernel before its redesign (one thread per segment,
 # pattern and slot), timed in turns with the port's: its source and its C
 # entries' argument types (the port's stacked wrappers' C arguments up to
@@ -435,11 +461,228 @@ def empty_launch_ms(chase) -> float:
     return kernel_device_ms(run, "chase_kernel")
 
 
-def phase_kernels(log2n_dna: int, chase=None):
+def rank_floor(chase):
+    """The single-batch rank kernels' latency floor over an operand of
+    ``words`` int32 words, as a function of ``words``: one dependent load
+    over them (``dependent_load_ns``: every query's row loads are issued
+    together, so one round trip is the least a launch waits) plus an empty
+    launch (``empty_launch_ms``, measured once here)."""
+    empty = empty_launch_ms(chase)
+
+    def floor(words: int) -> dict:
+        lat = dependent_load_ns(chase, words)
+        return dict(latency_ns=lat, empty_launch_ms=empty,
+                    latency_floor_ms=lat / 1e6 + empty)
+
+    return floor
+
+
+def rank_calls(name: str, args: tuple, kw: dict) -> tuple:
+    """(kernel call, plain call, bytes) of one batch of a single-batch rank
+    kernel: ``rank_packed`` on (fused, blk, c, cut) with ``kw`` bits and
+    sigma, or ``rank_select`` on (blocks, blk, c, cut)."""
+    from repro_torch.kernels import rank_select as rk
+
+    if name == "rank_packed":
+        fused, blk, c, cut = args
+        return (lambda: rk.rank_packed(*args, **kw),
+                lambda: rk.rank_packed_plain(*args, **kw),
+                rank_packed_bytes(fused, blk, c, cut, kw["sigma"],
+                                  kw["bits"]))
+    blocks, blk, c, cut = args
+    return (lambda: rk.rank_select(*args),
+            lambda: rk.rank_select_plain(*args),
+            rank_select_bytes(blocks, blk, cut))
+
+
+def warp_call(warp, args: tuple):
+    """A call of the pre-redesign rank_select kernel (``warp``: the C
+    entry of scripts/rank_select_warp.cu) on ``rank_select``'s arguments
+    (blocks, blk, c, cut); each call returns its output."""
+    import torch
+
+    blocks, blk, c, cut = args
+    out = torch.empty(blk.numel(), dtype=torch.int32, device=blk.device)
+
+    def run():
+        err = warp(blocks.data_ptr(), blocks.shape[1], blk.data_ptr(),
+                   c.data_ptr(), cut.data_ptr(), out.data_ptr(), blk.numel(),
+                   torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"rank_select_warp launch failed: CUDA error {err}")
+        return out
+
+    return run
+
+
+def rank_select_groups(args: tuple) -> dict:
+    """rank_select at every group size the plan can return on one batch
+    (forced through ``launch_plan``): the plan's grid, registers and
+    resident blocks beside the events ms (200 calls) and device ms."""
+    from repro_torch.kernels import rank_select as rk
+
+    out = {}
+    for G in rk.GROUPS:
+        plan = rk.launch_plan(args[0], args[1].numel(), G)
+
+        def fn(plan=plan):
+            return rk.rank_select_launch(*args, plan)
+
+        occ = rk.rank_select_occupancy(args[0].device, G, plan["vector"])
+        out[G] = {k: occ[k] for k in ("registers", "blocks_per_sm",
+                                      "local_bytes")}
+        out[G].update(grid=plan["grid"], ms=time_ms(fn, 200),
+                      device_ms=kernel_device_ms(fn, "rank_select_kernel"))
+    return out
+
+
+def rank_row(name: str, args: tuple, kw: dict, shape: str, floor=None,
+             plain_reps: int = 50, warp=None, stamps=None) -> dict:
+    """One batch of a single-batch rank kernel on the card: equal to its
+    plain version, its events ms (200 calls), device ms (profiler), bytes
+    bound and plain ms, and with ``floor`` (``rank_floor``) its latency
+    floor over the operand's words.  For rank_select also its plan (lanes
+    a query, grid, loads, occupancy), every group size
+    (``rank_select_groups``), with ``warp`` the pre-redesign kernel
+    (scripts/rank_select_warp.cu) on the same batch (equal to the plain
+    version, its device ms, and both L2-cold in turns: ``in_turns``), and
+    with ``stamps`` both stamped (``rank_select_stamps``)."""
+    from repro_torch.kernels import rank_select as rk
+
+    fn, plain, nbytes = rank_calls(name, args, kw)
+    want = plain()
+    row = dict(max_abs_err=same(fn(), want, f"{name} ({shape})"),
+               ms=time_ms(fn, 200), plain_ms=time_ms(plain, plain_reps),
+               bound_ms=bound_ms(nbytes), library_ms=None, shape=shape,
+               B=int(args[1].numel()))
+    row["device_ms"] = kernel_device_ms(fn, f"{name}_kernel")
+    if floor is not None:
+        row.update(floor(args[0].numel()))
+    if name == "rank_select":
+        plan = row["plan"] = rk.launch_plan(args[0], row["B"])
+        plan.update(rk.rank_select_occupancy(args[0].device, plan["group"],
+                                             plan["vector"]))
+        row["groups"] = rank_select_groups(args)
+        if warp is not None:
+            old = warp_call(warp, args)
+            same(old(), want, f"pre-redesign rank_select ({shape})")
+            row["before"] = dict(
+                device_ms=kernel_device_ms(old, "rank_select_warp_kernel"),
+                cold_in_turns_ms=in_turns({"old": old, "new": fn}))
+        if stamps is not None:
+            row["stamps"] = rank_select_stamps(stamps, args)
+    return row
+
+
+def rank_select_stamps(stamps, args: tuple) -> dict:
+    """Where a rank_select launch of one batch (blocks, blk, c, cut; one
+    resident wave) spends its time, by group size (0: the kernel before
+    the redesign) from scripts/rank_select_stamps.cu: the median SM cycles
+    of a query from its group's entry to its arguments' arrival, to its
+    row's arrival and to its count, the median ns from entry to store, and
+    the launch's span (first entry to last store, ns) and its entries'
+    spread (first to last entry).  Each launch after one warm-up."""
+    import torch
+
+    from repro_torch.kernels import rank_select as rk
+
+    blocks, blk, c, cut = args
+    require(rk.vector_loads(blocks), "the stamped kernels take 16-byte "
+            "aligned blocks of whole chunks only")
+    B = blk.numel()
+    out = torch.empty(B, dtype=torch.int32, device=blk.device)
+    st = torch.zeros((B, 6), dtype=torch.int64, device=blk.device)
+    rec = {}
+    for group in (0, 4, 8, 16, 32, 104, 108, 116, 132):
+        for _ in range(2):
+            err = stamps(blocks.data_ptr(), blocks.shape[1], blk.data_ptr(),
+                         c.data_ptr(), cut.data_ptr(), out.data_ptr(), B,
+                         group, st.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
+            require(err == 0, f"rank_select_stamps failed: CUDA error {err}")
+        torch.cuda.synchronize()
+        med = st.double().median(dim=0).values.tolist()
+        rec["before" if group == 0 else f"G={group % 100}"
+            + (" redux" if group > 100 else "")] = dict(
+            args_cycles=med[0], row_cycles=med[1], sum_cycles=med[2],
+            query_ns=float((st[:, 5] - st[:, 4]).double().median()),
+            span_ns=int(st[:, 5].max() - st[:, 4].min()),
+            entry_spread_ns=int(st[:, 4].max() - st[:, 4].min()))
+    return rec
+
+
+# phase 1's rank_select checks: block lengths (7: rows of whole 16-byte
+# chunks never), batches of random queries, and the LF maps' batch of
+# consecutive rows (merge (c)'s walked rows)
+RANK_SELECT_R = (7, 32, 64, 128, 512)
+RANK_SELECT_B = (1, 7, 1024, 16384)
+LF_ROWS = 655360
+
+
+def rank_select_checks(warp=None) -> dict:
+    """rank_select equal to rank_select_plain at every group size the plan
+    can return (forced through ``launch_plan``), and with ``warp`` the
+    pre-redesign kernel too, over r in ``RANK_SELECT_R``, sigma 23 and 258,
+    batches of ``RANK_SELECT_B`` random queries (a third at cut r, a third
+    at cut 0, the first eight of each batch over blocks made all c) and
+    ``LF_ROWS`` consecutive rows, each c the symbol at its row (the LF
+    maps' batch), on 2^20-symbol blocks that start 16-byte aligned (the
+    16-byte loads) and on a view 4 bytes off (the scalar loads)."""
+    import torch
+
+    from repro_torch.kernels import rank_select as rk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    cases = err = 0
+    for r in RANK_SELECT_R:
+        nb = (1 << 20) // r          # holds LF_ROWS rows at every r
+        for sig in (23, 258):
+            flat = rint(0, sig, nb * r + 1)
+            for off in (0, 1):
+                blocks = flat[off:off + nb * r].view(nb, r)
+                batches = []
+                for B in RANK_SELECT_B:
+                    blk, c, cut = rint(0, nb, B), rint(0, sig, B), \
+                        rint(0, r + 1, B)
+                    cut[0::3], cut[1::3] = r, 0
+                    blocks[blk[:8].long()] = c[:8, None]
+                    batches.append((blk, c, cut))
+                rows = torch.arange(LF_ROWS, dtype=torch.int32, device=dev)
+                batches.append((rows // r, blocks.view(-1)[rows.long()],
+                                rows % r))
+                for blk, c, cut in batches:
+                    what = (f"rank_select r={r} sigma={sig} offset={off} "
+                            f"B={blk.numel()}")
+                    want = rk.rank_select_plain(blocks, blk, c, cut)
+                    for G in rk.GROUPS:
+                        plan = rk.launch_plan(blocks, blk.numel(), G)
+                        require(plan["vector"] == (off == 0 and r % 4 == 0),
+                                f"{what}: vector loads {plan['vector']}")
+                        err = max(err, same(rk.rank_select_launch(
+                            blocks, blk, c, cut, plan), want,
+                            f"{what} G={G}"))
+                        cases += 1
+                    if warp is not None:
+                        same(warp_call(warp, (blocks, blk, c, cut))(), want,
+                             f"pre-redesign {what}")
+    return {"cases": cases, "max_abs_err": err, "r": RANK_SELECT_R,
+            "B": [*RANK_SELECT_B, LF_ROWS], "groups": rk.GROUPS}
+
+
+def phase_kernels(log2n_dna: int, chase=None, warp=None, stamps=None):
     """Phase 1's kernels against their plain versions; with ``chase``
     (``start_chase_build``) the single-batch rank kernels' latency floors:
     one dependent load over their operand's words (every query's row loads
-    issued together) plus an empty launch."""
+    issued together) plus an empty launch.  rank_select also on
+    ``rank_select_checks``' cases and, over the same operand, at the
+    locate walk's 16,384 random queries and an LF map's 655,360
+    consecutive rows; with ``warp`` beside the pre-redesign kernel, with
+    ``stamps`` both stamped (``rank_select_stamps``)."""
     import torch
 
     from repro_torch.kernels import radix_sort as rs
@@ -478,16 +721,11 @@ def phase_kernels(log2n_dna: int, chase=None):
         if bits == 4:
             main = (fused, blk, c, cut, sigma, bits, nb, W)
     fused, blk, c, cut, sigma, bits, nb, W = main
-    rows["rank_packed"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: rk.rank_packed(fused, blk, c, cut, bits=bits,
-                                          sigma=sigma), 200),
-        plain_ms=time_ms(lambda: rk.rank_packed_plain(
-            fused, blk, c, cut, bits=bits, sigma=sigma), 50),
-        bound_ms=bound_ms(rank_packed_bytes(fused, blk, c, cut, sigma,
-                                            bits)),
-        library_ms=None, shape=f"fused[{nb},{sigma + W}], B={blk.numel()}")
-    fused_p, blk_p, c_p, cut_p = fused, blk, c, cut
+    floor = rank_floor(chase) if chase is not None else None
+    rows["rank_packed"] = rank_row(
+        "rank_packed", (fused, blk, c, cut), dict(bits=bits, sigma=sigma),
+        f"fused[{nb},{sigma + W}], B={blk.numel()}", floor)
+    rows["rank_packed"]["max_abs_err"] = max(errs)
     del main
 
     # -- rank_select: unpacked blocks at sigma 258 (bytes) ------------------
@@ -498,17 +736,21 @@ def phase_kernels(log2n_dna: int, chase=None):
     blk, c, cut = rint(0, nb, B), rint(0, sig, B), rint(0, r + 1, B)
     cut[:8], cut[8:16] = 0, r
     blocks[blk[16:64].long()] = c[16:64, None]   # dense hits for some queries
-    got = rk.rank_select(blocks, blk, c, cut)
-    want = rk.rank_select_plain(blocks, blk, c, cut)
-    rows["rank_select"] = dict(
-        max_abs_err=same(got, want, "rank_select"),
-        ms=time_ms(lambda: rk.rank_select(blocks, blk, c, cut), 200),
-        plain_ms=time_ms(lambda: rk.rank_select_plain(blocks, blk, c, cut),
-                         50),
-        bound_ms=bound_ms(rank_select_bytes(blocks, blk, cut)),
-        library_ms=None,
-        shape=f"blocks[{nb},{r}], sigma={sig}, B={B}")
-    blk_s, c_s, cut_s = blk, c, cut
+    rows["rank_select"] = rank_row(
+        "rank_select", (blocks, blk, c, cut), {},
+        f"blocks[{nb},{r}], sigma={sig}, B={B}", floor, warp=warp,
+        stamps=stamps)
+    walk = (rint(0, nb, 16384), rint(0, sig, 16384), rint(0, r + 1, 16384))
+    lf_rows = torch.arange(LF_ROWS, dtype=torch.int32, device=dev)
+    lf = (lf_rows // r, blocks.view(-1)[lf_rows.long()], lf_rows % r)
+    rows["rank_select"]["shapes"] = {
+        name: rank_row("rank_select", (blocks, *q), {},
+                       f"blocks[{nb},{r}], sigma={sig}, {name}", floor,
+                       plain_reps=5, warp=warp, stamps=stamps)
+        for name, q in (("B=16384", walk),
+                        (f"B={LF_ROWS} consecutive rows", lf))}
+    rows["rank_select"]["checks"] = rank_select_checks(warp)
+    del blocks, blk, c, cut, walk, lf, lf_rows
 
     # -- radix hist / pos: parity sweeps at n = 2^22, at block 1024 (the
     #    JAX kernels' block) and at the sort engine's tile ---------------------
@@ -577,20 +819,6 @@ def phase_kernels(log2n_dna: int, chase=None):
     prow["max_abs_err"] = max(perr, prow["max_abs_err"])
     prow["sweep_cases"] = radix_cases
     rows["radix_hist"], rows["radix_pos"] = hrow, prow
-    calls = {
-        "rank_packed": lambda: rk.rank_packed(
-            fused_p, blk_p, c_p, cut_p, bits=4, sigma=7),
-        "rank_select": lambda: rk.rank_select(blocks, blk_s, c_s, cut_s),
-    }
-    for name, fn in calls.items():
-        rows[name]["device_ms"] = kernel_device_ms(fn, f"{name}_kernel")
-    if chase is not None:
-        empty = empty_launch_ms(chase)
-        for name, words in (("rank_packed", fused_p.numel()),
-                            ("rank_select", blocks.numel())):
-            lat = dependent_load_ns(chase, words)
-            rows[name].update(latency_ns=lat, empty_launch_ms=empty,
-                              latency_floor_ms=lat / 1e6 + empty)
     del keys, ops3
     torch.cuda.empty_cache()
     return rows
@@ -1096,11 +1324,14 @@ def stage_times(toks, sample_rate: int, sa_sample_rate: int) -> dict:
 
 
 def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool,
-               snap: bool = False):
+               snap: bool = False, chase=None):
     """One main path; returns its launches, with ``keep`` what later phases
     compare against (the index, its requests and answers), the fused
-    query kernel's parity and times on the path's index and, with
+    query kernel's parity and times on the path's index (with ``chase``,
+    ``start_chase_build``, beside their latency floors) and, with
     ``snap``, phase 10's reference (``snapshot``)."""
+    import functools
+
     import torch
 
     from repro_torch.configs.bwt_index import CONFIG as icfg
@@ -1159,7 +1390,9 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool,
     fq = {"name": qname, "index": f"{kind} n={n}"}
     fq["max_abs_err"] = check_queries(index.fm, query_cases(
         index.fm, toks, pats, phase), fq["index"])
-    fq.update(query_timing(index.fm, toks, pats, phase))
+    fq.update(query_timing(index.fm, toks, pats, phase, functools.lru_cache(
+        maxsize=None)(functools.partial(dependent_load_ns, chase))
+        if chase is not None else None))
 
     s, _ = prepare_tokens(toks, 64)
     s_dev = torch.as_tensor(s, device="cuda")
@@ -1332,10 +1565,11 @@ def query_bytes(fm, P, k: int) -> tuple[int, int]:
     return query_bytes(fm, P, k)
 
 
-def query_timing(fm, toks, pats, seed: int) -> dict:
+def query_timing(fm, toks, pats, seed: int, latency_ns=None) -> dict:
     """Per length bucket (B = 1024 requests of lengths in the bucket, count
     and locate): the fused kernel's event and device times beside its
-    bound and dependent steps, the plain version, and the earlier design
+    bound and dependent steps (with ``latency_ns(words)`` also its latency
+    floor, ``latency_floor``), the plain version, and the earlier design
     (the same step loop launching the single-batch rank kernel); then the
     earlier design against the fused kernel over the flush's own batches,
     timed in turns (old, new, new, old)."""
@@ -1354,7 +1588,9 @@ def query_timing(fm, toks, pats, seed: int) -> dict:
                 plain_ms=time_ms(lambda: plain(fm, P, k), 3),
                 old_ms=time_ms(lambda: plain(fm, P, k, rank=rank_kernel), 3),
                 bound_ms=bound_ms(nbytes), bytes=nbytes,
-                dependent_steps={"search": L, "walk": walk}))
+                dependent_steps={"search": L, "walk": walk},
+                **(latency_floor(fm, P, walk, latency_ns)
+                   if latency_ns is not None else {})))
     reqs = flush_buckets(pats, dev)
 
     def old():
@@ -1382,6 +1618,8 @@ def query_row(rec: dict, small_err: int) -> dict:
                 ms=top["ms"], plain_ms=top["plain_ms"],
                 bound_ms=top["bound_ms"], library_ms=None,
                 device_ms=top["device_ms"],
+                dependent_steps=top["dependent_steps"],
+                **{k: top[k] for k in ("latency_floor_ms",) if k in top},
                 shape=f"{rec['index']}: locate B=1024, m=32, k={LOCATE_K}")
 
 
@@ -1744,15 +1982,17 @@ def observed_merge(device):
     calls before a walk summed) and each walk (``merge_walk`` /
     ``kway_walk``, one kernel launch on the card) timed the same way and,
     on the card, by CUDA events around it, with its name, arguments and
-    ``ins`` kept.  Yields {"pre_s": [seconds], "walks": [{"name", "args",
-    "kw", "ins", "s", "device_ms"}]} in call order; the module's functions
-    are restored on exit."""
+    ``ins`` kept, and the arguments of each batched rank call of the
+    precompute (``ops.rank_walkers``: the walked rows' LF map).  Yields
+    {"pre_s": [seconds], "walks": [{"name", "args", "kw", "ins", "s",
+    "device_ms"}], "ranks": [{"args", "kw"}]} in call order; the modules'
+    functions are restored on exit."""
     import torch
 
     from repro_torch.core import bwt_merge as bm
 
     cuda = torch.device(device).type == "cuda"
-    seen = {"pre_s": [], "walks": []}
+    seen = {"pre_s": [], "walks": [], "ranks": []}
     pending, depth = [0.0], [0]
 
     def precompute(fn):
@@ -1792,18 +2032,56 @@ def observed_merge(device):
             return ins
         return run
 
+    def rank(fn):
+        def run(*args, **kw):
+            seen["ranks"].append(dict(args=args, kw=kw))
+            return fn(*args, **kw)
+        return run
+
     wraps = {"_pairwise_walk_inputs": precompute,
              "_kway_walk_inputs": precompute, "_walk_seeds": precompute,
              "merge_walk": lambda fn: walk(fn, "merge_walk"),
              "kway_walk": lambda fn: walk(fn, "kway_walk")}
     saved = {name: getattr(bm, name) for name in wraps}
+    rank_walkers = bm.ops.rank_walkers
     for name, wrap in wraps.items():
         setattr(bm, name, wrap(saved[name]))
+    bm.ops.rank_walkers = rank(rank_walkers)
     try:
         yield seen
     finally:
         for name, fn in saved.items():
             setattr(bm, name, fn)
+        bm.ops.rank_walkers = rank_walkers
+
+
+def lf_map_call(call: dict) -> tuple:
+    """(kernel name, its arguments, keywords) of an observed LF-map rank
+    call (``ops.rank_walkers``: fused, blocks, occ, blk, c, cut; bits,
+    sigma): the single-batch rank kernel it launches and what it passes."""
+    fused, blocks, _, blk, c, cut = call["args"]
+    bits, sigma = call["kw"]["bits"], call["kw"]["sigma"]
+    if bits:
+        return "rank_packed", (fused, blk, c, cut), dict(bits=bits,
+                                                         sigma=sigma)
+    return "rank_select", (blocks, blk, c, cut), {}
+
+
+def lf_map_row(call: dict, floor=None, warp=None, stamps=None) -> dict:
+    """The LF-map rank batch of a walk (``lf_map_call``): its kernel, B,
+    operand and query shape, and on the card ``rank_row``'s parity, times,
+    bytes bound and, with ``floor``, latency floor (with ``warp``, the
+    pre-redesign unpacked kernel beside it, with ``stamps`` both stamped)."""
+    name, args, kw = lf_map_call(call)
+    blk = args[1]
+    row = dict(kernel=name, B=int(blk.numel()),
+               shape=f"{'fused' if kw else 'blocks'}"
+                     f"[{args[0].shape[0]},{args[0].shape[1]}], "
+                     f"B={blk.numel()} consecutive rows")
+    if blk.device.type == "cuda":
+        row.update(rank_row(name, args, kw, row["shape"], floor,
+                            plain_reps=5, warp=warp, stamps=stamps))
+    return row
 
 
 # the plain walks take a walk's layout arguments only: the pairwise walk's
@@ -2074,8 +2352,8 @@ def merge_walk_parity(device="cuda", log2n: int = 12, ks=(2, 3, 8, 33),
 
 
 def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
-              device="cuda", latency_ns=None,
-              sweep=()) -> tuple[dict, dict]:
+              device="cuda", latency_ns=None, sweep=(), floor=None,
+              warp=None, stamps=None) -> tuple[dict, dict]:
     """One merge path at real scale: documents of 2^(log2n - d) tokens for
     d in ``shape``, merged k-way or by the pairwise fold (the accumulator
     starts from the last document, each earlier one merges in on its
@@ -2095,7 +2373,10 @@ def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
     chain's steps, seed included, x latency (one dependent row fetch a
     step, either flavour), and a walk under it fails.  On the card the
     last walk is also timed at each seed stride of ``sweep``
-    (``stride_sweep``).  Returns (record, launches)."""
+    (``stride_sweep``).  The last walk's LF-map rank batch is
+    ``lf_map_row``'s (on the card timed, with ``floor`` beside its latency
+    floor, ``warp`` beside the pre-redesign kernel and ``stamps``).
+    Returns (record, launches)."""
     import math
 
     import numpy as np
@@ -2134,8 +2415,10 @@ def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
         require(got == (n if cuda else 0),
                 f"{kind} {flavour}: {got} {name} launches, want {n}")
     walks = seen["walks"]
-    require(len(walks) == n_walks == len(seen["pre_s"]),
-            f"{kind} {flavour}: {len(walks)} walks observed, want {n_walks}")
+    require(len(walks) == n_walks == len(seen["pre_s"])
+            == len(seen["ranks"]),
+            f"{kind} {flavour}: {len(walks)} walks and "
+            f"{len(seen['ranks'])} LF maps observed, want {n_walks}")
 
     built, rebuild_s = timed(lambda: rebuild(preps, sig, device), device)
     err, chains = 0, []
@@ -2201,6 +2484,7 @@ def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
            "launches": launches, "fm_mismatch": [], "ins_max_abs_err": err,
            "answers": "1024 count + 1024 locate identical to the rebuild"}
     rec["bytes_bound_ms"] = sum(st["bytes_bound_ms"] for st in stages)
+    rec["lf_map"] = lf_map_row(seen["ranks"][-1], floor, warp, stamps)
     if cuda and sweep:
         stages[-1]["stride_sweep"] = stride_sweep(walks[-1], sweep)
     if cuda:
@@ -2212,7 +2496,7 @@ def merge_run(kind: str, sig_decl: int, log2n: int, shape, flavour: str,
     return rec, launches
 
 
-def phase_merge(log2n: int, chase):
+def phase_merge(log2n: int, chase, warp=None, stamps=None):
     """Phase 7: the walk kernel against its plain versions, then merges
     (a) DNA k-way, (b) DNA pairwise fold of the same eight documents, (c)
     proteins k-way, with ``chase`` (``start_chase_build``) for the latency
@@ -2224,6 +2508,7 @@ def phase_merge(log2n: int, chase):
     err, cases, small = merge_walk_parity(chains=small_chains)
     latency_ns = functools.lru_cache(maxsize=None)(
         functools.partial(dependent_load_ns, chase))
+    floor = rank_floor(chase)
 
     runs, launches = {}, {}
     sweep = (32, 64, 128, 256, 512, 1024)
@@ -2233,7 +2518,8 @@ def phase_merge(log2n: int, chase):
                                           PROTEIN_RUN, "kway"))):
         runs[name], launches[f"merge_{name}"] = merge_run(
             *args, latency_ns=latency_ns,
-            sweep=sweep if name.startswith("dna") else ())
+            sweep=sweep if name.startswith("dna") else (), floor=floor,
+            warp=warp, stamps=stamps)
     a, b, c = runs["dna_kway"], runs["dna_fold"], runs["proteins_kway"]
     costs = {"pairwise_step_ns": b["walk_s"] * 1e9 / b["steps"],
              "kway_step_ns": a["walk_s"] * 1e9 / a["steps"],
@@ -2411,19 +2697,32 @@ def waves(blocks: int, blocks_per_sm: int, sms: int) -> float:
     return blocks / (blocks_per_sm * sms)
 
 
+def rank_words(st) -> int:
+    """The int32 words a query launch's ranks read over: the fused rows,
+    or the blocks and their checkpoints, of a stacked bucket or of one
+    index (``FMIndex``)."""
+    from repro_torch.core.fm_index import FMIndex
+
+    if st.bits:
+        return st.fused.numel()
+    if isinstance(st, FMIndex):
+        return st.bwt.numel() + st.occ_samples.numel()
+    return st.blocks.numel() + st.occ.numel()
+
+
 def latency_floor(st, P, walk: int, latency_ns) -> dict:
-    """The chain of dependent loads one stacked launch cannot beat: the
-    longest pattern's search steps (one round trip each: a PAD step loads
-    nothing), then ``walk`` walk steps (one round trip a step on the packed
-    layout; two on the unpacked, whose checkpoint waits for the symbol) and
-    the sampled value, each one dependent load of ``latency_ns(words)`` ns
-    over the bucket's row words."""
+    """The chain of dependent loads one query launch (stacked, or fused
+    over one index) cannot beat: the longest pattern's search steps (one
+    round trip each: a PAD step loads nothing), then ``walk`` walk steps
+    (one round trip a step on the packed layout; two on the unpacked,
+    whose checkpoint waits for the symbol) and the sampled value, each one
+    dependent load of ``latency_ns(words)`` ns over the operand's words
+    (``rank_words``)."""
     from repro_torch.core.fm_index import PAD
 
     search = int((P != PAD).sum(1).max()) if P.numel() else 0
     loads = search + (walk * (1 if st.bits else 2) + 1 if walk else 0)
-    words = (st.fused.numel() if st.bits
-             else st.blocks.numel() + st.occ.numel())
+    words = rank_words(st)
     ns = latency_ns(words)
     return {"dependent_loads": loads, "latency_ns": ns,
             "latency_floor_ms": loads * ns / 1e6}
@@ -3991,14 +4290,15 @@ def dist_stages(toks, mesh, engine: str, device) -> dict:
     return {"stages_s": out, "isa_rounds": stats}
 
 
-def dist_rank_row(index, name: str, lanes: int, seed: int) -> dict:
+def dist_rank_row(index, name: str, lanes: int, seed: int,
+                  floor=None, warp=None, stamps=None) -> dict:
     """The single-batch rank kernel of a one-part distributed index (the
     locate walk's ``lanes`` queries over its own layout, as ``dist_fm``'s
-    ``_occ_partial`` forms them) against its plain version: parity, event
-    and device times, the bytes bound."""
+    ``_occ_partial`` forms them) against its plain version: ``rank_row``'s
+    parity, event and device times, bytes bound and, with ``floor``
+    (``rank_floor``), latency floor (with ``warp`` and ``stamps``, the
+    pre-redesign unpacked kernel beside it, both stamped)."""
     import torch
-
-    from repro_torch.kernels import rank_select as rk
 
     fm = index.fm
     dev = fm.device
@@ -4011,29 +4311,14 @@ def dist_rank_row(index, name: str, lanes: int, seed: int) -> dict:
     blk = torch.clamp(p // r, max=m // r - 1)
     cut = p - blk * r
     if name == "rank_packed":
-        def fn():
-            return rk.rank_packed(fm.fused, blk, c, cut, bits=fm.bits,
-                                  sigma=fm.sigma)
-
-        def plain():
-            return rk.rank_packed_plain(fm.fused, blk, c, cut, bits=fm.bits,
-                                        sigma=fm.sigma)
-        nbytes = rank_packed_bytes(fm.fused, blk, c, cut, fm.sigma, fm.bits)
+        args = (fm.fused, blk, c, cut)
+        kw = dict(bits=fm.bits, sigma=fm.sigma)
         shape = f"fused[{tuple(fm.fused.shape)}], B={lanes}"
     else:
         blocks = fm.bwt.view(m // r, r)
-
-        def fn():
-            return rk.rank_select(blocks, blk, c, cut)
-
-        def plain():
-            return rk.rank_select_plain(blocks, blk, c, cut)
-        nbytes = rank_select_bytes(blocks, blk, cut)
+        args, kw = (blocks, blk, c, cut), {}
         shape = f"blocks[{tuple(blocks.shape)}], sigma={fm.sigma}, B={lanes}"
-    row = {"max_abs_err": same(fn(), plain(), f"{name} on the dist index"),
-           "ms": time_ms(fn, 200), "plain_ms": time_ms(plain, 50),
-           "bound_ms": bound_ms(nbytes), "library_ms": None, "shape": shape}
-    row["device_ms"] = kernel_device_ms(fn, f"{name}_kernel")
+    row = rank_row(name, args, kw, shape, floor, warp=warp, stamps=stamps)
     check_reading(name, row["device_ms"], row["bound_ms"], row["ms"], shape)
     return row
 
@@ -4347,7 +4632,8 @@ def nccl_shared_card() -> str:
 def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
                small_dna_log2n: int, small_proteins_log2n: int,
                device="cuda", parts=DIST_PARTS, requests: int = 1024,
-               rank_fn=None, fm_ckpt=None, launcher_log2n: int = 20):
+               rank_fn=None, fm_ckpt=None, launcher_log2n: int = 20,
+               chase=None, warp=None, stamps=None):
     """Phase 10.  (a) One NCCL rank (gloo on the CPU) in this process: DNA
     at ``dna_log2n`` (bitonic) and proteins at ``proteins_log2n``, each
     equal to phase 2's / phase 3's build and answers (``refs``, else built
@@ -4362,7 +4648,10 @@ def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
     answers; the first world saves its ``DIST_SAVED`` build, the last
     restores it, and so does this process on one device.  (c) the serving
     launcher as a world of 2 at ``launcher_log2n`` (``LauncherWorld``),
-    its two runs beside (b)'s worlds.
+    its two runs beside (b)'s worlds.  With ``chase``
+    (``start_chase_build``) the rank kernels' rows carry their latency
+    floors (``rank_floor``), and with ``warp`` (``stamps``) rank_select's
+    row the pre-redesign kernel beside it (both stamped).
     Returns (record, launches per path, the rank kernels' rows)."""
     import torch
 
@@ -4373,6 +4662,7 @@ def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
 
     cuda = torch.device(device).type == "cuda"
     rec, launches, rows = {}, {}, {}
+    floor = rank_floor(chase) if chase is not None else None
     small_dna = dna_toks[: 1 << small_dna_log2n]
     one = {"dna": ("dna", dna_toks, "bitonic"),
            "dna_samplesort": ("dna", small_dna, "samplesort"),
@@ -4408,7 +4698,9 @@ def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
             if cuda and name in ("dna", "proteins"):
                 kname = "rank_packed" if index.fm.bits else "rank_select"
                 rows[kname] = dist_rank_row(index, kname,
-                                            requests * LOCATE_K, seed=10)
+                                            requests * LOCATE_K, seed=10,
+                                            floor=floor, warp=warp,
+                                            stamps=stamps)
             del index, ref
             refs.pop(name, None)
             if cuda:
@@ -4438,6 +4730,7 @@ def phase_dist(dna_toks, refs: dict, *, dna_log2n: int, proteins_log2n: int,
     rec["worlds_and_launcher_s"] = time.perf_counter() - t0
     if cuda:
         rec["nccl_two_ranks_one_card"] = nccl_shared_card()
+    rec["rank_kernels"] = rows
     rec["phase_s"] = time.perf_counter() - t_phase
     return rec, launches, rows
 
@@ -5512,12 +5805,12 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
          "shape": rows[name]["shape"],
          # merge_walk's plain walks run on small walks only, and its
          # chains; the query kernels' chains of dependent steps (the
-         # latency floors of the stacked, merge and single-batch rank
-         # kernels); the rank kernels on the distributed indexes of
-         # phase 10
+         # latency floors of the query, stacked, merge and single-batch
+         # rank kernels); the rank kernels on the distributed indexes of
+         # phase 10 and on the LF maps of phase 7's merges
          **{k: rows[name][k] for k in ("plain_shape", "dependent_steps",
                                        "latency_floor_ms", "chains",
-                                       "events_ms", "dist")
+                                       "events_ms", "dist", "lf_map")
             if k in rows[name]}}
         for name in _build.KERNELS]}
 
@@ -5554,21 +5847,33 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     t0 = time.perf_counter()
-    finish_chase = start_chase_build() if phases & {1, 7, 8} else None
+    finish_chase = (start_chase_build() if phases & {1, 2, 3, 7, 8, 10}
+                    else None)
     finish_lanes = (start_script_build(LANES_SRC, LANES_ARGTYPES)
                     if 8 in phases else None)
+    finish_warp = (start_script_build(WARP_SRC, WARP_ARGTYPES)
+                   if phases & {1, 7, 10} else None)
+    finish_stamps = (start_script_build(STAMPS_SRC, STAMPS_ARGTYPES)
+                     if phases & {1, 7, 10} else None)
     try:
         _build.build_all()
     finally:
         chase = finish_chase() if finish_chase else None
         lanes = finish_lanes() if finish_lanes else None
+        warp = finish_warp() if finish_warp else None
+        stamps = finish_stamps() if finish_stamps else None
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "entry function" in ln]
              for name, log in _build.BUILD_LOG.items()}
-    if lanes is not None:
-        ptxas[LANES_SRC.stem] = lanes["ptxas"]
+    for src, script in ((LANES_SRC, lanes), (WARP_SRC, warp),
+                        (STAMPS_SRC, stamps)):
+        if script is not None:
+            ptxas[src.stem] = script["ptxas"]
+    warp = warp["rank_select_warp_launch"] if warp is not None else None
+    stamps = (stamps["rank_select_stamps_launch"] if stamps is not None
+              else None)
     emit({"phase": 0, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "ptxas": ptxas})
@@ -5581,7 +5886,7 @@ def main(argv=None) -> int:
 
     rows = {}
     if 1 in phases:
-        rows = phase_kernels(args.dna_log2n, chase)
+        rows = phase_kernels(args.dna_log2n, chase, warp, stamps)
         built = phase_build_kernels(dna_toks)
         for name, row in zip(("radix_hist", "radix_pos"),
                              built.pop("radix_qgram")):
@@ -5615,7 +5920,7 @@ def main(argv=None) -> int:
             gen_s = time.perf_counter() - t0
         launches, k, fq, ref = phase_main(kind, toks, gen_s, phase,
                                           keep=kind == "dna",
-                                          snap=10 in phases)
+                                          snap=10 in phases, chase=chase)
         kept = k or kept
         if ref is not None:
             refs[kind] = ref
@@ -5673,8 +5978,13 @@ def main(argv=None) -> int:
     del kept
 
     if 7 in phases:
-        rec, launches, rows["merge_walk"] = phase_merge(args.merge_log2n,
-                                                        chase)
+        rec, launches, rows["merge_walk"] = phase_merge(
+            args.merge_log2n, chase, warp, stamps)
+        # the LF maps of merges (a) (packed) and (c) (unpacked)
+        for name, run in (("rank_packed", "dna_kway"),
+                          ("rank_select", "proteins_kway")):
+            if name in rows:
+                rows[name]["lf_map"] = rec["runs"][run]["lf_map"]
         for path, counts in launches.items():
             path_launches[path] = counts
             for name, v in counts.items():
@@ -5734,7 +6044,7 @@ def main(argv=None) -> int:
                 proteins_log2n=args.proteins_log2n,
                 small_dna_log2n=min(24, args.dna_log2n),
                 small_proteins_log2n=min(22, args.proteins_log2n),
-                fm_ckpt=fm_ckpt)
+                fm_ckpt=fm_ckpt, chase=chase, warp=warp, stamps=stamps)
         finally:
             if fm_ckpt is not None:
                 shutil.rmtree(fm_ckpt.parent, ignore_errors=True)

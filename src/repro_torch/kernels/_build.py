@@ -54,7 +54,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # pointer and the stream, c_longlong for 64-bit strides
 SIGNATURES = {
     "rank_packed": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    "rank_select": [_P, _I, _P, _P, _P, _P, _I, _P],
+    # blocks, r, blk, sym, cut, out, B, group, vec, grid, stream
+    "rank_select": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "radix_hist": [_P, _I, _I, _I, _P, _P],
     "radix_pos": [_P, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_P],
     "rerank_scan": [_P, _P, _I, _P, _P, _I, _P],

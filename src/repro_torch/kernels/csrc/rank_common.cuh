@@ -1,7 +1,9 @@
-// Rank arithmetic shared by the single-batch rank kernels (rank_packed.cu,
-// rank_select.cu) and the fused query kernels (fm_query_packed.cu,
-// fm_query_unpacked.cu), so the popcount and ballot logic exists once, plus
-// the SA-sample lookup of locate().
+// Rank arithmetic shared by the packed single-batch rank kernel
+// (rank_packed.cu) and the query kernels (fm_query_packed.cu,
+// fm_query_unpacked.cu, fm_query_stacked.cu, merge_walk.cu), so the
+// popcount and ballot logic exists once, plus the SA-sample lookup of
+// locate().  The unpacked single-batch kernel (rank_select.cu) counts in
+// its own lane groups.
 //
 // Packed layout (sigma <= 16): a fused row is [Occ checkpoint (sigma words)
 // | r/fpw words of 2- or 4-bit fields, LSB first].  Unpacked layout: blocks

@@ -107,6 +107,30 @@ class TestRankSelect:
         eq(got, jref.rank_select_ref(*jargs))
         eq(ops.rank_unpacked(t(bwt), t(bidx), t(c), t(cut)), got)
 
+    @pytest.mark.parametrize("batch", ["walk", "consecutive"])
+    def test_wide_batches(self, batch):
+        """The batches the redesigned kernel is planned for: the mesh
+        locate walk's 16,384 random queries at r = 64, and an LF map's
+        walked rows in consecutive order (block row // r, cut row % r, c
+        the symbol at the row), each block hit r times."""
+        rng = np.random.default_rng(16384)
+        nblocks, r, sigma = 300, 64, 23
+        bwt = rng.integers(0, sigma, (nblocks, r)).astype(np.int32)
+        if batch == "walk":
+            B = 16384
+            bidx = rng.integers(0, nblocks, B).astype(np.int32)
+            c = rng.integers(0, sigma, B).astype(np.int32)
+            cut = rng.integers(0, r + 1, B).astype(np.int32)
+            cut[:8], cut[8:16] = 0, r
+        else:
+            rows = np.arange(nblocks * r, dtype=np.int32)
+            bidx, cut = rows // r, rows % r
+            c = bwt.reshape(-1)[rows]
+        got = ops.rank_select(t(bwt), t(bidx), t(c), t(cut))
+        jargs = [jnp.asarray(x) for x in (bwt, bidx, c, cut)]
+        eq(got, jops.rank_unpacked(*jargs, impl="interpret"))
+        eq(got, jref.rank_select_ref(*jargs))
+
     def test_full_block_cutoff(self):
         bwt = np.full((2, 64), 3, np.int32)
         got = ops.rank_select(t(bwt), t(np.array([0, 1], np.int32)),
