@@ -234,6 +234,22 @@ script exits nonzero and prints no final result:
      FLOPs over the bf16 peak, a decode step or an index cell under its
      bytes over 3.35 TB/s) or a measured peak more than 10% over its
      meta estimate fails the run
+ 14  LM serving in worlds of ranks sharing the card (gloo; their CUDA
+     tensors staged through pinned host buffers; no index kernel may
+     launch in any rank): (a) the ten reduced configs in float32 in a
+     world of 4 ranks (pod 1, data 2, model 2), and the two MoE configs
+     also in one of 8 (2, 2, 2), each against the same world on the CPU
+     (the four worlds side by side): forward at B = 4, S = 16, decode
+     logits along 8 tokens, generate 4 + 8 tokens (equal tokens, or a
+     first difference at a CPU top-2 tie);
+     (b) minitron_4b at full width and depth in float32 and (c)
+     deepseek_v2_236b at full width cut to 3 layers in bf16, each run on
+     one rank in this process and then in a world of 2 (1, 1, 2) from the
+     same seeded weights: forward(last_token_only) (B = 8, S = 256 and B
+     = 4, S = 1024) within LM_TOL of 1 + |b|, or for (c) within 5% of the
+     max |logit|; (b)'s greedy generate at B = 8 (4 + 16 tokens) equal
+     but at a near tie, with s a decode step and the collectives of a
+     step by kind; each rank's heads and experts, and its peak memory
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore, each merge of phase 7, each catalog
@@ -243,7 +259,8 @@ with its two served batches, summed over a world's ranks, and each
 restore of phase 10 with its two batches, phase 4's single-query calls
 per corpus, phase 11, phase 12's screen, its reduced parts and its
 full-width runs, and phase 13's counted index build and served batch and
-its perf bwt_build) and read just after it.  Then a ``kernels`` line
+its perf bwt_build, phase 14, summed over its ranks) and read just
+after it.  Then a ``kernels`` line
 (launches on the main paths of phases 2-3, 7-10, phase 12's screen and
 phase 13, and on each path, parity error, times and bounds), the card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
@@ -4870,22 +4887,24 @@ def lm_batch(cfg, B: int, S: int, device, seed: int = 0) -> dict:
     return {"tokens": torch.from_numpy(t).to(device)}
 
 
-def lm_decode(params, cfg, tokens, dtype) -> "torch.Tensor":
+def lm_decode(params, cfg, tokens, dtype, ctx=None) -> "torch.Tensor":
     """Decode logits (B, T, V) along ``tokens`` (B, T) from a fresh cache
-    (the params' device and ``dtype``)."""
+    (the params' device and ``dtype``); in a world (``ctx``) the cache is
+    the rank's and the logits are put together from the ranks' blocks."""
     import torch
 
     from repro_torch.models import transformer as tf
-    from repro_torch.sharding import single_device_context
+    from repro_torch.sharding import gather_global, single_device_context
 
-    ctx = single_device_context()
+    ctx = ctx or single_device_context()
     B, T = tokens.shape
-    cache = tf.init_cache(cfg, B, T, dtype, tokens.device)
+    cache = tf.init_cache(cfg, B, T, dtype, tokens.device, ctx)
     out = []
     for pos in range(T):
         logits, cache = tf.decode_step(params, cache, tokens[:, pos:pos + 1],
                                        pos, cfg, ctx)
-        out.append(logits)
+        out.append(gather_global(logits, ctx, ("batch", "act_model"),
+                                 (B, cfg.vocab_size)))
     return torch.stack(out, 1)
 
 
@@ -5767,6 +5786,342 @@ def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
     return rec, launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: LM serving in a world of ranks
+# --------------------------------------------------------------------------
+
+LM_MOE = ("deepseek_v2_236b", "llama4_maverick_400b_a17b")
+# (ranks, mesh, configs (None: all ten)): gloo ranks sharing the card
+LM_WORLDS = ((4, {"pod": 1, "data": 2, "model": 2}, None),
+             (8, {"pod": 2, "data": 2, "model": 2}, LM_MOE))
+LM_WORLD_B, LM_WORLD_S = 4, 16
+LM_WORLD_TIMEOUT_S = 600
+LM_WORLD_FULL_MESH = {"pod": 1, "data": 1, "model": 2}
+# the full-width parts: (name, config id, depth cut, dtype, forward (B, S),
+# generate (B, prompt, new) or None)
+LM_WORLD_FULL = (
+    ("minitron_4b", "minitron_4b", None, "float32", (8, 256), (8, 4, 16)),
+    ("deepseek_v2_236b", "deepseek_v2_236b", 3, "bfloat16", (4, 1024),
+     None),
+)
+
+
+def lm_world_rank(mesh, spec: dict) -> dict:
+    """One rank of phase 14 (a): each reduced config of ``spec["archs"]``
+    in float32 on ``spec["device"]``, weights drawn on the CPU from a
+    seeded generator (the rank's blocks, ``TRAIN_RULES``): forward at B =
+    4, S = 16, decode logits along 8 tokens and generate 4 + 8 tokens, the
+    global arrays on rank 0; the decode logits along its own tokens when
+    ``spec["tie_logits"]``; the rank's kernel launches and collectives."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.core import dist_sort
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import generate
+    from repro_torch.sharding import TRAIN_RULES, gather_global, world_context
+
+    dev = spec["device"]
+    ctx = world_context(mesh, TRAIN_RULES)
+    first = dist.get_rank() == 0
+    out = {"transport": dist_sort.transport(
+        dist_sort.axis_info(mesh, "model"), dev)}
+    _counts_reset()
+    B, S = LM_WORLD_B, LM_WORLD_S
+    with torch.no_grad():
+        for arch in spec["archs"]:
+            cfg = get_reduced_config(arch)
+            params = tf.init_model(cfg, torch.Generator().manual_seed(0),
+                                   torch.float32, dev, ctx)
+            fwd = tf.forward(params, lm_batch(cfg, B, S, dev), cfg, ctx)
+            rec = {"forward": gather_global(
+                fwd, ctx, ("batch", None, "act_model"),
+                (B, S, cfg.vocab_size))}
+            toks = lm_batch(cfg.replace(frontend="none"), B, LM_DECODE, dev,
+                            seed=1)["tokens"]
+            rec["decode"] = lm_decode(params, cfg, toks, torch.float32, ctx)
+            res = generate(params, cfg, ctx, toks[:, :LM_PROMPT].cpu().numpy(),
+                           LM_NEW)
+            rec["tokens"] = res.tokens
+            if spec["tie_logits"]:
+                rec["tie_logits"] = lm_decode(
+                    params, cfg, torch.from_numpy(res.tokens[:, :-1]).to(dev),
+                    torch.float32, ctx)
+            if first:
+                out[arch] = rec
+    out["launches"], out["collectives"] = _counts()
+    return out
+
+
+def lm_world_reduced(device, archs=None) -> tuple[dict, dict]:
+    """Phase 14 (a): each world of ``LM_WORLDS`` on ``device`` against the
+    same world on the CPU, all the worlds side by side; returns (record,
+    launches summed over the ranks on the card)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.launch.mesh import run_world
+
+    every = [a for a in ARCH_IDS if a != "bwt_index"]
+    worlds = [(parts, axes, [a for a in (names or every)
+                             if archs is None or a in archs])
+              for parts, axes, names in LM_WORLDS]
+    worlds = [w for w in worlds if w[2]]
+
+    def run(parts, axes, names, where, dev):
+        t0 = time.perf_counter()
+        ranks = run_world(parts, lm_world_rank,
+                          {"archs": names, "device": dev,
+                           "tie_logits": where == "cpu"},
+                          mesh_shape=axes, timeout_s=LM_WORLD_TIMEOUT_S)
+        return ranks, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2 * len(worlds)) as pool:
+        futures = {(w[0], where): pool.submit(run, *w, where, dev)
+                   for w in worlds
+                   for where, dev in (("card", device), ("cpu", "cpu"))}
+        done = {k: f.result() for k, f in futures.items()}
+    rec, launches = {}, {}
+    for parts, axes, names in worlds:
+        runs = {where: done[(parts, where)][0] for where in ("card", "cpu")}
+        runs.update({f"{where}_s": done[(parts, where)][1]
+                     for where in ("card", "cpu")})
+        card, cpu = runs["card"][0], runs["cpu"][0]
+        world = f"{parts}_ranks"
+        rec[world] = {"mesh": axes, "transport": card["transport"],
+                      "card_s": runs["card_s"], "cpu_s": runs["cpu_s"],
+                      "collectives_rank0": card["collectives"]}
+        for r in runs["card"]:
+            for name, v in r["launches"].items():
+                launches[name] = launches.get(name, 0) + v
+        for arch in names:
+            tol = LM_MOE_TOL if arch in LM_MOE else LM_TOL
+            what = f"phase 14 {world} {arch}"
+            got, want = card[arch], cpu[arch]
+            rec[world][arch] = {
+                "tol": tol,
+                "forward_err": require_close(
+                    torch.from_numpy(got["forward"]),
+                    torch.from_numpy(want["forward"]), tol,
+                    f"{what} forward"),
+                "decode_err": require_close(
+                    torch.from_numpy(got["decode"]),
+                    torch.from_numpy(want["decode"]), tol, f"{what} decode"),
+                "generate_rows_differ": tokens_agree(
+                    got["tokens"], want["tokens"],
+                    torch.from_numpy(want["tie_logits"]), LM_PROMPT, tol,
+                    f"{what} generate")}
+    return rec, launches
+
+
+def lm_world_full_rank(mesh, spec: dict) -> dict:
+    """One rank of phase 14 (b) / (c): each part of ``spec["parts"]`` at
+    full width (weights drawn on ``spec["device"]`` from a seeded
+    generator, the rank's blocks, ``DECODE_RULES``): the local shapes of
+    its heads and experts, forward(last_token_only) timed, greedy generate
+    timed with the collectives of its steps, the peak; the global logits
+    and tokens on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import base
+    from repro_torch.core import dist_sort
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import generate
+    from repro_torch.sharding import DECODE_RULES, gather_global, world_context
+
+    get_config = getattr(base, spec["config"])
+    dev = spec["device"]
+    ctx = world_context(mesh, DECODE_RULES)
+    out = {"launches": {}}
+    mem = DeviceMemory(dev)
+    for name, arch, layers, dtype, fwd, gen in spec["parts"]:
+        cfg = get_config(arch)
+        cfg = cfg if layers is None else cfg.replace(num_layers=layers)
+        dtype = getattr(torch, dtype)
+        mem.reset_peak()
+        _counts_reset()
+        params, init_s = timed(lambda: tf.init_model(
+            cfg, torch.Generator(dev).manual_seed(0), dtype, dev, ctx), dev)
+        mixer = (params["blocks"]["s0"]["mixer"] if params["blocks"]
+                 else params["suffix"][0]["mixer"])
+        rec = {"init_s": init_s, "weights_gib": mem.allocated_gib(),
+               "local_heads": mixer["wo"].shape[1]}
+        if cfg.num_experts:
+            rec["local_experts"] = params["blocks"]["s0"]["ffn"][
+                "w_gate"].shape[1]
+        fb, fs = fwd
+        batch = {"tokens": torch.from_numpy(lm_tokens(cfg, fb, fs)).to(dev)}
+        with torch.no_grad():
+            call = lambda: tf.forward(params, batch, cfg, ctx,  # noqa: E731
+                                      last_token_only=True)
+            logits, rec["forward_first_s"] = timed(call, dev)
+            logits, rec["forward_s"] = timed(call, dev)
+            logits = gather_global(logits, ctx, ("batch", None, "act_model"),
+                                   (fb, 1, cfg.vocab_size))
+            if gen:
+                gb, prompt, new = gen
+                prompts = lm_tokens(cfg, gb, prompt)
+                generate(params, cfg, ctx, prompts, 2, dtype=dtype)  # warm
+                dist_sort.reset_collectives()
+                res = generate(params, cfg, ctx, prompts, new, dtype=dtype)
+                steps = prompt + new - 1
+                rec["generate"] = {
+                    "batch": gb, "prompt": prompt, "new": new,
+                    "steps": steps, "tokens_per_s": res.tokens_per_s,
+                    "s_per_step": gb / res.tokens_per_s,
+                    "collectives_per_step": {
+                        k: v / steps for k, v in
+                        dist_sort.COLLECTIVES.items() if v},
+                    "collective_bytes_per_step": {
+                        k: (v[0] + v[1]) / steps for k, v in
+                        dist_sort.COLLECTIVE_BYTES.items() if v[0]}}
+        rec["peak_gib"] = mem.peak_gib()
+        launches, _ = _counts()
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        if dist.get_rank() == 0:
+            rec["logits"] = logits.float()
+            if gen:
+                rec["tokens"] = res.tokens
+        out[name] = rec
+        del params, logits
+        mem.reset_peak()
+    return out
+
+
+def lm_tokens(cfg, B: int, S: int):
+    import numpy as np
+
+    return np.random.default_rng(S).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def lm_world_single(part, device, config: str = "get_config") -> dict:
+    """The single-rank run of a full-width part on ``device``: the same
+    weights (the same seeded generator), its forward(last_token_only)
+    logits, and for a generate part its greedy tokens and the decode
+    logits along them (for the tie rule)."""
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import generate
+    from repro_torch.sharding import DECODE_RULES, single_device_context
+
+    name, arch, layers, dtype, (fb, fs), gen = part
+    cfg = getattr(base, config)(arch)
+    cfg = cfg if layers is None else cfg.replace(num_layers=layers)
+    dtype = getattr(torch, dtype)
+    ctx = single_device_context(DECODE_RULES)
+    mem = DeviceMemory(device)
+    mem.reset_peak()
+    params = tf.init_model(cfg, torch.Generator(device).manual_seed(0),
+                           dtype, device)
+    out = {"weights_gib": mem.allocated_gib()}
+    batch = {"tokens": torch.from_numpy(lm_tokens(cfg, fb, fs)).to(device)}
+    with torch.no_grad():
+        out["logits"], out["forward_s"] = timed(lambda: tf.forward(
+            params, batch, cfg, ctx, last_token_only=True), device)
+        out["logits"] = out["logits"].float().cpu()
+        if gen:
+            gb, prompt, new = gen
+            res = generate(params, cfg, ctx, lm_tokens(cfg, gb, prompt), new,
+                           dtype=dtype)
+            out["tokens"] = res.tokens
+            out["s_per_step"] = gb / res.tokens_per_s
+            out["tie_logits"] = lm_decode(
+                params, cfg, torch.from_numpy(res.tokens[:, :-1]).to(device),
+                dtype).float().cpu()
+    out["peak_gib"] = mem.peak_gib()
+    del params
+    mem.reset_peak()
+    return out
+
+
+def lm_world_full(device, parts=LM_WORLD_FULL,
+                  config: str = "get_config") -> tuple[dict, dict]:
+    """Phase 14 (b) / (c): each part's single-rank run in this process,
+    then all parts in one world of ``LM_WORLD_FULL_MESH`` on ``device``:
+    the forward logits within LM_TOL (float32) or LM_BF16_TOL of the max
+    |logit| (bf16) of the single run's, the greedy tokens equal but at a
+    near tie.  ``config`` names the function of ``configs.base`` that
+    gives the configs (the CPU rehearsal takes the reduced ones).  Returns
+    (record, launches over the world's ranks)."""
+    import torch
+
+    from repro_torch.launch.mesh import run_world
+
+    singles = {p[0]: lm_world_single(p, device, config) for p in parts}
+    n = 1
+    for v in LM_WORLD_FULL_MESH.values():
+        n *= v
+    t0 = time.perf_counter()
+    ranks = run_world(n, lm_world_full_rank, {"parts": parts,
+                                              "device": device,
+                                              "config": config},
+                      mesh_shape=LM_WORLD_FULL_MESH,
+                      timeout_s=LM_WORLD_TIMEOUT_S)
+    rec = {"mesh": LM_WORLD_FULL_MESH, "world_s": time.perf_counter() - t0}
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for name, arch, layers, dtype, fwd, gen in parts:
+        one, world = singles[name], ranks[0][name]
+        what = f"phase 14 {name} world of {n}"
+        got, want = torch.from_numpy(world.pop("logits")), one["logits"]
+        part = {"single": {k: v for k, v in one.items()
+                           if k not in ("logits", "tokens", "tie_logits")},
+                "ranks": [{k: v for k, v in r[name].items()
+                           if k not in ("logits", "tokens")} for r in ranks],
+                "forward_max_err": max_err(got, want),
+                "max_abs_logit": float(want.abs().max())}
+        if dtype == "float32":
+            require_close(got, want, LM_TOL, f"{what} forward")
+        else:
+            require(bool(torch.isfinite(got).all())
+                    and part["forward_max_err"]
+                    <= LM_BF16_TOL * part["max_abs_logit"],
+                    f"{what} forward differs by {part['forward_max_err']} "
+                    f"(max |logit| {part['max_abs_logit']}, tol "
+                    f"{LM_BF16_TOL} of it)")
+        if gen:
+            part["generate_rows_differ"] = tokens_agree(
+                world["tokens"], one["tokens"], one["tie_logits"], gen[1],
+                LM_TOL if dtype == "float32" else LM_BF16_TOL, f"{what} "
+                f"generate")
+        rec[name] = part
+    return rec, launches
+
+
+def phase_lm_world(device="cuda", archs=None, full: bool = True) -> tuple:
+    """Phase 14: (a) the reduced configs in worlds of ranks sharing
+    ``device`` against the same worlds on the CPU (``archs``: all ten);
+    (b) / (c) the full-width parts when ``full``.  Returns (record,
+    launches over the phase): it launches no kernel of the index."""
+    t0 = time.perf_counter()
+    _counts_reset()
+    rec, launches = lm_world_reduced(device, archs)
+    rec = {"reduced": rec, "reduced_s": time.perf_counter() - t0}
+    if full:
+        t1 = time.perf_counter()
+        rec["full"], more = lm_world_full(device)
+        rec["full_s"] = time.perf_counter() - t1
+        for k, v in more.items():
+            launches[k] = launches.get(k, 0) + v
+    here, _ = _counts()
+    for k, v in here.items():
+        launches[k] = launches.get(k, 0) + v
+    require(sum(launches.values()) == 0,
+            f"phase 14 launched index kernels: {launches}")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec, launches
+
+
 # the function of the JAX package each kernel replaces (file:line of the
 # function that reaches pl.pallas_call)
 REPLACES = {
@@ -5818,7 +6173,7 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -6079,6 +6434,10 @@ def main(argv=None) -> int:
             for name, v in counts.items():
                 main_launches[name] += v
         emit({"phase": 13, **rec})
+
+    if 14 in phases:
+        rec, path_launches["lm_world"] = phase_lm_world()
+        emit({"phase": 14, **rec})
 
     if {1, 2, 3, 7, 8} <= phases:
         for name in _build.KERNELS:

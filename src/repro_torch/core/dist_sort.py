@@ -29,7 +29,13 @@ the exclusive scans of per-shard aggregates.
 Key operands are 32-bit words read as unsigned (the JAX package's uint32
 key words, and its non-negative int32 keys) in int32 storage, sorted
 through ``kernels.ops.local_sort``: the radix engine's CUDA kernels or the
-stable compare sort.  Every operand is int32.
+stable compare sort.  Every sort operand is int32.
+
+The LM's world (``sharding.py``) runs its collectives here too, over one
+axis of its ``(pod, data, model)`` mesh at a time (``axis_info``): ``psum``
+of float32 / bfloat16 activations (the dtype is kept on the wire: gloo
+reduces bfloat16 itself), ``all_gather_tiled`` of weight, logit and token
+blocks, and ``argmax_sharded``, the greedy pick over vocab blocks.
 """
 
 from __future__ import annotations
@@ -116,6 +122,12 @@ def _me(info: ShardInfo) -> int:
     return dist.get_rank(info.group)
 
 
+def axis_info(mesh, axis: str) -> ShardInfo:
+    """The process group of one dimension of ``mesh`` (any ``DeviceMesh``,
+    e.g. the LM's ``(pod, data, model)``), for the collectives below."""
+    return ShardInfo(axis, mesh_parts(mesh, axis), 1, mesh.get_group(axis))
+
+
 # ---------------------------------------------------------------------------
 # the collectives (the only code that knows the transport)
 # ---------------------------------------------------------------------------
@@ -130,9 +142,9 @@ def transport(info: ShardInfo, device) -> str:
 
 
 def _wire(info: ShardInfo, x: torch.Tensor) -> torch.Tensor:
-    """``x`` as the group's backend takes it: contiguous int32 (bools
-    widen), on the host through a pinned buffer when gloo meets a CUDA
-    tensor."""
+    """``x`` as the group's backend takes it: contiguous, its dtype kept
+    (int32 words, float32, bfloat16; bools widen to int32), on the host
+    through a pinned buffer when gloo meets a CUDA tensor."""
     x = x.contiguous()
     if x.dtype == torch.bool:
         x = x.to(torch.int32)
@@ -159,6 +171,27 @@ def all_gather(info: ShardInfo, x: torch.Tensor) -> torch.Tensor:
     gathered = torch.stack(out)
     _record("all_gather", t, gathered)
     return _back(gathered, x)
+
+
+def all_gather_tiled(info: ShardInfo, x: torch.Tensor, dim: int
+                     ) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (the
+    reference's ``lax.all_gather(..., tiled=True)``)."""
+    return torch.cat(all_gather(info, x).unbind(0), dim=dim)
+
+
+def argmax_sharded(info: ShardInfo, x: torch.Tensor, offset: int
+                   ) -> torch.Tensor:
+    """The global argmax over the last dim of ``x``, a block of it that
+    starts at global index ``offset`` on this rank (blocks in rank order):
+    the largest value, ties to the lower global index, as ``jnp.argmax``
+    of the whole array picks."""
+    val, idx = torch.max(x, dim=-1)          # the first of a local tie
+    vals = all_gather(info, val)             # (P, ...)
+    ids = all_gather(info, idx + offset)
+    best = vals.amax(0)
+    return torch.where(vals == best, ids, torch.iinfo(ids.dtype).max
+                       ).amin(0)
 
 
 def gather(info: ShardInfo, x: torch.Tensor) -> torch.Tensor | None:

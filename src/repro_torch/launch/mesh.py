@@ -3,9 +3,14 @@ harness's mesh shapes.
 
 ``make_production_mesh`` / ``make_debug_mesh`` give the axis sizes of the
 JAX package's LM meshes by the same arithmetic (a dict of axis name ->
-size, what ``sharding.MeshContext`` takes): the port runs the LM on one
-card, so they describe the specs a model would get there and are not
-process groups.
+size, what ``sharding.MeshContext`` takes).  ``make_lm_mesh`` turns such
+sizes into the LM's world: a ``DeviceMesh`` with those dims (``("pod",
+"data", "model")``), rank r at the row-major coordinate r, the argument of
+``sharding.world_context``.  ``run_world`` and ``launched_world`` hand a
+rank that mesh when given ``mesh_shape``:
+
+    run_world(4, fn, prompts, mesh_shape=make_debug_mesh(4))
+    # fn(mesh, prompts) in ranks 0..3, mesh over (pod 1, data 2, model 2)
 
 ``make_index_mesh`` is the counterpart of the JAX package's
 ``launch/mesh.py`` ``make_index_mesh``: a one-dimensional
@@ -91,6 +96,34 @@ def make_index_mesh(device_type: str, *, parts: int | None = None):
     return init_device_mesh(device_type, (parts,), mesh_dim_names=(AXIS,))
 
 
+def make_lm_mesh(device_type: str, axes: dict):
+    """The LM's ``DeviceMesh`` over the initialised world: dims named and
+    sized as ``axes`` (axis name -> size, their product the world size),
+    row-major.  ``device_type`` names the transport as for
+    ``make_index_mesh``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if device_type not in TRANSPORTS:
+        raise ValueError(f"mesh device type {device_type!r} is not one of "
+                         f"{sorted(TRANSPORTS)}")
+    shape = tuple(axes.values())
+    size = 1
+    for n in shape:
+        size *= n
+    if size != dist.get_world_size():
+        raise ValueError(f"mesh {axes} needs {size} ranks, the world has "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=tuple(axes))
+
+
+def _mesh(device_type: str, parts: int, mesh_shape):
+    if mesh_shape is None:
+        return make_index_mesh(device_type, parts=parts)
+    return make_lm_mesh(device_type, mesh_shape)
+
+
 def _to_numpy(obj):
     import torch
 
@@ -133,10 +166,12 @@ def single_rank_world(device_type: str, timeout_s: float = 300.0):
 
 
 @contextlib.contextmanager
-def launched_world(device, timeout_s: float = 300.0):
+def launched_world(device, timeout_s: float = 300.0, mesh_shape=None):
     """Join the world ``torch.distributed.run`` started this process in
-    and yield its index mesh (None, joining nothing, when the environment
-    names no world of more than one rank); leave the world on exit.
+    and yield its index mesh, or its LM mesh of ``mesh_shape``
+    (``make_lm_mesh``) when given (None, joining nothing, when the
+    environment names no world of more than one rank); leave the world on
+    exit.
 
     Ranks on the GPU (``device`` of type cuda) take one card each over
     NCCL when the host has a card for every local rank; ranks that share
@@ -158,13 +193,13 @@ def launched_world(device, timeout_s: float = 300.0):
     dist.init_process_group(TRANSPORTS[device_type], init_method="env://",
                             timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        yield make_index_mesh(device_type)
+        yield _mesh(device_type, world, mesh_shape)
     finally:
         dist.destroy_process_group()
 
 
 def _rank_main(workdir: str, rank: int, parts: int, device_type: str,
-               timeout_s: float, fn, args) -> None:
+               timeout_s: float, fn, args, mesh_shape=None) -> None:
     """One rank: join the world, build the mesh, run ``fn``, write its
     result (or the traceback) under ``workdir``."""
     import torch
@@ -174,7 +209,7 @@ def _rank_main(workdir: str, rank: int, parts: int, device_type: str,
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // parts))
         _join(workdir, rank, parts, device_type, timeout_s)
         try:
-            out = _to_numpy(fn(make_index_mesh(device_type, parts=parts),
+            out = _to_numpy(fn(_mesh(device_type, parts, mesh_shape),
                                *args))
         finally:
             dist.destroy_process_group()
@@ -189,9 +224,11 @@ def _rank_main(workdir: str, rank: int, parts: int, device_type: str,
 
 
 def run_world(parts: int, fn, *args, device_type: str = "cpu",
-              timeout_s: float = 300.0) -> list:
+              timeout_s: float = 300.0, mesh_shape=None) -> list:
     """``fn(mesh, *args)`` in each rank of a spawned world of ``parts``
     processes; returns the ranks' results (tensors as numpy), rank order.
+    ``mesh`` is the index mesh, or the LM mesh of ``mesh_shape`` (axis
+    name -> size, ``make_lm_mesh``) when given.
 
     Raises ``RuntimeError`` naming the ranks that failed (with their
     tracebacks) when any rank raises or exits nonzero, or when the world
@@ -202,7 +239,7 @@ def run_world(parts: int, fn, *args, device_type: str = "cpu",
     with tempfile.TemporaryDirectory(prefix="repro_world_") as workdir:
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(workdir, r, parts, device_type, timeout_s,
-                                   fn, args))
+                                   fn, args, mesh_shape))
                  for r in range(parts)]
         for p in procs:
             p.start()

@@ -51,10 +51,10 @@ DECODE_STEPS = 4
 
 def _not_on_one_card(name: str):
     raise NotImplementedError(
-        f"perf variant {name!r} changes only the sharding rules over the "
-        f"production mesh; model-parallel LM execution over several cards "
-        f"(ROADMAP.md A16) is not ported, and on one card it is the "
-        f"baseline program")
+        f"perf variant {name!r} changes only the sharding rules of a "
+        f"training step over the production mesh; training in a world of "
+        f"ranks (ROADMAP.md A16b) is not ported, and on one card it is "
+        f"the baseline program")
 
 
 QWEN_VARIANTS = {

@@ -47,19 +47,9 @@ def shape_skip_reason(cfg: ArchConfig, shape: str) -> str | None:
     return None
 
 
-def local_shape(shape, spec, ctx: MeshContext) -> tuple:
-    """Per-device shape of an array of ``shape`` laid out by ``spec``."""
-    out = []
-    for size, entry in zip(shape, spec):
-        axes = () if entry is None else (
-            (entry,) if isinstance(entry, str) else entry)
-        out.append(size // ctx.axis_size(axes))
-    return tuple(out)
-
-
 def _abstract(tree, specs, ctx: MeshContext) -> Abstract:
     return Abstract(tree, specs, tree_map(
-        lambda t, s: local_shape(t.shape, s, ctx), tree, specs))
+        lambda t, s: ctx.local_shape(s, t.shape), tree, specs))
 
 
 def _meta(shape, dtype) -> torch.Tensor:

@@ -10,11 +10,11 @@ on one card (or the CPU), checkpointed and resumable.
 
 The default is the config's reduced form on a single-device context.
 ``--full`` trains the full config, also on one card and a single-device
-context: where the reference builds the production mesh, this port's
-model functions raise for a context with an axis over 1 (model-parallel
-LM layers over several cards, ROADMAP A16, are not ported), so a full
-config must fit one card.  For the same reason a world of more than one
-rank (``torch.distributed.run``) raises ``NotImplementedError``.
+context: where the reference builds the production mesh, this port
+serves in a world of ranks but does not train there (training over
+several ranks is ROADMAP A16b), so a full config must fit one card.  For
+the same reason a world of more than one rank (``torch.distributed.run``)
+raises ``NotImplementedError``.
 
 The run uses deterministic algorithms (``train``), so ``--resume``
 continues the uninterrupted run's losses bit for bit, on the card too;
@@ -58,7 +58,7 @@ def main(argv=None):
     if world > 1:
         raise NotImplementedError(
             f"a world of {world} ranks: data- and model-parallel LM "
-            f"training over several cards (ROADMAP A16) is not ported; run "
+            f"training over several ranks (ROADMAP A16b) is not ported; run "
             f"one process")
 
     from ..configs.base import get_config, get_reduced_config

@@ -8,7 +8,16 @@ the JAX package's ``models/blocks.py``, and come in two modes:
     donated cache
 
 Spec builders (``*_specs``) are the single source of truth for shapes and
-logical sharding axes (models/common.ParamSpec).  Attention is the
+logical sharding axes (models/common.ParamSpec).
+
+In a world of ranks (``sharding.world_context``) the params, caches and
+activations are this rank's blocks by ``spec_for``, and each function runs
+on them as the reference's GSPMD program does on a device: the dims over
+``data`` / ``pod`` (ZeRO-3's fsdp, the lora ranks, the expert hidden dim)
+are gathered before use, the heads / mlp / experts stay split over
+``model`` and one ``psum`` over ``model`` sums the rank's share of the
+output projection.  The MoE follows the reference's ``shard_map``: routing
+on the rank's own tokens, capacity from their count.  Attention is the
 reference's own math (a materialised softmax, or the online softmax over
 KV chunks), not a library attention, so the port computes what the
 reference computes.  Logits and softmax statistics are float32 whatever
@@ -21,10 +30,72 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..sharding import MeshContext, constrain, require_one_device
-from .common import ParamSpec, apply_rope, dense, einsum, gelu, rms_norm
+from ..sharding import (
+    MeshContext,
+    all_gather,
+    axes_of,
+    constrain,
+    gather_spec,
+    psum,
+    require_one_device,
+)
+from .common import (
+    ParamSpec,
+    apply_rope,
+    dense,
+    einsum,
+    gelu,
+    rms_norm,
+    tree_map,
+)
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# a layer's weights in a world
+# ---------------------------------------------------------------------------
+
+def spec_of(ctx: MeshContext, spec: ParamSpec) -> tuple:
+    return ctx.spec_for(spec.axes, spec.shape)
+
+
+def gathered(p, ctx: MeshContext, make_specs, *args, keep=("model",)):
+    """The layer's weights ``p`` (blocks by the specs ``make_specs(*args)``
+    gives) with every dim whole but those over the axes in ``keep``; ``p``
+    itself off a world, where no spec is built."""
+    if ctx.world is None:
+        return p
+    specs = make_specs(*args)
+    return tree_map(lambda t, s: gather_spec(t, ctx, spec_of(ctx, s), keep),
+                    p, specs)
+
+
+def model_block(ctx: MeshContext, entry, size: int) -> tuple[int, int]:
+    """(first index, count) of this rank's block of a dim of ``size`` whose
+    spec entry is ``entry``: a split over ``model`` or the whole dim."""
+    if ctx.world is None or "model" not in axes_of(entry):
+        return 0, size
+    n = size // ctx.mesh["model"]
+    return ctx.coordinate(("model",)) * n, n
+
+
+def row_parallel(h, w, x, cfg: ArchConfig, ctx: MeshContext, split: bool):
+    """``dense(h, w)`` over this rank's rows of ``w`` (its share of the
+    input dim, ``split`` when that is not all of it), summed over model:
+    the block's (B, S, d) output beside its input ``x``."""
+    y = dense(h, w)
+    if split:
+        y = psum(y, ctx)
+    return constrain(y, ctx, ("batch", None, None),
+                     (ctx.batch_of(x), x.shape[1], cfg.d_model))
+
+
+def local_batch(ctx: MeshContext, batch: int) -> int:
+    """This rank's rows of a global ``batch`` (``batch`` off a world)."""
+    if ctx.world is None:
+        return batch
+    return ctx.local_shape(ctx.spec_for(("batch",), (batch,)), (batch,))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -135,26 +206,62 @@ def _gqa_qkv(p, x, cfg: ArchConfig, positions):
     return q, k, v
 
 
+def _kv_index(cfg: ArchConfig, ctx: MeshContext):
+    """The local kv head of each local q head, or None where the local kv
+    heads group the local q heads as on one device: kv heads follow
+    their own spec, so a q head's kv head may lie in another rank's block
+    or be replicated (a single kv head)."""
+    if ctx.world is None:
+        return None
+    specs = gqa_specs(cfg)
+    q0, Hl = model_block(ctx, spec_of(ctx, specs["wq"])[1], cfg.num_heads)
+    kv0, Hkvl = model_block(ctx, spec_of(ctx, specs["wk"])[1],
+                            cfg.num_kv_heads)
+    group = cfg.num_heads // cfg.num_kv_heads
+    if Hkvl * group == Hl and q0 // group == kv0:
+        return None
+    return (q0 + torch.arange(Hl)) // group - kv0
+
+
+def _attn_out(p, out, x, cfg: ArchConfig, ctx: MeshContext):
+    """The output projection over the local heads, summed over model when
+    the heads are split."""
+    y = einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+    if p["wo"].shape[0] < cfg.num_heads:
+        y = psum(y, ctx)
+    return constrain(y, ctx, ("batch", None, None),
+                     (ctx.batch_of(x), x.shape[1], cfg.d_model))
+
+
 def gqa_attention(p, x, cfg: ArchConfig, ctx: MeshContext, *, window: int = 0,
                   positions=None):
     """Full-sequence causal attention.  x (B, S, d)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    p = gathered(p, ctx, gqa_specs, cfg)
+    kv_idx = _kv_index(cfg, ctx)
     q, k, v = _gqa_qkv(p, x, cfg, positions)
-    q = constrain(q, ctx, ("batch", None, "act_model", None))
+    q = constrain(q, ctx, ("batch", None, "act_model", None),
+                  (ctx.batch_of(x), S, cfg.num_heads, cfg.head_dim))
+    if kv_idx is not None:
+        k, v = k[:, :, kv_idx.to(x.device)], v[:, :, kv_idx.to(x.device)]
     if S % ATTN_CHUNK == 0 and S > ATTN_CHUNK:
         out = _attend_chunked(q, k, v, window=window)
     else:
         out = _attend(q, k, v, _causal_mask(S, S, window=window,
                                             device=x.device))
-    y = einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
-    return constrain(y, ctx, ("batch", None, None))
+    return _attn_out(p, out, x, cfg, ctx)
 
 
 def gqa_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                   device=None):
+                   device=None, ctx: MeshContext | None = None):
+    """Zeroed k / v (batch, max_len, kv heads, head_dim); in a world this
+    rank's rows and kv heads."""
     Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    if ctx is not None:
+        batch = local_batch(ctx, batch)
+        Hkv = model_block(ctx, spec_of(ctx, gqa_specs(cfg)["wk"])[1], Hkv)[1]
     return {
         "k": torch.zeros((batch, max_len, Hkv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_len, Hkv, hd), dtype=dtype, device=device),
@@ -171,6 +278,8 @@ def gqa_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext, *,
     T = cache["k"].shape[1]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    p = gathered(p, ctx, gqa_specs, cfg)
+    kv_idx = _kv_index(cfg, ctx)
     q, k, v = _gqa_qkv(p, x, cfg, positions)
     # windowed caches store key at pos % T (ring buffer); full caches at pos
     # (caches may be low-precision, e.g. fp8 — cast on write, upcast on read)
@@ -187,10 +296,11 @@ def gqa_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext, *,
         mask = (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - window)
     else:
         mask = kpos <= pos
-    out = _attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
-                  mask[None, None, None, :])
-    y = einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
-    return y, cache
+    ck, cv = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    if kv_idx is not None:
+        ck, cv = ck[:, :, kv_idx.to(x.device)], cv[:, :, kv_idx.to(x.device)]
+    out = _attend(q, ck, cv, mask[None, None, None, :])
+    return _attn_out(p, out, x, cfg, ctx), cache
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +406,7 @@ def mla_attention(p, x, cfg: ArchConfig, ctx: MeshContext, *, positions=None):
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    p = gathered(p, ctx, mla_specs, cfg)
     q_nope, q_rope = _mla_q(p, x, cfg)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv, k_rope = _mla_kv_latent(p, x, cfg)
@@ -305,12 +416,15 @@ def mla_attention(p, x, cfg: ArchConfig, ctx: MeshContext, *, positions=None):
     else:
         mask = _causal_mask(S, S, device=x.device)
         out = _mla_attend(p, q_nope, q_rope, ckv, k_rope, cfg, mask)
-    y = einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
-    return constrain(y, ctx, ("batch", None, None))
+    return _attn_out(p, out, x, cfg, ctx)
 
 
 def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                   device=None):
+                   device=None, ctx: MeshContext | None = None):
+    """Zeroed latent cache; in a world this rank's rows (the latent is
+    whole on every rank)."""
+    if ctx is not None:
+        batch = local_batch(ctx, batch)
     return {
         "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
                            device=device),
@@ -325,6 +439,7 @@ def mla_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext):
     cdt = cache["ckv"].dtype
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    p = gathered(p, ctx, mla_specs, cfg)
     q_nope, q_rope = _mla_q(p, x, cfg)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv_new, k_rope_new = _mla_kv_latent(p, x, cfg)
@@ -336,8 +451,7 @@ def mla_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext):
     mask = (torch.arange(T, device=x.device) <= pos)[None, None, None, :]
     out = _mla_attend(p, q_nope, q_rope, cache["ckv"].to(x.dtype),
                       cache["k_rope"].to(x.dtype), cfg, mask)
-    y = einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
-    return y, cache
+    return _attn_out(p, out, x, cfg, ctx), cache
 
 
 # ---------------------------------------------------------------------------
@@ -359,15 +473,20 @@ def mlp_specs(cfg: ArchConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp(p, x, cfg: ArchConfig, ctx: MeshContext):
+def mlp(p, x, cfg: ArchConfig, ctx: MeshContext, d_ff: int | None = None):
+    """The FFN of hidden width ``d_ff`` (default ``cfg.d_ff``): column-
+    parallel up, row-parallel down and a psum over model in a world."""
+    f = cfg.d_ff if d_ff is None else d_ff
+    p = gathered(p, ctx, mlp_specs, cfg, f)
     if cfg.mlp == "swiglu":
         h = F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"])
     elif cfg.mlp == "relu2":
         h = torch.square(F.relu(dense(x, p["w_up"])))
     else:
         h = gelu(dense(x, p["w_up"]))
-    h = constrain(h, ctx, ("batch", None, "act_model"))
-    return constrain(dense(h, p["w_down"]), ctx, ("batch", None, None))
+    h = constrain(h, ctx, ("batch", None, "act_model"),
+                  (ctx.batch_of(x), x.shape[1], f))
+    return row_parallel(h, p["w_down"], x, cfg, ctx, h.shape[-1] < f)
 
 
 # ---------------------------------------------------------------------------
@@ -376,8 +495,8 @@ def mlp(p, x, cfg: ArchConfig, ctx: MeshContext):
 #
 # The reference runs the routed part as a shard_map over (pod, data) token
 # shards and 'model' expert shards, with a ZeRO-3 gather of the expert
-# weights and one psum.  On one card every expert is local: the body below
-# is that shard_map body with no gather and no psum.
+# weights and one psum.  So does a world here; on one card every expert is
+# local and the body runs with no gather and no psum.
 
 def moe_specs(cfg: ArchConfig) -> dict:
     d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
@@ -400,12 +519,14 @@ def capacity(cfg: ArchConfig, tokens: int) -> int:
                       / cfg.num_experts))
 
 
-def moe_route(xt, router, cfg: ArchConfig):
-    """Top-k routing and capacity dispatch of tokens xt (T, d).
+def moe_route(xt, router, cfg: ArchConfig, first: int = 0,
+              count: int | None = None):
+    """Top-k routing and capacity dispatch of tokens xt (T, d) to experts
+    ``first`` .. ``first + count`` (default all E).
 
-    Returns (weights (T, k), experts (T, k), tok_idx (E, C), gate_w (E, C),
-    valid (E, C)): expert e's slot c serves token tok_idx[e, c] with gate
-    weight gate_w[e, c] where valid.  Ties break as ``jax.lax.top_k`` (the
+    Returns (weights (T, k), experts (T, k), tok_idx (El, C), gate_w (El,
+    C), valid (El, C)): expert first + e's slot c serves token tok_idx[e, c]
+    with gate weight gate_w[e, c] where valid.  Ties break as ``jax.lax.top_k`` (the
     lower expert first: a stable descending sort) and the dispatch order is
     a stable argsort by expert, as ``jnp.argsort``."""
     E, k = cfg.num_experts, cfg.top_k
@@ -426,7 +547,8 @@ def moe_route(xt, router, cfg: ArchConfig):
     w_sorted = flat_weight[order]
 
     C = capacity(cfg, Tl)
-    my_experts = torch.arange(E, device=dev)
+    my_experts = first + torch.arange(E if count is None else count,
+                                      device=dev)
     starts = torch.searchsorted(e_sorted, my_experts, side="left")
     ends = torch.searchsorted(e_sorted, my_experts, side="right")
     counts = ends - starts
@@ -439,12 +561,12 @@ def moe_route(xt, router, cfg: ArchConfig):
     return weights, experts, tok_idx, gate_w, valid
 
 
-def _moe_local(xt, router, wg, wu, wd, *, cfg: ArchConfig):
-    """The routed experts on one device.  xt (T, d); wg/wu (E, d, f);
-    wd (E, f, d)."""
+def _moe_local(xt, router, wg, wu, wd, *, cfg: ArchConfig, first: int = 0):
+    """The routed experts ``first`` .. ``first + El`` on one rank.  xt
+    (Tl, d) its tokens; wg/wu (El, d, f); wd (El, f, d)."""
     Tl, d = xt.shape
     E = wg.shape[0]
-    _, _, tok_idx, gate_w, valid = moe_route(xt, router, cfg)
+    _, _, tok_idx, gate_w, valid = moe_route(xt, router, cfg, first, E)
     C = tok_idx.shape[1]
 
     xe = xt[tok_idx]                                           # (E, C, d)
@@ -458,13 +580,54 @@ def _moe_local(xt, router, wg, wu, wd, *, cfg: ArchConfig):
     return y.index_add_(0, tok_idx.reshape(-1), ye.reshape(E * C, d).to(y.dtype))
 
 
+def _moe_world(p, x, cfg: ArchConfig, ctx: MeshContext):
+    """The reference's shard_map in a world: the B*S tokens split over the
+    batch axes (``ctx.batch_axes``, row-major), each rank routing its own;
+    the expert weights gathered whole but their experts dim (over model);
+    the rank's experts summed over model."""
+    B, S, d = x.shape
+    Bg = ctx.batch_of(x)
+    baxes = ctx.batch_axes
+    parts = ctx.axis_size(baxes)
+    if (Bg * S) % parts:
+        raise ValueError(
+            f"{Bg * S} tokens over the batch axes {baxes} of {parts} ranks: "
+            f"the reference's shard_map takes only a token dim they divide")
+    Tl = Bg * S // parts
+    r = ctx.coordinate(baxes)
+    xaxes = axes_of(ctx.spec_for(("batch", None, None), (Bg, S, d))[0])
+    same = xaxes == baxes
+    if same:
+        xt = x.reshape(Tl, d)
+    else:   # rows laid out over fewer axes: cut the tokens from them all
+        xt = all_gather(x, ctx, xaxes, 0).reshape(Bg * S, d)[
+            r * Tl:(r + 1) * Tl]
+    specs = moe_specs(cfg)
+    routed = ("router", "w_gate", "w_up", "w_down")
+    w = gathered({k: p[k] for k in routed}, ctx,
+                 lambda: {k: specs[k] for k in routed})
+    first, El = model_block(ctx, spec_of(ctx, specs["w_gate"])[0],
+                            cfg.num_experts)
+    y = _moe_local(xt, w["router"], w["w_gate"], w["w_up"], w["w_down"],
+                   cfg=cfg, first=first)
+    if El < cfg.num_experts:
+        y = psum(y, ctx)
+    if same:
+        return y.reshape(B, S, d)
+    y = all_gather(y, ctx, baxes, 0).reshape(Bg, S, d)
+    return ctx.local_block(y, (xaxes or None, None, None))
+
+
 def moe_block(p, x, cfg: ArchConfig, ctx: MeshContext):
     require_one_device(ctx)
     B, S, d = x.shape
-    xt = x.reshape(B * S, d)
-    y = _moe_local(xt, p["router"], p["w_gate"], p["w_up"], p["w_down"],
-                   cfg=cfg)
-    y = constrain(y.reshape(B, S, d), ctx, ("batch", None, None))
+    if ctx.world is None:
+        y = _moe_local(x.reshape(B * S, d), p["router"], p["w_gate"],
+                       p["w_up"], p["w_down"], cfg=cfg).reshape(B, S, d)
+    else:
+        y = _moe_world(p, x, cfg, ctx)
+    y = constrain(y, ctx, ("batch", None, None), (ctx.batch_of(x), S, d))
     if cfg.num_shared_experts > 0:
-        y = y + mlp(p["shared"], x, cfg.replace(mlp="swiglu"), ctx)
+        f = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
+        y = y + mlp(p["shared"], x, cfg.replace(mlp="swiglu"), ctx, f)
     return y

@@ -54,27 +54,42 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def _make(spec: ParamSpec, generator: torch.Generator, dtype, device):
+def _make(spec: ParamSpec, generator: torch.Generator, dtype, device,
+          ctx=None):
+    """One leaf; in a world (``ctx.world``) this rank's block of it, the
+    whole leaf drawn and dropped again so every rank draws the same
+    numbers."""
+    shape = spec.shape
+    spec_ = None
+    if ctx is not None and ctx.world is not None:
+        spec_ = ctx.spec_for(spec.axes, spec.shape)
+        shape = ctx.local_shape(spec_, spec.shape)
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
+        return torch.ones(shape, dtype=dtype, device=device)
     scale = spec.scale
     if spec.init == "small":
         scale = spec.scale / max(1, int(np.sqrt(np.prod(spec.shape[:-1])
                                                 or 1)))
     x = torch.randn(spec.shape, generator=generator, device=generator.device)
-    return (x * scale).to(device=device, dtype=dtype)
+    if spec_ is None:
+        return (x * scale).to(device=device, dtype=dtype)
+    return (ctx.local_block(x, spec_) * scale).to(device=device, dtype=dtype)
 
 
 def init_params(spec_tree, generator: torch.Generator,
-                dtype=torch.float32, device=None):
+                dtype=torch.float32, device=None, ctx=None):
     """Real parameters: normal x scale, zeros, ones or ``small`` (scale over
     the square root of the fan-in) per spec, drawn from ``generator`` (on
     its device), then placed on ``device`` (the card unless the CPU is
-    asked for).  The values are this generator's, not ``jax.random``'s."""
+    asked for).  The values are this generator's, not ``jax.random``'s.
+    In a world (``ctx`` of ``sharding.world_context``) each leaf is this
+    rank's block by ``ctx.spec_for``, the same numbers as the single-device
+    draw; one whole leaf at a time is made and freed."""
     device = resolve_device(device)
-    return tree_map(lambda s: _make(s, generator, dtype, device), spec_tree)
+    return tree_map(lambda s: _make(s, generator, dtype, device, ctx),
+                    spec_tree)
 
 
 def abstract_params(spec_tree, dtype=torch.float32):

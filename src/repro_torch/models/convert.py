@@ -25,12 +25,22 @@ def _leaf_to_tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
-def params_from_numpy(tree, device=None):
+def params_from_numpy(tree, device=None, ctx=None, shardings=None):
     """A tree of numpy arrays (the JAX package's params or train state
     through ``np.asarray``) as tensors on ``device`` (the card unless the
-    CPU is asked for), leaf by leaf, dtypes kept."""
+    CPU is asked for), leaf by leaf, dtypes kept.  In a world (``ctx`` of
+    ``sharding.world_context``) each leaf is this rank's block by its
+    partition spec in ``shardings`` (``transformer.model_shardings(cfg,
+    ctx)``, the same tree)."""
     device = resolve_device(device)
-    return tree_map(lambda a: _leaf_to_tensor(a, device), tree)
+    if ctx is None or ctx.world is None:
+        return tree_map(lambda a: _leaf_to_tensor(a, device), tree)
+    if shardings is None:
+        raise ValueError("a world's params need their shardings "
+                         "(transformer.model_shardings(cfg, ctx))")
+    return tree_map(lambda a, spec: _leaf_to_tensor(
+        np.asarray(a)[ctx.block(spec, np.shape(a))], device), tree,
+        shardings)
 
 
 def params_to_numpy(params):

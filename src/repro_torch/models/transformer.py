@@ -11,13 +11,19 @@ stacks 3-layer groups.
 
 ``forward`` and ``decode_step`` are functions of a dict of tensors, the
 tree the JAX package's functions take (``models/convert.py`` carries one
-across).  ``LM`` wraps the same tensors as an ``nn.Module``.  ``loss_fn``
+across).  In a world of ranks (``sharding.world_context``) the tree and the
+cache are this rank's blocks, the tokens are the global batch (each rank
+keeps its rows) and the logits are the rank's block: rows over the batch
+axes, vocab over model, the reference's ``("batch", None, "act_model")``
+layout (``sharding.gather_global`` puts them together).  A world serves
+only: asking it for a gradient raises.  ``LM`` wraps the same tensors as an ``nn.Module``.  ``loss_fn``
 is differentiable: ``training/train_loop.py`` takes its gradient with
 autograd, each stacked group rematerialised as ``remat_policy`` says.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any
 
@@ -32,7 +38,13 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ArchConfig
 from ..devices import resolve_device
-from ..sharding import MeshContext, constrain, single_device_context
+from ..sharding import (
+    MeshContext,
+    constrain,
+    psum,
+    require_one_device,
+    single_device_context,
+)
 from . import blocks, ssm
 from .common import (
     ParamSpec,
@@ -133,18 +145,19 @@ def _apply_layer_decode(kind, p, x, cache, pos, cfg, ctx, *, moe: bool):
 
 
 def _mixer_cache(kind, cfg: ArchConfig, batch: int, max_len: int, dtype,
-                 device):
+                 device, ctx=None):
     if kind == "attn":
         if cfg.attention == "mla":
-            return blocks.mla_init_cache(cfg, batch, max_len, dtype, device)
-        return blocks.gqa_init_cache(cfg, batch, max_len, dtype, device)
+            return blocks.mla_init_cache(cfg, batch, max_len, dtype, device,
+                                         ctx)
+        return blocks.gqa_init_cache(cfg, batch, max_len, dtype, device, ctx)
     if kind == "local_attn":
         return blocks.gqa_init_cache(cfg, batch, min(cfg.window, max_len),
-                                     dtype, device)
+                                     dtype, device, ctx)
     if kind == "rglru":
-        return ssm.rglru_init_cache(cfg, batch, dtype, device)
+        return ssm.rglru_init_cache(cfg, batch, dtype, device, ctx)
     if kind == "ssm":
-        return ssm.mamba2_init_cache(cfg, batch, dtype, device)
+        return ssm.mamba2_init_cache(cfg, batch, dtype, device, ctx)
     raise ValueError(kind)
 
 
@@ -184,9 +197,10 @@ def model_specs(cfg: ArchConfig) -> dict:
 
 
 def init_model(cfg: ArchConfig, generator: torch.Generator,
-               dtype=torch.bfloat16, device=None):
-    """Random weights from ``generator`` (see ``common.init_params``)."""
-    return init_params(model_specs(cfg), generator, dtype, device)
+               dtype=torch.bfloat16, device=None, ctx: MeshContext | None = None):
+    """Random weights from ``generator`` (see ``common.init_params``); in a
+    world (``ctx``) this rank's blocks of the same weights."""
+    return init_params(model_specs(cfg), generator, dtype, device, ctx)
 
 
 def abstract_model(cfg: ArchConfig, dtype=torch.bfloat16):
@@ -270,6 +284,57 @@ def _remat(body, policy: str):
 # forward / loss
 # ---------------------------------------------------------------------------
 
+def _world_call(params, ctx: MeshContext, batch: int) -> MeshContext:
+    """The context of one call in a world: its global batch set.  A world
+    serves only; params that ask for a gradient raise."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in tree_leaves(params)):
+        raise NotImplementedError(
+            "a gradient in a world of ranks: training over several ranks "
+            "(gradients through the collectives, data / FSDP / expert-"
+            "parallel updates) is ROADMAP A16b and not ported; the world "
+            "runs forward, decode_step and generate with grad mode off")
+    return dataclasses.replace(ctx, batch=batch)
+
+
+def _rows(t, ctx: MeshContext):
+    """This rank's rows of a global batch-major tensor (``t`` off a
+    world)."""
+    if ctx.world is None:
+        return t
+    return ctx.local_block(t, ctx.spec_for(("batch",) + (None,) * (t.ndim - 1),
+                                           t.shape))
+
+
+def _embed(table, tokens, cfg: ArchConfig, ctx: MeshContext):
+    """Rows of the embedding table; over a vocab split over model each rank
+    looks up the ids of its block (zeros elsewhere) and a psum adds them."""
+    tokens = tokens.long()
+    if ctx.world is None:
+        return table[tokens]
+    spec = ctx.spec_for(("vocab", None), (cfg.vocab_size, cfg.d_model))
+    v0, vl = blocks.model_block(ctx, spec[0], cfg.vocab_size)
+    if vl == cfg.vocab_size:
+        return table[tokens]
+    local = tokens - v0
+    hit = (local >= 0) & (local < vl)
+    x = torch.where(hit[..., None], table[local.clamp(0, vl - 1)], 0)
+    return psum(x, ctx)
+
+
+def _inputs(params, batch, cfg: ArchConfig, ctx: MeshContext):
+    """The first activation (this rank's rows): embeddings given to a
+    frontend stub, or the tokens' rows of the table."""
+    if cfg.frontend != "none" and "embeds" in batch:
+        x = _rows(batch["embeds"], ctx)
+        B, S = batch["embeds"].shape[:2]
+    else:
+        x = _embed(params["embed"], _rows(batch["tokens"], ctx), cfg, ctx)
+        B, S = batch["tokens"].shape[:2]
+    return constrain(x.to(params["lm_head"].dtype), ctx,
+                     ("batch", None, None), (B, S, cfg.d_model))
+
+
 def forward(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
             remat_policy: str = "full", scan_unroll: int | bool = 1,
             last_token_only: bool = False):
@@ -279,12 +344,23 @@ def forward(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
     ``remat_policy`` ("full", "dots" or "none") rematerialises each stacked
     group's pass when a gradient is taken (``_remat``); with grad mode off
     it changes nothing.  ``scan_unroll`` is the reference's signature and
-    does nothing: the Python loop over the groups is already unrolled."""
-    if cfg.frontend != "none" and "embeds" in batch:
-        x = batch["embeds"]
-    else:
-        x = params["embed"][batch["tokens"].long()]
-    x = constrain(x.to(params["lm_head"].dtype), ctx, ("batch", None, None))
+    does nothing: the Python loop over the groups is already unrolled.
+    In a world the batch is global and the logits this rank's block."""
+    require_one_device(ctx)
+    if ctx.world is None:
+        return _forward(params, batch, cfg, ctx, remat_policy,
+                        last_token_only)
+    src = batch["embeds"] if (cfg.frontend != "none"
+                              and "embeds" in batch) else batch["tokens"]
+    ctx = _world_call(params, ctx, src.shape[0])
+    with torch.no_grad():
+        return _forward(params, batch, cfg, ctx, remat_policy,
+                        last_token_only)
+
+
+def _forward(params, batch, cfg: ArchConfig, ctx: MeshContext,
+             remat_policy: str, last_token_only: bool):
+    x = _inputs(params, batch, cfg, ctx)
 
     moe = cfg.num_experts > 0
     prefix_kinds, pat, groups, suffix_kinds = _layer_plan(cfg)
@@ -308,13 +384,19 @@ def forward(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
     if last_token_only:
         x = x[:, -1:, :]  # serving prefill: only the final position's logits
     logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
-    return constrain(logits, ctx, ("batch", None, "act_model"))
+    return constrain(logits, ctx, ("batch", None, "act_model"),
+                     (ctx.batch_of(x), x.shape[1], cfg.vocab_size))
 
 
 def loss_fn(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
             remat_policy: str = "full", scan_unroll: int | bool = 1):
     """Mean next-token loss over labels != LABEL_PAD (float32);
-    differentiable, with ``forward``'s ``remat_policy``."""
+    differentiable, with ``forward``'s ``remat_policy``.  One device only:
+    the loss in a world is training (ROADMAP A16b)."""
+    if ctx.world is not None:
+        raise NotImplementedError(
+            "loss_fn in a world of ranks: training over several ranks is "
+            "ROADMAP A16b and not ported")
     logits = forward(params, batch, cfg, ctx, remat_policy=remat_policy,
                      scan_unroll=scan_unroll)
     labels = batch["labels"]
@@ -327,15 +409,18 @@ def loss_fn(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None):
+               dtype=torch.bfloat16, device=None,
+               ctx: MeshContext | None = None):
     """Zeroed decode cache for ``batch`` sequences of up to ``max_len``
     tokens: the prefix / stacked groups / suffix layers' caches (KV
-    entries in ``dtype``, SSM and LRU states in float32)."""
+    entries in ``dtype``, SSM and LRU states in float32).  In a world
+    (``ctx``) this rank's blocks: its rows of the global ``batch``, its kv
+    heads and SSM / LRU channels."""
     device = resolve_device(device, allow_meta=True)
     prefix_kinds, pat, groups, suffix_kinds = _layer_plan(cfg)
 
     def make(kind):
-        return _mixer_cache(kind, cfg, batch, max_len, dtype, device)
+        return _mixer_cache(kind, cfg, batch, max_len, dtype, device, ctx)
 
     def stack(tree, n):
         return tree_map(lambda x: x[None].repeat(n, *([1] * x.ndim)), tree)
@@ -352,9 +437,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
                 ctx: MeshContext, *, scan_unroll: int | bool = 1):
     """One decode step.  tokens (B, 1) int; pos the new token's index.
-    Writes the cache in place; returns (logits (B, V), the cache)."""
-    x = params["embed"][tokens.long()]
-    x = constrain(x.to(params["lm_head"].dtype), ctx, ("batch", None, None))
+    Writes the cache in place; returns (logits (B, V), the cache).  In a
+    world the tokens are the global batch, the cache and the logits this
+    rank's blocks."""
+    require_one_device(ctx)
+    if ctx.world is None:
+        return _decode_step(params, cache, tokens, pos, cfg, ctx)
+    ctx = _world_call(params, ctx, tokens.shape[0])
+    with torch.no_grad():
+        return _decode_step(params, cache, tokens, pos, cfg, ctx)
+
+
+def _decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
+                 ctx: MeshContext):
+    x = _inputs(params, {"tokens": tokens}, cfg, ctx)
     moe = cfg.num_experts > 0
     prefix_kinds, pat, groups, suffix_kinds = _layer_plan(cfg)
     pos = int(pos)
@@ -380,7 +476,8 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])[:, 0]
-    return constrain(logits, ctx, ("batch", "act_model")), cache
+    return constrain(logits, ctx, ("batch", "act_model"),
+                     (ctx.batch_of(x), cfg.vocab_size)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +542,7 @@ class LM(nn.Module):
     def init_cache(self, batch: int, max_len: int, dtype=None):
         p = self.tree.embed
         return init_cache(self.cfg, batch, max_len, dtype or p.dtype,
-                          p.device)
+                          p.device, self.ctx)
 
     def decode_step(self, cache, tokens, pos: int):
         return decode_step(self.params(), cache, tokens, pos, self.cfg,

@@ -16,7 +16,7 @@ from ..configs.base import ArchConfig
 from ..core.fm_index import PAD
 from ..devices import resolve_device
 from ..models import transformer as tf
-from ..sharding import MeshContext
+from ..sharding import MeshContext, gather_global, global_argmax
 
 
 @dataclasses.dataclass
@@ -49,11 +49,19 @@ def generate(
     are fed one decode step at a time; ``sample`` maps logits float[B, V]
     -> token int[B] (None = argmax, ties to the lower id).  The cache is
     ``cache_dtype or dtype`` (e.g. ``torch.float8_e4m3fn``: cast on write,
-    upcast on read).  The clock is read after synchronising the device."""
+    upcast on read).  The clock is read after synchronising the device.
+
+    In a world (``ctx`` of ``sharding.world_context``, ``params`` the
+    rank's blocks) every rank passes the same global ``prompts`` and
+    decodes its rows into its own cache; greedy picks the global argmax
+    over the vocab blocks, ``sample`` gets the global logits on every rank
+    (so draws the same tokens on each), and every rank returns the same
+    global tokens, counted globally in tokens/s."""
     device = params["embed"].device
     B, prompt_len = prompts.shape
     total = prompt_len + max_new_tokens
-    cache = tf.init_cache(cfg, B, total, cache_dtype or dtype, device)
+    cache = tf.init_cache(cfg, B, total, cache_dtype or dtype, device, ctx)
+    V = cfg.vocab_size
     out = torch.zeros((B, total), dtype=torch.int32, device=device)
     out[:, :prompt_len] = torch.as_tensor(np.asarray(prompts, np.int32),
                                           device=device)
@@ -65,8 +73,15 @@ def generate(
         if pos + 1 < prompt_len:
             tok = out[:, pos + 1: pos + 2]
         else:
-            nxt = (torch.argmax(logits, dim=-1) if sample is None
-                   else sample(logits))
+            if ctx.world is None:
+                nxt = (torch.argmax(logits, dim=-1) if sample is None
+                       else sample(logits))
+            elif sample is None:
+                nxt = global_argmax(logits, ctx, ("batch", "act_model"),
+                                    (B, V))
+            else:
+                nxt = sample(gather_global(logits, ctx,
+                                           ("batch", "act_model"), (B, V)))
             out[:, pos + 1] = nxt.to(torch.int32)
             tok = out[:, pos + 1: pos + 2]
     _sync(device)

@@ -64,6 +64,17 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(was)
 
 
+def one_device_training(ctx: MeshContext) -> None:
+    """Raise for a context of a world of ranks: training there is not
+    ported."""
+    if ctx.world is not None:
+        raise NotImplementedError(
+            "training in a world of ranks (gradients through the "
+            "collectives, data / FSDP / expert-parallel updates) is ROADMAP "
+            "A16b and not ported; train on one device "
+            "(single_device_context())")
+
+
 def make_train_step(cfg: ArchConfig, ctx: MeshContext, tcfg: TrainConfig):
     """Returns (state, batch) -> (state, metrics).
 
@@ -71,7 +82,8 @@ def make_train_step(cfg: ArchConfig, ctx: MeshContext, tcfg: TrainConfig):
     {'tokens', 'labels'} tensors on the params' device.  metrics: ``loss``,
     ``grad_norm`` (before clipping) and ``lr``, 0-d float32 tensors.  The
     step runs under the caller's deterministic-algorithms setting
-    (``train`` turns it on)."""
+    (``train`` turns it on).  One device only: a world's context raises."""
+    one_device_training(ctx)
 
     def step(state, batch):
         params = state["params"]
@@ -127,6 +139,7 @@ def train(
     from the latest one, repeating the uninterrupted run's losses bit for
     bit (the run is under ``deterministic_algorithms``).  Returns
     {'state', 'losses' (this run's steps)}."""
+    one_device_training(ctx)
     device = resolve_device(device)
     with deterministic_algorithms():      # before any work on the card
         step_fn = make_train_step(cfg, ctx, tcfg)

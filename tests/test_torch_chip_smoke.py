@@ -775,3 +775,46 @@ def test_lm_full_part_runs_on_the_cpu(monkeypatch, arch, layers, check):
     assert ("capacity" in rec["forward"]) == (arch == "deepseek_v2_236b")
     if check:
         assert rec["decode_vs_forward"]["positions"] == check
+
+
+def test_phase_lm_world_runs_on_the_cpu():
+    """Phase 14 (a) on the CPU for a dense and an MoE config: each world
+    (4 ranks, and 8 for the MoE config) on the 'card' (the CPU here)
+    against the same world on the CPU agrees exactly; no index kernel
+    launches in any rank."""
+    rec, launches = chip_smoke.phase_lm_world(
+        device="cpu", archs=["qwen2p5_3b", "deepseek_v2_236b"], full=False)
+    four, eight = rec["reduced"]["4_ranks"], rec["reduced"]["8_ranks"]
+    assert four["transport"] == eight["transport"] == "gloo, direct"
+    assert four["mesh"] == {"pod": 1, "data": 2, "model": 2}
+    assert "qwen2p5_3b" not in eight
+    for r in (four["qwen2p5_3b"], four["deepseek_v2_236b"],
+              eight["deepseek_v2_236b"]):
+        assert r["forward_err"] == r["decode_err"] == 0
+        assert r["generate_rows_differ"] == 0
+    assert four["deepseek_v2_236b"]["tol"] == chip_smoke.LM_MOE_TOL
+    assert four["collectives_rank0"]["psum"] > 0
+    assert set(launches.values()) <= {0}
+
+
+def test_lm_world_full_parts_run_on_the_cpu():
+    """Phase 14 (b) / (c)'s logic on reduced configs: the single-rank runs,
+    then both parts in one world of (1, 1, 2), each rank holding half the
+    heads (and experts), its forward against the single run's and its
+    greedy tokens equal."""
+    parts = (("minitron_4b", "minitron_4b", None, "float32", (2, 16),
+              (2, 4, 4)),
+             ("deepseek_v2_236b", "deepseek_v2_236b", 2, "bfloat16",
+              (2, 16), None))
+    rec, launches = chip_smoke.lm_world_full("cpu", parts,
+                                             "get_reduced_config")
+    m, d = rec["minitron_4b"], rec["deepseek_v2_236b"]
+    assert rec["mesh"] == {"pod": 1, "data": 1, "model": 2}
+    assert m["generate_rows_differ"] == 0
+    assert m["forward_max_err"] <= chip_smoke.LM_TOL * (1 + m["max_abs_logit"])
+    assert [r["local_heads"] for r in m["ranks"]] == [2, 2]
+    gen = m["ranks"][0]["generate"]
+    assert gen["steps"] == 7 and gen["collectives_per_step"]["psum"] > 0
+    assert [r["local_experts"] for r in d["ranks"]] == [4, 4]
+    assert d["forward_max_err"] <= chip_smoke.LM_BF16_TOL * d["max_abs_logit"]
+    assert set(launches.values()) <= {0}

@@ -112,3 +112,110 @@ def test_mesh_device_types():
 def test_a_mesh_is_a_device_mesh():
     with pytest.raises(TypeError, match="DeviceMesh"):
         ds.mesh_parts(object())
+
+
+# --------------------------------------------------------------------------
+# the LM world's collectives and layout helpers (sharding.py)
+# --------------------------------------------------------------------------
+
+LM_MESH = {"pod": 1, "data": 2, "model": 2}
+
+
+def lm_collectives_rank(mesh) -> dict:
+    from repro_torch.sharding import all_gather, psum, world_context
+
+    ctx = world_context(mesh)
+    me = torch.distributed.get_rank()
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) / 7 + me
+    xb = (torch.arange(4, dtype=torch.float32) * 0.375 + me).to(
+        torch.bfloat16)
+    ds.reset_collectives()
+    out = {
+        "x": x,
+        "coords": [ctx.coordinate((a,)) for a in ("pod", "data", "model")],
+        "psum_model": psum(x, ctx),
+        "psum_all": psum(x, ctx, ("pod", "data", "model")),
+        "gather_model_1": all_gather(x, ctx, ("model",), 1),
+        "gather_batch_0": all_gather(x, ctx, ("pod", "data"), 0),
+        "psum_bf16": psum(xb, ctx).float(),
+        "psum_bf16_dtype": str(psum(xb, ctx).dtype),
+        "gather_bf16": all_gather(xb, ctx, ("data",), 0).float(),
+    }
+    out["counts"] = dict(ds.COLLECTIVES)
+    return out
+
+
+def test_lm_collectives_against_numpy():
+    """psum and tiled all_gather over the axes of a (1, 2, 2) mesh, float32
+    and bfloat16 (gloo reduces bfloat16 itself: the dtype is kept)."""
+    ranks = run_world(4, lm_collectives_rank, timeout_s=TIMEOUT_S,
+                      mesh_shape=LM_MESH)
+    xs = np.stack([r["x"] for r in ranks])
+    for me, r in enumerate(ranks):
+        data, model = divmod(me, 2)          # rank r at row-major coordinate
+        assert r["coords"] == [0, data, model]
+        pair = xs[[2 * data, 2 * data + 1]]  # this rank's model group
+        np.testing.assert_allclose(r["psum_model"], pair.sum(0), rtol=1e-6)
+        np.testing.assert_allclose(r["psum_all"], xs.sum(0), rtol=1e-6)
+        assert np.array_equal(r["gather_model_1"], np.concatenate(pair, 1))
+        col = xs[[model, 2 + model]]         # this rank's data group
+        assert np.array_equal(r["gather_batch_0"], np.concatenate(col, 0))
+        xb = np.arange(4) * 0.375
+        assert r["psum_bf16_dtype"] == "torch.bfloat16"
+        # 0.375 k + data-group sums are exact in bfloat16 here
+        assert np.array_equal(r["psum_bf16"], 2 * xb + 4 * data + 1)
+        assert np.array_equal(r["gather_bf16"],
+                              np.concatenate([xb + model, xb + 2 + model]))
+        # an axis of size 1 (pod) takes no collective
+        assert r["counts"]["psum"] == 1 + 2 + 2 and \
+            r["counts"]["all_gather"] == 1 + 1 + 1
+
+
+def lm_argmax_rank(mesh) -> dict:
+    from repro_torch.sharding import global_argmax, world_context
+
+    ctx = world_context(mesh)
+    # global logits (B 4, V 8): row 0 ties across the two vocab blocks,
+    # row 1 within one block, row 2 has one maximum, row 3 is all equal
+    g = torch.zeros(4, 8)
+    g[0, 2] = g[0, 6] = 5.0
+    g[1, 5] = g[1, 7] = 3.0
+    g[2, 4] = 9.0
+    return {"ids": global_argmax(ctx.local_block(g, ("data", "model")), ctx,
+                                 ("batch", "act_model"), (4, 8)),
+            "want": torch.argmax(g, dim=-1)}
+
+
+def test_global_argmax_ties_to_the_lower_id():
+    """Greedy over vocab blocks: the largest value, ties to the lower
+    global id (as jnp.argmax of the whole array), on every rank."""
+    for r in run_world(4, lm_argmax_rank, timeout_s=TIMEOUT_S,
+                       mesh_shape=LM_MESH):
+        assert r["ids"].tolist() == [2, 5, 4, 0]
+        assert np.array_equal(r["ids"], r["want"])
+
+
+def lm_constrain_rank(mesh) -> dict:
+    from repro_torch.sharding import constrain, world_context
+
+    ctx = world_context(mesh)
+    good = torch.zeros(2, 3, 4)        # (4, 3, 8) over (data, -, model)
+    constrain(good, ctx, ("batch", None, "act_model"), (4, 3, 8))
+    try:
+        constrain(torch.zeros(4, 3, 4), ctx, ("batch", None, "act_model"),
+                  (4, 3, 8))
+    except ValueError as e:
+        return {"raised": str(e)}
+    return {"raised": ""}
+
+
+def test_constrain_raises_on_a_wrong_block():
+    for r in run_world(4, lm_constrain_rank, timeout_s=TIMEOUT_S,
+                       mesh_shape=LM_MESH):
+        assert "gives (2, 3, 4)" in r["raised"]
+
+
+def test_a_mesh_of_the_wrong_size_is_refused():
+    with pytest.raises(RuntimeError, match="needs 4 ranks, the world has 2"):
+        run_world(2, lm_constrain_rank, timeout_s=TIMEOUT_S,
+                  mesh_shape=LM_MESH)
