@@ -204,7 +204,7 @@ script exits nonzero and prints no final result:
      duplicate_window_mask (window 64, stride 256), then qwen2p5_3b at full
      width and depth (3.40 B params, float32 params, grads and AdamW
      moments) trained on the screened stream through ``train``: B = 2, S =
-     1024, remat "full", 6 steps: s a step, tokens/s and peak memory beside
+     1024, remat "full", 4 steps: s a step, tokens/s and peak memory beside
      the float32 bound, a profiled step, deterministic algorithms on
      against off in turns, and one step under remat "dots" with its peak;
      (d) mamba2_1p3b at full width with int8 gradient compression, B = 2,
@@ -247,9 +247,23 @@ script exits nonzero and prints no final result:
      one rank in this process and then in a world of 2 (1, 1, 2) from the
      same seeded weights: forward(last_token_only) (B = 8, S = 256 and B
      = 4, S = 1024) within LM_TOL of 1 + |b|, or for (c) within 5% of the
-     max |logit|; (b)'s greedy generate at B = 8 (4 + 16 tokens) equal
+     max |logit|; (b)'s greedy generate at B = 8 (4 + 8 tokens) equal
      but at a near tie, with s a decode step and the collectives of a
      step by kind; each rank's heads and experts, and its peak memory
+ 15  LM training in worlds of ranks sharing the card (gloo, host-staged;
+     no index kernel may launch in any rank): (a) in phase 14 (a)'s
+     worlds, after each config's serving cases, one train step of it
+     under TRAIN_RULES (qwen2p5_3b also with int8 compression), each
+     rank's loss, grad_norm, gradient blocks and updated param / moment
+     blocks against the same world on the CPU (STEP_TOL, gradients
+     LM_TOL, MoE LM_MOE_TOL); (b) qwen2p5_3b at full width, depth cut,
+     float32, remat "full", in a world of 4 (pod 1, data 2, model 2:
+     ZeRO-3 over data, heads / mlp / vocab over model) at B = 4, S =
+     1024 for 3 steps, against the same cut trained on one rank in this
+     process (losses and grad norms within LM_TOL of 1 + |b|), a world
+     checkpoint of step 2 restored and step 3 repeated bit for bit; s a
+     step, the collectives of a step by kind, pass and bytes, peak memory
+     a rank, the single rank's s a step and peak
 
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore, each merge of phase 7, each catalog
@@ -259,8 +273,8 @@ with its two served batches, summed over a world's ranks, and each
 restore of phase 10 with its two batches, phase 4's single-query calls
 per corpus, phase 11, phase 12's screen, its reduced parts and its
 full-width runs, and phase 13's counted index build and served batch and
-its perf bwt_build, phase 14, summed over its ranks) and read just
-after it.  Then a ``kernels`` line
+its perf bwt_build, phase 14 and phase 15, each summed over its ranks)
+and read just after it.  Then a ``kernels`` line
 (launches on the main paths of phases 2-3, 7-10, phase 12's screen and
 phase 13, and on each path, parity error, times and bounds), the card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
@@ -4841,6 +4855,7 @@ def dist_worlds(spec: dict, parts, saved: Path, device, rank_fn,
 
 LM_TOL = 1e-4            # float32, card against CPU: |a - b| <= tol (1 + |b|)
 LM_MOE_TOL = 1e-3        # MoE: index_add_'s order on CUDA is not fixed
+LM_STEP_TOL = 1e-5       # a train step's metrics and updated state
 LM_BF16_TOL = 0.05       # bf16 decode against forward: of the max |logit|
 LM_REDUCED_LONG = ("qwen2p5_3b", "minicpm3_4b")   # GQA and MLA at S = 2048
 LM_PROMPT, LM_NEW, LM_DECODE = 4, 8, 8
@@ -5153,8 +5168,8 @@ FP32_PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 TRAIN_REPEAT = (("qwen2p5_3b", {}), ("deepseek_v2_236b", {}),
                 ("deepseek_v2_236b", {"top_k": 6}))
 # the full-width parts: (config id, batch, seq, steps, compress_grads, a
-# "dots" step)
-TRAIN_FULL = (("qwen2p5_3b", 2, 1024, 6, False, True),
+# "dots" step); qwen2p5_3b's steps cut from 6 to 4 to pay for phase 15
+TRAIN_FULL = (("qwen2p5_3b", 2, 1024, 4, False, True),
               ("mamba2_1p3b", 2, 2048, 3, True, False))
 # the screen: the english corpus at 2^22 tokens with a copy of its first
 # 2^18 planted at its end (the corpus has no repeated 64-token window of
@@ -5797,10 +5812,19 @@ LM_WORLDS = ((4, {"pod": 1, "data": 2, "model": 2}, None),
 LM_WORLD_B, LM_WORLD_S = 4, 16
 LM_WORLD_TIMEOUT_S = 600
 LM_WORLD_FULL_MESH = {"pod": 1, "data": 1, "model": 2}
+# phase 15 (a): the configs whose world step also runs with compression;
+# the state the updates start from (moments of a run under way: from zero
+# moments AdamW's first step is g / (|g| + eps), whose rounding noise on a
+# near-zero gradient reaches lr itself); |g / scale| this close to an int8
+# rounding boundary may round either way
+LM_TRAIN_COMPRESS = ("qwen2p5_3b",)
+LM_TRAIN_M0, LM_TRAIN_V0, LM_TRAIN_ERR0 = 1e-3, 1e-6, 1e-4
+LM_TRAIN_TIE = 1e-3
 # the full-width parts: (name, config id, depth cut, dtype, forward (B, S),
-# generate (B, prompt, new) or None)
+# generate (B, prompt, new) or None); minitron_4b's new tokens cut from 16
+# to 8 to pay for phase 15
 LM_WORLD_FULL = (
-    ("minitron_4b", "minitron_4b", None, "float32", (8, 256), (8, 4, 16)),
+    ("minitron_4b", "minitron_4b", None, "float32", (8, 256), (8, 4, 8)),
     ("deepseek_v2_236b", "deepseek_v2_236b", 3, "bfloat16", (4, 1024),
      None),
 )
@@ -5812,7 +5836,10 @@ def lm_world_rank(mesh, spec: dict) -> dict:
     seeded generator (the rank's blocks, ``TRAIN_RULES``): forward at B =
     4, S = 16, decode logits along 8 tokens and generate 4 + 8 tokens, the
     global arrays on rank 0; the decode logits along its own tokens when
-    ``spec["tie_logits"]``; the rank's kernel launches and collectives."""
+    ``spec["tie_logits"]``; then, with ``spec["train"]``, phase 15 (a):
+    the config's train step on the same weights (``lm_world_train_case``;
+    qwen2p5_3b also with compression); the rank's kernel launches and
+    collectives."""
     import torch
     import torch.distributed as dist
 
@@ -5826,14 +5853,14 @@ def lm_world_rank(mesh, spec: dict) -> dict:
     ctx = world_context(mesh, TRAIN_RULES)
     first = dist.get_rank() == 0
     out = {"transport": dist_sort.transport(
-        dist_sort.axis_info(mesh, "model"), dev)}
+        dist_sort.axis_info(mesh, "model"), dev), "train": {}}
     _counts_reset()
     B, S = LM_WORLD_B, LM_WORLD_S
-    with torch.no_grad():
-        for arch in spec["archs"]:
-            cfg = get_reduced_config(arch)
-            params = tf.init_model(cfg, torch.Generator().manual_seed(0),
-                                   torch.float32, dev, ctx)
+    for arch in spec["archs"]:
+        cfg = get_reduced_config(arch)
+        params = tf.init_model(cfg, torch.Generator().manual_seed(0),
+                               torch.float32, dev, ctx)
+        with torch.no_grad():
             fwd = tf.forward(params, lm_batch(cfg, B, S, dev), cfg, ctx)
             rec = {"forward": gather_global(
                 fwd, ctx, ("batch", None, "act_model"),
@@ -5848,16 +5875,89 @@ def lm_world_rank(mesh, spec: dict) -> dict:
                 rec["tie_logits"] = lm_decode(
                     params, cfg, torch.from_numpy(res.tokens[:, :-1]).to(dev),
                     torch.float32, ctx)
-            if first:
-                out[arch] = rec
+        if first:
+            out[arch] = rec
+        if spec.get("train"):
+            out["train"][arch] = lm_world_train_case(
+                params, cfg, ctx, dev, arch in LM_TRAIN_COMPRESS)
     out["launches"], out["collectives"] = _counts()
     return out
 
 
-def lm_world_reduced(device, archs=None) -> tuple[dict, dict]:
+def lm_world_train_case(params, cfg, ctx, dev, compressed: bool) -> dict:
+    """Phase 15 (a) in one rank: the gradient blocks of ``loss_fn`` at B =
+    4, S = 16 on the english corpus (remat "none": phase 15 (b) and the
+    CPU tests take the remat policies), summed over each leaf's replicated
+    axes, then the updates ``make_train_step`` makes of them from a
+    state under way (moments LM_TRAIN_M0 / LM_TRAIN_V0; with compression
+    an error buffer of LM_TRAIN_ERR0), on copies of ``params``: the
+    metrics and the updated param / m / v (/ error) blocks; for the
+    compressed update (with ``compressed``, beside the plain one), which
+    elements lie within LM_TRAIN_TIE of an int8 rounding boundary (either
+    rounding is right there)."""
+    import torch
+
+    from repro_torch.data.corpus import corpus
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.sharding import axes_of, pmax, reduce_gradients
+    from repro_torch.training import compression
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update
+
+    toks = corpus("english", 1 << 12) % (cfg.vocab_size - 1) + 1
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenLoader(
+        toks, LoaderConfig(LM_WORLD_B, LM_WORLD_S, seed=3)).batch(0).items()}
+    specs = tf.model_shardings(cfg, ctx)
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    loss = tf.loss_fn(live, batch, cfg, ctx, remat_policy="none")
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    grads = reduce_gradients(list(grads), ctx, tree_leaves(specs))
+    out = {"loss_fn": loss.detach().cpu(),
+           "grads": [g.cpu() for g in grads]}
+    for compress in (False, True) if compressed else (False,):
+        tag = "_compressed" if compress else ""
+        state = {"params": copy_to(params, dev), "opt": {
+            "m": tree_map(lambda t: torch.full_like(t, LM_TRAIN_M0), params),
+            "v": tree_map(lambda t: torch.full_like(t, LM_TRAIN_V0), params),
+            "count": torch.zeros((), dtype=torch.int32, device=dev)}}
+        g = [t.clone() for t in grads]
+        if compress:
+            err = [torch.full_like(t, LM_TRAIN_ERR0) for t in g]
+            out["ties"], out["scales"] = [], []
+            with torch.no_grad():
+                for t, e, spec in zip(g, err, tree_leaves(specs)):
+                    g32 = t.float() + e
+                    scale = torch.clamp(pmax(
+                        g32.abs().max(), ctx,
+                        [a for x in spec for a in axes_of(x)], "compress")
+                        / 127.0, min=1e-12)
+                    frac = (g32.abs() / scale).cpu()
+                    out["ties"].append((frac - frac.floor() - 0.5).abs()
+                                       < LM_TRAIN_TIE)
+                    out["scales"].append(float(scale))
+            g, err = compression.compressed_grads(g, err, ctx,
+                                                  tree_leaves(specs))
+        leaves = tree_leaves(state["params"])
+        _, _, metrics = adamw_update(
+            g, {"m": tree_leaves(state["opt"]["m"]),
+                "v": tree_leaves(state["opt"]["v"]),
+                "count": state["opt"]["count"]}, leaves,
+            AdamWConfig(**TRAIN_ADAMW), ctx, tree_leaves(specs))
+        out[f"state{tag}"] = [t.cpu() for _, t in state_leaves(state)]
+        if compress:
+            out[f"state{tag}"] += [t.cpu() for t in err]
+        out.update({f"{k}{tag}": v.cpu() for k, v in metrics.items()})
+    return out
+
+
+def lm_world_reduced(device, archs=None, train: bool = False
+                     ) -> tuple[dict, dict, dict]:
     """Phase 14 (a): each world of ``LM_WORLDS`` on ``device`` against the
-    same world on the CPU, all the worlds side by side; returns (record,
-    launches summed over the ranks on the card)."""
+    same world on the CPU, all the worlds side by side; with ``train``
+    the same ranks also take phase 15 (a)'s train steps, each rank's
+    against its CPU twin.  Returns (record, phase 15 (a)'s record, launches
+    summed over the ranks on the card)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -5875,7 +5975,7 @@ def lm_world_reduced(device, archs=None) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         ranks = run_world(parts, lm_world_rank,
                           {"archs": names, "device": dev,
-                           "tie_logits": where == "cpu"},
+                           "tie_logits": where == "cpu", "train": train},
                           mesh_shape=axes, timeout_s=LM_WORLD_TIMEOUT_S)
         return ranks, time.perf_counter() - t0
 
@@ -5884,7 +5984,7 @@ def lm_world_reduced(device, archs=None) -> tuple[dict, dict]:
                    for w in worlds
                    for where, dev in (("card", device), ("cpu", "cpu"))}
         done = {k: f.result() for k, f in futures.items()}
-    rec, launches = {}, {}
+    rec, trained, launches = {}, {}, {}
     for parts, axes, names in worlds:
         runs = {where: done[(parts, where)][0] for where in ("card", "cpu")}
         runs.update({f"{where}_s": done[(parts, where)][1]
@@ -5914,7 +6014,67 @@ def lm_world_reduced(device, archs=None) -> tuple[dict, dict]:
                     got["tokens"], want["tokens"],
                     torch.from_numpy(want["tie_logits"]), LM_PROMPT, tol,
                     f"{what} generate")}
-    return rec, launches
+        if train:
+            trained[world] = {"mesh": axes}
+            for arch in names:
+                card = [r["train"][arch] for r in runs["card"]]
+                cpu = [r["train"][arch] for r in runs["cpu"]]
+                for tag in ("", "_compressed") if arch in LM_TRAIN_COMPRESS \
+                        else ("",):
+                    trained[world][arch + tag] = lm_world_train_check(
+                        card, cpu, tag,
+                        LM_MOE_TOL if arch in LM_MOE else LM_TOL,
+                        f"phase 15 {world} {arch}{tag}")
+    return rec, trained, launches
+
+
+def lm_world_train_check(card: list, cpu: list, tag: str, grad_tol: float,
+                         what: str) -> dict:
+    """Phase 15 (a): each rank's train step on the card against its twin
+    on the CPU: the loss, grad_norm and lr within LM_STEP_TOL of 1 + |b|,
+    every gradient block within ``grad_tol``, every updated param /
+    moment (/ error) block within LM_STEP_TOL, every rank the same
+    metrics; for the compressed update (``tag``) the elements at an int8
+    rounding tie on the CPU are left out of the state and their error
+    within one level.  Returns the worst errors and the number of
+    ties."""
+    import torch
+
+    t = torch.from_numpy
+    out = {"grad_tol": grad_tol, "ranks": len(card)}
+    for k in ("loss_fn", f"grad_norm{tag}", f"lr{tag}"):
+        out[f"{k}_err"] = max(require_close(t(a[k]), t(b[k]), LM_STEP_TOL,
+                                            f"{what} {k} rank {r}")
+                              for r, (a, b) in enumerate(zip(card, cpu)))
+        require(len({float(a[k]) for a in card}) == 1,
+                f"{what}: ranks disagree on {k}")
+    out["grad_err"] = max(
+        require_close(t(g), t(h), grad_tol, f"{what} gradient {i} rank {r}")
+        for r, (a, b) in enumerate(zip(card, cpu))
+        for i, (g, h) in enumerate(zip(a["grads"], b["grads"])))
+    errs, ties = [0.0], 0
+    for r, (a, b) in enumerate(zip(card, cpu)):
+        n = len(b["grads"])
+        for i, (g, h) in enumerate(zip(a[f"state{tag}"], b[f"state{tag}"])):
+            g, h = t(g), t(h)
+            if tag:
+                tie = t(b["ties"][i % n])
+                if i >= 3 * n:          # the error buffer: one level
+                    off = (g - h).abs()[tie]
+                    require(bool((off <= 1.001 * b["scales"][i % n]
+                                  + LM_STEP_TOL).all()),
+                            f"{what} error {i % n} rank {r}: more than one "
+                            f"int8 level off at a rounding tie")
+                    ties += int(tie.sum())
+                g, h = g[~tie], h[~tie]
+            errs.append(require_close(g, h, LM_STEP_TOL,
+                                      f"{what} state {i} rank {r}"))
+    out["state_err"] = max(errs)
+    if tag:
+        out["ties"] = ties
+    out["loss"] = float(cpu[0]["loss_fn"])
+    out["grad_norm"] = float(cpu[0][f"grad_norm{tag}"])
+    return out
 
 
 def lm_world_full_rank(mesh, spec: dict) -> dict:
@@ -6098,14 +6258,17 @@ def lm_world_full(device, parts=LM_WORLD_FULL,
     return rec, launches
 
 
-def phase_lm_world(device="cuda", archs=None, full: bool = True) -> tuple:
+def phase_lm_world(device="cuda", archs=None, full: bool = True,
+                   train: bool = False) -> tuple:
     """Phase 14: (a) the reduced configs in worlds of ranks sharing
-    ``device`` against the same worlds on the CPU (``archs``: all ten);
+    ``device`` against the same worlds on the CPU (``archs``: all ten),
+    with ``train`` also phase 15 (a)'s train steps in the same ranks;
     (b) / (c) the full-width parts when ``full``.  Returns (record,
-    launches over the phase): it launches no kernel of the index."""
+    launches over the phase, phase 15 (a)'s record or None): it launches
+    no kernel of the index."""
     t0 = time.perf_counter()
     _counts_reset()
-    rec, launches = lm_world_reduced(device, archs)
+    rec, trained, launches = lm_world_reduced(device, archs, train)
     rec = {"reduced": rec, "reduced_s": time.perf_counter() - t0}
     if full:
         t1 = time.perf_counter()
@@ -6118,6 +6281,251 @@ def phase_lm_world(device="cuda", archs=None, full: bool = True) -> tuple:
         launches[k] = launches.get(k, 0) + v
     require(sum(launches.values()) == 0,
             f"phase 14 launched index kernels: {launches}")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec, launches, (trained if train else None)
+
+
+# --------------------------------------------------------------------------
+# phase 15: LM training in a world of ranks
+# --------------------------------------------------------------------------
+
+# (b): qwen2p5_3b at full width in a world of 4; its depth cut (see
+# PERF.md section 4 for why), batch, sequence and steps
+LM_TRAIN_WORLD = dict(arch="qwen2p5_3b", layers=4, batch=4, seq=1024,
+                      steps=3, mesh={"pod": 1, "data": 2, "model": 2},
+                      config="get_config")
+
+
+def lm_train_setup(spec: dict):
+    """(config cut to ``spec["layers"]``, TrainConfig, loader) of phase 15
+    (b): remat "full", the english corpus mapped into the vocabulary."""
+    from repro_torch.configs import base
+    from repro_torch.data.corpus import corpus
+    from repro_torch.data.loader import LoaderConfig, TokenLoader
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig
+
+    cfg = getattr(base, spec["config"])(spec["arch"]).replace(
+        num_layers=spec["layers"])
+    tcfg = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                       total_steps=spec["steps"]),
+                       remat_policy="full", checkpoint_every=0)
+    toks = corpus("english", 1 << 17) % (cfg.vocab_size - 1) + 1
+    return cfg, tcfg, TokenLoader(toks, LoaderConfig(
+        spec["batch"], spec["seq"], seed=0))
+
+
+def lm_train_steps(cfg, ctx, tcfg, loader, steps: int, device, state):
+    """``steps`` train steps from ``state`` under deterministic
+    algorithms: (state, per step: loss, grad_norm, s and this rank's
+    collectives by kind and pass)."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.training.train_loop import (
+        deterministic_algorithms,
+        make_train_step,
+    )
+
+    step = make_train_step(cfg, ctx, tcfg)
+    done = int(state["opt"]["count"])
+    out = []
+    with deterministic_algorithms():
+        for i in range(done, done + steps):
+            batch = {k: torch.as_tensor(v, device=device)
+                     for k, v in loader.batch(i).items()}
+            sharding.reset_traffic()
+            (state, m), sec = timed(lambda: step(state, batch), device)
+            out.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]), "s": sec,
+                        "collectives": {k: list(v) for k, v in
+                                        sharding.TRAFFIC.items()}})
+    return state, out
+
+
+def lm_world_train_rank(mesh, spec: dict) -> dict:
+    """One rank of phase 15 (b): the rank's blocks of the train state
+    (``init_train_state`` from the seeded generator on the card), its
+    steps with their times and collectives, a world checkpoint of the
+    step before the last (``Checkpointer.save_async`` with the state's
+    specs: the gather to rank 0 now, rank 0's write beside the last
+    step), restored, and the last step taken again from it; peak
+    memory."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.sharding import TRAIN_RULES, world_context
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.train_loop import (
+        init_train_state,
+        state_shardings,
+    )
+
+    dev = spec["device"]
+    ctx = world_context(mesh, TRAIN_RULES)
+    cfg, tcfg, loader = lm_train_setup(spec)
+    mem = DeviceMemory(dev)
+    mem.reset_peak()
+    _counts_reset()
+    state, init_s = timed(lambda: init_train_state(
+        cfg, torch.Generator(dev).manual_seed(0), tcfg, torch.float32, dev,
+        ctx), dev)
+    rec = {"init_s": init_s, "state_gib": mem.allocated_gib()}
+    shardings = state_shardings(cfg, ctx, tcfg)
+    ckpt = Checkpointer(spec["ckpt_dir"], keep=1)
+    state, first = lm_train_steps(cfg, ctx, tcfg, loader,
+                                  spec["steps"] - 1, dev, state)
+    _, rec["gather_s"] = timed(lambda: ckpt.save_async(
+        spec["steps"] - 1, state, ctx=ctx, shardings=shardings), dev)
+    state, last = lm_train_steps(cfg, ctx, tcfg, loader, 1, dev, state)
+    _, rec["write_wait_s"] = timed(ckpt.wait, dev)
+    dist.barrier()                      # rank 0's write is on disk
+    rec["steps"] = first + last
+    rec["peak_gib"] = mem.peak_gib()
+    (state, _), rec["restore_s"] = timed(lambda: ckpt.restore(
+        state, shardings=shardings, ctx=ctx), dev)
+    state, again = lm_train_steps(cfg, ctx, tcfg, loader, 1, dev, state)
+    rec["resumed"] = again[0]
+    rec["launches"], _ = _counts()
+    del state
+    mem.reset_peak()
+    return rec
+
+
+def lm_train_single(spec: dict, device) -> dict:
+    """Phase 15 (b)'s reference: the same cut trained on one rank in this
+    process, phase 12's path (``init_train_state`` from the same seeded
+    generator, ``make_train_step`` on a single-device context): per step
+    loss, grad_norm and s, and the peak."""
+    import torch
+
+    from repro_torch.sharding import single_device_context
+    from repro_torch.training.train_loop import init_train_state
+
+    cfg, tcfg, loader = lm_train_setup(spec)
+    mem = DeviceMemory(device)
+    mem.reset_peak()
+    state = init_train_state(cfg, torch.Generator(device).manual_seed(0),
+                             tcfg, torch.float32, device)
+    state, steps = lm_train_steps(cfg, single_device_context(), tcfg, loader,
+                                  spec["steps"], device, state)
+    out = {"steps": steps, "peak_gib": mem.peak_gib()}
+    del state
+    mem.reset_peak()
+    return out
+
+
+def lm_world_train(device, spec=LM_TRAIN_WORLD) -> tuple[dict, dict]:
+    """Phase 15 (b): ``spec``'s cut trained on one rank here, then in a
+    world of ``spec["mesh"]`` on ``device``: the losses and grad norms
+    within LM_TOL of 1 + |b| of the single rank's, the repeated last step
+    equal bit for bit; s a step (the warm steps: the second and the
+    repeated last), rank 0's collectives a step by kind, pass and bytes,
+    each rank's peak; the checkpoint's gather, write and restore.
+    Returns (record, launches over the world's ranks)."""
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models import transformer as tf
+
+    cfg, _, _ = lm_train_setup(spec)
+    t0 = time.perf_counter()
+    single = lm_train_single(spec, device)
+    single_s = time.perf_counter() - t0
+    n = 1
+    for v in spec["mesh"].values():
+        n *= v
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_train_",
+                                 dir=ROOT / "build"))
+    t1 = time.perf_counter()
+    try:
+        ranks = run_world(n, lm_world_train_rank,
+                          dict(spec, device=device, ckpt_dir=str(work)),
+                          mesh_shape=spec["mesh"],
+                          timeout_s=LM_WORLD_TIMEOUT_S)
+        ckpt_bytes = sum(f.stat().st_size for f in work.rglob("*")
+                         if f.is_file())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    world_s = time.perf_counter() - t1
+    what = f"phase 15 {spec['arch']} world of {n}"
+    got, want = ranks[0]["steps"], single["steps"]
+    for k in ("loss", "grad_norm"):
+        for i, (a, b) in enumerate(zip(got, want)):
+            require(abs(a[k] - b[k]) <= LM_TOL * (1 + abs(b[k])),
+                    f"{what} step {i + 1} {k}: {a[k]} against the single "
+                    f"rank's {b[k]}")
+        require(len({r["steps"][-1][k] for r in ranks}) == 1,
+                f"{what}: the ranks disagree on {k}")
+    again = ranks[0]["resumed"]
+    require(again["loss"] == got[-1]["loss"]
+            and again["grad_norm"] == got[-1]["grad_norm"],
+            f"{what}: step {spec['steps']} resumed from the world "
+            f"checkpoint gives loss {again['loss']}, grad_norm "
+            f"{again['grad_norm']}, not {got[-1]['loss']}, "
+            f"{got[-1]['grad_norm']}")
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    # the warm steps: the second, and the last taken again after the
+    # restore (the last itself ran beside rank 0's checkpoint write)
+    warm = got[1:-1] + [again] if len(got) > 2 else got
+    kinds = sorted({k for st in warm for k in st["collectives"]})
+    per_step = {k: [sum(st["collectives"].get(k, [0, 0])[j] for st in warm)
+                    / len(warm) for j in (0, 1)] for k in kinds}
+    rec = {"config": {k: spec[k] for k in ("arch", "layers", "batch", "seq",
+                                           "steps", "mesh")},
+           "params": tf.count_params(cfg),
+           "remat_policy": "full", "dtype": "float32",
+           "losses": [st["loss"] for st in got],
+           "grad_norms": [st["grad_norm"] for st in got],
+           "single_losses": [st["loss"] for st in want],
+           "single_grad_norms": [st["grad_norm"] for st in want],
+           "loss_max_err": max(abs(a["loss"] - b["loss"])
+                               for a, b in zip(got, want)),
+           "s_per_step": sum(st["s"] for st in warm) / len(warm),
+           "step_s": [st["s"] for st in got],
+           "collectives_per_step": {k: v[0] for k, v in per_step.items()},
+           "collective_bytes_per_step": {k: v[1]
+                                         for k, v in per_step.items()},
+           "resumed_bitwise": True,
+           "peak_gib_per_rank": [r["peak_gib"] for r in ranks],
+           "state_gib_per_rank": [r["state_gib"] for r in ranks],
+           "init_s": ranks[0]["init_s"], "gather_s": ranks[0]["gather_s"],
+           "write_wait_s": ranks[0]["write_wait_s"],
+           "restore_s": ranks[0]["restore_s"], "checkpoint_bytes": ckpt_bytes,
+           "world_s": world_s, "single_s": single_s,
+           "single": {"s_per_step": sum(st["s"] for st in
+                                        (want[1:] or want))
+                      / len(want[1:] or want),
+                      "step_s": [st["s"] for st in want],
+                      "peak_gib": single["peak_gib"]}}
+    return rec, launches
+
+
+def phase_lm_train(device="cuda", reduced=None, archs=None,
+                   spec=LM_TRAIN_WORLD) -> tuple:
+    """Phase 15: (a) phase 14 (a)'s worlds' train steps (``reduced``, or
+    those worlds run here when phase 14 did not run), (b) ``spec``'s
+    full-width world (None: skipped).  Returns (record, launches over the
+    phase): it launches no kernel of the index."""
+    t0 = time.perf_counter()
+    _counts_reset()
+    launches = {}
+    if reduced is None:
+        _, reduced, launches = lm_world_reduced(device, archs, train=True)
+    rec = {"reduced": reduced, "reduced_s": time.perf_counter() - t0}
+    if spec is not None:
+        t1 = time.perf_counter()
+        rec["full"], more = lm_world_train(device, spec)
+        rec["full_s"] = time.perf_counter() - t1
+        for k, v in more.items():
+            launches[k] = launches.get(k, 0) + v
+    here, _ = _counts()
+    for k, v in here.items():
+        launches[k] = launches.get(k, 0) + v
+    require(sum(launches.values()) == 0,
+            f"phase 15 launched index kernels: {launches}")
     rec["phase_s"] = time.perf_counter() - t0
     return rec, launches
 
@@ -6173,7 +6581,7 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -6435,9 +6843,16 @@ def main(argv=None) -> int:
                 main_launches[name] += v
         emit({"phase": 13, **rec})
 
+    trained = None      # phase 15 (a), taken in phase 14's worlds
     if 14 in phases:
-        rec, path_launches["lm_world"] = phase_lm_world()
+        rec, path_launches["lm_world"], trained = phase_lm_world(
+            train=15 in phases)
         emit({"phase": 14, **rec})
+
+    if 15 in phases:
+        rec, path_launches["lm_world_train"] = phase_lm_train(
+            reduced=trained)
+        emit({"phase": 15, **rec})
 
     if {1, 2, 3, 7, 8} <= phases:
         for name in _build.KERNELS:

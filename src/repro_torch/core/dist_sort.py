@@ -35,7 +35,10 @@ The LM's world (``sharding.py``) runs its collectives here too, over one
 axis of its ``(pod, data, model)`` mesh at a time (``axis_info``): ``psum``
 of float32 / bfloat16 activations (the dtype is kept on the wire: gloo
 reduces bfloat16 itself), ``all_gather_tiled`` of weight, logit and token
-blocks, and ``argmax_sharded``, the greedy pick over vocab blocks.
+blocks, and ``argmax_sharded``, the greedy pick over vocab blocks; its
+training saves ``gather`` each leaf to rank 0 one axis at a time and
+learn the write's outcome over ``world_info``.  The gradients through
+these calls are ``sharding.py``'s (autograd Functions over them).
 """
 
 from __future__ import annotations
@@ -126,6 +129,16 @@ def axis_info(mesh, axis: str) -> ShardInfo:
     """The process group of one dimension of ``mesh`` (any ``DeviceMesh``,
     e.g. the LM's ``(pod, data, model)``), for the collectives below."""
     return ShardInfo(axis, mesh_parts(mesh, axis), 1, mesh.get_group(axis))
+
+
+def world_info(mesh) -> ShardInfo:
+    """Every rank of ``mesh`` (a ``DeviceMesh`` over the whole initialised
+    world, as ``launch/mesh.py`` ``make_lm_mesh`` builds it) as one group,
+    world rank order, for a save's ``gather``."""
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
+                         f"{dist.get_world_size()}")
+    return ShardInfo("world", mesh.size(), 1, dist.group.WORLD)
 
 
 # ---------------------------------------------------------------------------

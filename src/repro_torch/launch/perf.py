@@ -52,9 +52,9 @@ DECODE_STEPS = 4
 def _not_on_one_card(name: str):
     raise NotImplementedError(
         f"perf variant {name!r} changes only the sharding rules of a "
-        f"training step over the production mesh; training in a world of "
-        f"ranks (ROADMAP.md A16b) is not ported, and on one card it is "
-        f"the baseline program")
+        f"training step over the reference's 256-chip production mesh; "
+        f"one card reads such a step only per rank on meta (ROADMAP.md "
+        f"A16c, not ported), and on one card it is the baseline program")
 
 
 QWEN_VARIANTS = {

@@ -172,6 +172,58 @@ def cross_entropy_loss(logits, labels, mask=None):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
+class _Seeded(torch.autograd.Function):
+    """``value`` forward, the gradient passed to ``share``: a loss whose
+    value is the global one and whose backward seeds this rank's share."""
+
+    @staticmethod
+    def forward(fctx, share, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+def world_cross_entropy(logits, labels, mask, ctx, shape):
+    """``cross_entropy_loss`` in a world of ranks: ``logits`` this rank's
+    block of the global (B, S, V) ``shape`` laid out as the reference's
+    ``("batch", None, "act_model")``, ``labels`` / ``mask`` the global
+    (B, S).  A vocab-parallel cross entropy: the row max a ``pmax`` over
+    the vocab's axes (no gradient, as on one device), the sum of
+    exponentials and the label logit (taken where the label falls in this
+    rank's vocab block) one ``psum`` over them, the masked sum over the
+    global count of unmasked labels (a psum over the rows' axes).
+
+    The value is the global mean on every rank; the gradient is this
+    rank's share (``sharding.py``'s convention): its rows' sum over the
+    global count, divided by the size of every axis its rows are
+    replicated over."""
+    from ..sharding import axes_of, pmax, psum
+
+    spec = ctx.spec_for(("batch", None, "act_model"), shape)
+    rows, _, cols = ctx.block(spec, shape)
+    vaxes, raxes = axes_of(spec[2]), axes_of(spec[0])
+    labels, mask = labels[rows], mask[rows].float()
+    logits = logits.float()
+    vmax = pmax(torch.amax(logits, dim=-1, keepdim=True), ctx, vaxes,
+                "loss")
+    shifted = logits - vmax
+    vocab = torch.arange(cols.start, cols.stop, device=logits.device)
+    is_label = vocab == labels[..., None]
+    both = psum(torch.stack([torch.sum(torch.exp(shifted), dim=-1),
+                             torch.sum(torch.where(is_label, shifted, 0.0),
+                                       dim=-1)], dim=-1), ctx, vaxes)
+    nll = torch.log(both[..., 0]) - both[..., 1]
+    local = torch.sum(nll * mask)
+    with torch.no_grad():
+        total, count = psum(torch.stack([local, torch.sum(mask)]), ctx,
+                            raxes, "loss")
+        count = torch.clamp(count, min=1.0)
+    share = local / count / (ctx.size // ctx.axis_size(raxes))
+    return _Seeded.apply(share, total / count)
+
+
 def dense(x, w, b=None):
     y = einsum("...d,df->...f", x, w).to(x.dtype)
     if b is not None:

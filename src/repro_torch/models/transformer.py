@@ -15,9 +15,10 @@ across).  In a world of ranks (``sharding.world_context``) the tree and the
 cache are this rank's blocks, the tokens are the global batch (each rank
 keeps its rows) and the logits are the rank's block: rows over the batch
 axes, vocab over model, the reference's ``("batch", None, "act_model")``
-layout (``sharding.gather_global`` puts them together).  A world serves
-only: asking it for a gradient raises.  ``LM`` wraps the same tensors as an ``nn.Module``.  ``loss_fn``
-is differentiable: ``training/train_loop.py`` takes its gradient with
+layout (``sharding.gather_global`` puts them together).  ``LM`` wraps
+the same tensors as an ``nn.Module``.  ``loss_fn`` is differentiable, on
+one device and in a world (there each rank's gradient is its share,
+``sharding.py``): ``training/train_loop.py`` takes its gradient with
 autograd, each stacked group rematerialised as ``remat_policy`` says.
 """
 
@@ -40,6 +41,8 @@ from ..configs.base import ArchConfig
 from ..devices import resolve_device
 from ..sharding import (
     MeshContext,
+    all_gather,
+    axes_of,
     constrain,
     psum,
     require_one_device,
@@ -56,6 +59,7 @@ from .common import (
     stack_specs,
     tree_leaves,
     tree_map,
+    world_cross_entropy,
 )
 
 LABEL_PAD = -1
@@ -284,16 +288,8 @@ def _remat(body, policy: str):
 # forward / loss
 # ---------------------------------------------------------------------------
 
-def _world_call(params, ctx: MeshContext, batch: int) -> MeshContext:
-    """The context of one call in a world: its global batch set.  A world
-    serves only; params that ask for a gradient raise."""
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in tree_leaves(params)):
-        raise NotImplementedError(
-            "a gradient in a world of ranks: training over several ranks "
-            "(gradients through the collectives, data / FSDP / expert-"
-            "parallel updates) is ROADMAP A16b and not ported; the world "
-            "runs forward, decode_step and generate with grad mode off")
+def _world_call(ctx: MeshContext, batch: int) -> MeshContext:
+    """The context of one call in a world: its global batch set."""
     return dataclasses.replace(ctx, batch=batch)
 
 
@@ -307,19 +303,43 @@ def _rows(t, ctx: MeshContext):
 
 
 def _embed(table, tokens, cfg: ArchConfig, ctx: MeshContext):
-    """Rows of the embedding table; over a vocab split over model each rank
-    looks up the ids of its block (zeros elsewhere) and a psum adds them."""
+    """Rows of the embedding table.  With the vocab split over axes that
+    the rows are not split over, each rank looks up the ids of its block
+    (zeros elsewhere) and a psum over them adds the blocks' rows; with
+    the rows split over them too (the batch over every axis), the table
+    is gathered whole first."""
     tokens = tokens.long()
     if ctx.world is None:
         return table[tokens]
     spec = ctx.spec_for(("vocab", None), (cfg.vocab_size, cfg.d_model))
-    v0, vl = blocks.model_block(ctx, spec[0], cfg.vocab_size)
-    if vl == cfg.vocab_size:
+    vaxes = axes_of(spec[0])
+    if not vaxes:
         return table[tokens]
+    rows = ctx.spec_for(("batch", None), (ctx.batch, 1))[0]
+    if set(vaxes) & set(axes_of(rows)):
+        return all_gather(table, ctx, vaxes, 0)[tokens]
+    v0, vl = blocks.model_block(ctx, spec[0], cfg.vocab_size)
     local = tokens - v0
     hit = (local >= 0) & (local < vl)
     x = torch.where(hit[..., None], table[local.clamp(0, vl - 1)], 0)
-    return psum(x, ctx)
+    return psum(x, ctx, vaxes)
+
+
+def _head(w, ctx: MeshContext, logits_spec, vocab: int):
+    """The lm_head (d, this rank's vocab block) as the logits' layout
+    ``logits_spec`` wants its vocab dim: the rank's own block where the
+    two split the vocab alike, else gathered whole and cut to the logits'
+    block."""
+    if ctx.world is None:
+        return w
+    spec = ctx.spec_for((None, "vocab"), (w.shape[0], vocab))
+    if axes_of(spec[1]) == axes_of(logits_spec[-1]):
+        return w
+    w = all_gather(w, ctx, axes_of(spec[1]), 1)
+    axes = axes_of(logits_spec[-1])
+    n = vocab // ctx.axis_size(axes)
+    i = ctx.coordinate(axes)
+    return w[:, i * n:(i + 1) * n]
 
 
 def _inputs(params, batch, cfg: ArchConfig, ctx: MeshContext):
@@ -347,15 +367,11 @@ def forward(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
     does nothing: the Python loop over the groups is already unrolled.
     In a world the batch is global and the logits this rank's block."""
     require_one_device(ctx)
-    if ctx.world is None:
-        return _forward(params, batch, cfg, ctx, remat_policy,
-                        last_token_only)
-    src = batch["embeds"] if (cfg.frontend != "none"
-                              and "embeds" in batch) else batch["tokens"]
-    ctx = _world_call(params, ctx, src.shape[0])
-    with torch.no_grad():
-        return _forward(params, batch, cfg, ctx, remat_policy,
-                        last_token_only)
+    if ctx.world is not None:
+        src = batch["embeds"] if (cfg.frontend != "none"
+                                  and "embeds" in batch) else batch["tokens"]
+        ctx = _world_call(ctx, src.shape[0])
+    return _forward(params, batch, cfg, ctx, remat_policy, last_token_only)
 
 
 def _forward(params, batch, cfg: ArchConfig, ctx: MeshContext,
@@ -383,25 +399,31 @@ def _forward(params, batch, cfg: ArchConfig, ctx: MeshContext,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_token_only:
         x = x[:, -1:, :]  # serving prefill: only the final position's logits
-    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
-    return constrain(logits, ctx, ("batch", None, "act_model"),
-                     (ctx.batch_of(x), x.shape[1], cfg.vocab_size))
+    shape = (ctx.batch_of(x), x.shape[1], cfg.vocab_size)
+    head = _head(params["lm_head"], ctx,
+                 ctx.spec_for(("batch", None, "act_model"), shape),
+                 cfg.vocab_size)
+    logits = torch.einsum("bsd,dv->bsv", x, head)
+    return constrain(logits, ctx, ("batch", None, "act_model"), shape)
 
 
 def loss_fn(params, batch, cfg: ArchConfig, ctx: MeshContext, *,
             remat_policy: str = "full", scan_unroll: int | bool = 1):
     """Mean next-token loss over labels != LABEL_PAD (float32);
-    differentiable, with ``forward``'s ``remat_policy``.  One device only:
-    the loss in a world is training (ROADMAP A16b)."""
-    if ctx.world is not None:
-        raise NotImplementedError(
-            "loss_fn in a world of ranks: training over several ranks is "
-            "ROADMAP A16b and not ported")
+    differentiable, with ``forward``'s ``remat_policy``.  In a world the
+    batch is global, the value the global loss on every rank and the
+    gradient this rank's share (``common.world_cross_entropy``):
+    ``sharding.reduce_gradients`` makes it the rank's block of the
+    global gradient."""
     logits = forward(params, batch, cfg, ctx, remat_policy=remat_policy,
                      scan_unroll=scan_unroll)
     labels = batch["labels"]
     mask = labels != LABEL_PAD
-    return cross_entropy_loss(logits, torch.clamp(labels, min=0).long(), mask)
+    labels = torch.clamp(labels, min=0).long()
+    if ctx.world is None:
+        return cross_entropy_loss(logits, labels, mask)
+    return world_cross_entropy(logits, labels, mask, ctx,
+                               (*labels.shape, cfg.vocab_size))
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +465,7 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
     require_one_device(ctx)
     if ctx.world is None:
         return _decode_step(params, cache, tokens, pos, cfg, ctx)
-    ctx = _world_call(params, ctx, tokens.shape[0])
+    ctx = _world_call(ctx, tokens.shape[0])
     with torch.no_grad():
         return _decode_step(params, cache, tokens, pos, cfg, ctx)
 
@@ -475,9 +497,11 @@ def _decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
                                    moe=moe)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])[:, 0]
-    return constrain(logits, ctx, ("batch", "act_model"),
-                     (ctx.batch_of(x), cfg.vocab_size)), cache
+    shape = (ctx.batch_of(x), cfg.vocab_size)
+    head = _head(params["lm_head"], ctx,
+                 ctx.spec_for(("batch", "act_model"), shape), cfg.vocab_size)
+    logits = torch.einsum("bsd,dv->bsv", x, head)[:, 0]
+    return constrain(logits, ctx, ("batch", "act_model"), shape), cache
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,31 @@ functions run on the blocks with explicit collectives (``core/dist_sort``).
 A context whose axes are over 1 but that holds no world has no rank to run
 on: the model functions raise ``NotImplementedError`` for it
 (``require_one_device``) instead of running unsharded.
+
+Gradients in a world.  ``psum``, ``all_gather`` and ``gather_spec`` (a
+chain of ``all_gather`` s) are differentiable, and each collective's
+backward is its transpose: a psum's backward is a psum of the incoming
+gradients, a tiled all_gather's backward a reduce-scatter (a psum over the
+axis, then this rank's block).  So autograd on every rank computes the
+gradient of the sum over ranks of what each rank seeds its backward with,
+and every activation gradient is the rank's partial share:
+
+* the loss seeds each rank with its share (``models/common.py``
+  ``world_cross_entropy``): the negative log-likelihood of its own rows
+  over the global count, divided by the size of every axis over which
+  those rows are replicated, so that the shares sum to the loss once;
+* a leaf's gradient is then summed over exactly the axes along which
+  ``spec_for`` replicates the leaf (``reduce_gradients``), which makes it
+  this rank's block of the global gradient.
+
+Megatron's identity-forward / psum-backward pairs are not used anywhere:
+mixing the two conventions gives gradients off by a factor of the axis
+size.  With grad mode off, or on a tensor that takes no gradient, each
+collective is the plain call and records no graph (the serving path).
+``TRAFFIC`` counts the LM's collective calls and their input bytes by kind
+and by pass: the forward, its recomputation under remat (a call made while
+autograd runs a backward) and the backward, and the loss's, the norm's and
+the gradients' own reductions.
 """
 
 from __future__ import annotations
@@ -128,6 +153,17 @@ class MeshContext:
             out.append(slice(i * n, (i + 1) * n))
         return tuple(out)
 
+    @property
+    def size(self) -> int:
+        """The number of ranks of the mesh."""
+        return self.axis_size(tuple(self.mesh))
+
+    def replicated(self, spec: Sequence) -> list[str]:
+        """The axes of the world (of size over 1) along which an array laid
+        out by ``spec`` is replicated: those no dim is split over."""
+        used = {a for entry in spec for a in axes_of(entry)}
+        return [a for a in _live(self, self.mesh) if a not in used]
+
     def local_shape(self, spec: Sequence, shape: Sequence[int]) -> tuple:
         return tuple(size // self.axis_size(axes_of(entry))
                      for entry, size in zip(spec, shape))
@@ -190,39 +226,153 @@ def constrain(x, ctx: MeshContext, logical_axes, shape=None):
 # transport); each is the identity off a world and over axes of size 1
 # ---------------------------------------------------------------------------
 
+# "kind/pass" -> [calls, input bytes] of this rank's LM collectives
+TRAFFIC: dict[str, list[int]] = {}
+
+
+def reset_traffic() -> None:
+    TRAFFIC.clear()
+
+
+def _note(kind: str, x, where: str | None = None) -> None:
+    """One collective call of ``kind`` on ``x``: in the forward, in its
+    recomputation (a forward call made while autograd runs a backward) or
+    where ``where`` says."""
+    if where is None:
+        where = ("remat" if torch._C._current_graph_task_id() != -1
+                 else "forward")
+    rec = TRAFFIC.setdefault(f"{kind}/{where}", [0, 0])
+    rec[0] += 1
+    rec[1] += x.numel() * x.element_size()
+
+
 def _live(ctx: MeshContext, axes: Sequence[str]) -> list[str]:
     if ctx.world is None:
         return []
     return [a for a in axes if ctx.mesh.get(a, 1) > 1]
 
 
-def psum(x, ctx: MeshContext, axes: Sequence[str] = ("model",)):
-    """The sum of ``x`` over the ranks along ``axes``."""
+def _differentiable(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Psum(torch.autograd.Function):
+    """psum over one axis; its backward, the transpose, is a psum of the
+    incoming gradients."""
+
+    @staticmethod
+    def forward(fctx, x, info):
+        from .core import dist_sort as ds
+
+        fctx.info = info
+        return ds.psum(info, x)
+
+    @staticmethod
+    def backward(fctx, g):
+        from .core import dist_sort as ds
+
+        _note("psum", g, "backward")
+        return ds.psum(fctx.info, g), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled all_gather over one axis; its backward, the transpose, is a
+    reduce-scatter: the incoming gradients summed over the axis, this
+    rank's block of the sum kept (a copy, so the sum is freed)."""
+
+    @staticmethod
+    def forward(fctx, x, info, dim: int):
+        from .core import dist_sort as ds
+
+        fctx.info, fctx.dim, fctx.n = info, dim, x.shape[dim]
+        return ds.all_gather_tiled(info, x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        from .core import dist_sort as ds
+
+        _note("reduce_scatter", g, "backward")
+        total = ds.psum(fctx.info, g)
+        me = ds._me(fctx.info)
+        return total.narrow(fctx.dim, me * fctx.n, fctx.n).clone(), None, None
+
+
+def psum(x, ctx: MeshContext, axes: Sequence[str] = ("model",),
+         where: str | None = None):
+    """The sum of ``x`` over the ranks along ``axes`` (differentiable: its
+    backward is a psum).  ``where`` names the call in ``TRAFFIC`` (default:
+    the forward or its recomputation)."""
     from .core import dist_sort as ds
 
     for a in _live(ctx, axes):
-        x = ds.psum(ds.axis_info(ctx.world, a), x)
+        info = ds.axis_info(ctx.world, a)
+        _note("psum", x, where)
+        x = _Psum.apply(x, info) if _differentiable(x) else ds.psum(info, x)
+    return x
+
+
+def pmax(x, ctx: MeshContext, axes: Sequence[str], where: str):
+    """The max of ``x`` over the ranks along ``axes``; takes no
+    gradient."""
+    from .core import dist_sort as ds
+
+    x = x.detach()
+    for a in _live(ctx, axes):
+        _note("pmax", x, where)
+        x = ds.pmax(ds.axis_info(ctx.world, a), x)
     return x
 
 
 def all_gather(x, ctx: MeshContext, axes: Sequence[str], dim: int):
     """The blocks of ``x`` along ``axes`` (a dim laid out over that tuple)
-    concatenated on ``dim`` in global order."""
+    concatenated on ``dim`` in global order (differentiable: its backward
+    is a reduce-scatter)."""
     from .core import dist_sort as ds
 
     for a in reversed(_live(ctx, axes)):     # the minor axis first
-        x = ds.all_gather_tiled(ds.axis_info(ctx.world, a), x, dim)
+        info = ds.axis_info(ctx.world, a)
+        _note("all_gather", x)
+        x = (_AllGather.apply(x, info, dim) if _differentiable(x)
+             else ds.all_gather_tiled(info, x, dim))
     return x
 
 
 def gather_spec(x, ctx: MeshContext, spec: Sequence, keep=()):
     """``x`` (a block laid out by ``spec``) with every dim gathered whole
-    but those over the axes in ``keep``."""
+    but those over the axes in ``keep`` (differentiable: the backward is
+    the gathers' reduce-scatters in reverse order)."""
     for dim, entry in enumerate(spec):
         axes = axes_of(entry)
         if axes and not set(axes) <= set(keep):
             x = all_gather(x, ctx, axes, dim)
     return x
+
+
+def reduce_gradients(grads, ctx: MeshContext, specs):
+    """Each leaf's gradient (this rank's share, of a block laid out by its
+    spec in ``specs``, the same tree) summed over the axes along which the
+    leaf is replicated: this rank's block of the global gradient.  The
+    leaves that share those axes (and a dtype) go in one flat buffer, one
+    psum an axis.  The tree itself off a world."""
+    from .models.common import tree_leaves, tree_map
+
+    if ctx.world is None:
+        return grads
+    leaves = tree_leaves(grads)
+    buckets: dict[tuple, list[int]] = {}
+    for i, (g, spec) in enumerate(zip(leaves, tree_leaves(specs))):
+        axes = tuple(ctx.replicated(spec))
+        if axes:
+            buckets.setdefault((axes, g.dtype), []).append(i)
+    out = {id(g): g for g in leaves}
+    with torch.no_grad():
+        for (axes, _), idx in buckets.items():
+            flat = psum(torch.cat([leaves[i].reshape(-1) for i in idx]),
+                        ctx, axes, "grads")
+            parts = flat.split([leaves[i].numel() for i in idx])
+            for i, part in zip(idx, parts):
+                out[id(leaves[i])] = part.view(leaves[i].shape)
+    return tree_map(lambda g: out[id(g)], grads)
 
 
 def gather_global(x, ctx: MeshContext, logical_axes, shape):

@@ -23,6 +23,14 @@ Layout (one directory per step, atomically renamed into place):
                before ``save``); ``restore(tree_like, shardings=...)``
                hands each rank of a mesh its slice, so a state saved
                from 8 ranks restores onto 4 unchanged.
+  * worlds   — in the LM's world of ranks (``ctx`` of
+               ``sharding.world_context``, each leaf the rank's block by
+               its spec in ``shardings``) ``save`` gathers each leaf whole
+               to rank 0, one leaf at a time, and rank 0 alone writes the
+               same unsharded files; ``restore(..., ctx=ctx)`` cuts each
+               rank's block of a leaf as it is read, so a state saved by
+               one world size (or one device, or the JAX package) resumes
+               in any other.
 
 ``restore`` fills the structure of a template tree; ``restore_raw``
 serves callers that rebuild typed objects from a manifest
@@ -34,13 +42,17 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import struct
 import threading
+import zipfile
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..core import dist_sort as ds
 from ..core.dist_sort import _me, shard_info
+from ..sharding import axes_of
 from ..testing.faultinject import fault_point
 
 _SEP = "/"
@@ -102,6 +114,48 @@ def _unflatten(tree_like, flat: dict[str, np.ndarray], prefix: str = ""):
     return flat[prefix]
 
 
+def _keyed(tree, other, prefix: str = ""):
+    """(key path, leaf, ``other``'s entry at the same place) of every leaf
+    of ``tree`` in ``_flatten``'s order and keys; ``tree`` alone gives the
+    structure (``other``'s entries may be tuples, e.g. partition specs)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _keyed(tree[k], other[k], f"{prefix}{_SEP}{k}"
+                              if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _keyed(v, other[i], f"{prefix}{_SEP}{i}" if prefix
+                              else str(i))
+    elif tree is not None:
+        yield prefix, tree, other
+
+
+def _gathered(tree, ctx, shardings) -> dict[str, np.ndarray] | None:
+    """Rank 0: every leaf of ``tree`` (this rank's blocks, laid out by
+    their specs in ``shardings``) whole, as host arrays of their own;
+    None on the other ranks.  One leaf at a time, each split dim gathered
+    one mesh axis at a time (``dist_sort.gather`` to the axis's first
+    rank, the minor axis first), only by the ranks at coordinate 0 of
+    every axis the leaf is replicated over and already gathered: each
+    block crosses once, its copies not at all."""
+    first = ctx.coordinate(tuple(ctx.mesh)) == 0
+    flat = {} if first else None
+    for key, leaf, spec in _keyed(tree, shardings):
+        x = None
+        if not any(ctx.coordinate((a,)) for a in ctx.replicated(spec)):
+            x = leaf.detach().to("cpu", copy=True)
+        for dim, entry in enumerate(spec):
+            for a in reversed(axes_of(entry)):
+                if x is None or ctx.mesh[a] == 1:
+                    continue
+                blocks = ds.gather(ds.axis_info(ctx.world, a), x)
+                x = None if blocks is None else torch.cat(blocks.unbind(0),
+                                                          dim)
+        if first:
+            flat[key] = _host(x)
+    return flat
+
+
 def _map(fn, *trees):
     """``fn`` over the leaves of trees of the same structure (the first
     tree's; ``None`` leaves of the first stay ``None``)."""
@@ -141,28 +195,71 @@ class Checkpointer:
         self.dir = directory
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree, extra: dict[str, Any] | None = None):
-        """Synchronous atomic save."""
-        self._write(step, _flatten(tree), extra or {})
+    def save(self, step: int, tree, extra: dict[str, Any] | None = None,
+             *, ctx=None, shardings=None):
+        """Synchronous atomic save.  In a world (``ctx`` holding one, every
+        rank making the same call with its blocks, laid out by their specs
+        in ``shardings``) the leaves are gathered to rank 0, which writes;
+        every rank then learns the write's outcome in one collective, and a
+        failed write raises on every rank."""
+        if ctx is None or ctx.world is None:
+            self._write(step, _flatten(tree), extra or {})
+            return
+        flat = _gathered(tree, ctx, shardings)
+        error = None
+        if flat is not None:
+            try:
+                self._write(step, flat, extra or {})
+            except Exception as e:          # raised after the collective
+                error = e
+        failed = ds.pmax(ds.world_info(ctx.world),
+                         torch.tensor(error is not None))
+        if error is not None:
+            raise error
+        if bool(failed):
+            raise RuntimeError(f"rank 0 failed to write checkpoint step "
+                               f"{step} under {self.dir!r}")
 
-    def save_async(self, step: int, tree, extra: dict[str, Any] | None = None):
-        """Snapshot now (host copy), write in the background."""
+    def save_async(self, step: int, tree, extra: dict[str, Any] | None = None,
+                   *, ctx=None, shardings=None):
+        """Snapshot now (host copy), write in the background.  In a world
+        (as ``save``) the snapshot is the gather to rank 0, made now on
+        every rank; rank 0 alone writes, and its ``wait`` raises if the
+        write failed."""
         self.wait()
-        # the snapshot: a copy of every leaf, CPU tensors included, so
-        # that the caller may update the tree in place while it is written
-        flat = _flatten(tree, copy=True)
+        if ctx is None or ctx.world is None:
+            # the snapshot: a copy of every leaf, CPU tensors included, so
+            # that the caller may update the tree in place while it is
+            # written
+            flat = _flatten(tree, copy=True)
+        else:
+            flat = _gathered(tree, ctx, shardings)
+            if flat is None:
+                return
+        self._error = None
         self._thread = threading.Thread(
-            target=self._write, args=(step, flat, extra or {}), daemon=True
-        )
+            target=self._write_caught, args=(step, flat, extra or {}),
+            daemon=True)
         self._thread.start()
 
+    def _write_caught(self, step: int, flat, extra):
+        try:
+            self._write(step, flat, extra)
+        except BaseException as e:          # raised again by ``wait``
+            self._error = e
+
     def wait(self):
+        """Wait for the background write; raise its error, if any."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+            error, self._error = self._error, None
+            if error is not None:
+                raise error
 
     def _write(self, step: int, flat, extra):
         os.makedirs(self.dir, exist_ok=True)
@@ -217,7 +314,8 @@ class Checkpointer:
             meta = json.load(f)
         return flat, meta
 
-    def restore(self, tree_like, step: int | None = None, shardings=None):
+    def restore(self, tree_like, step: int | None = None, shardings=None,
+                *, ctx=None):
         """(tree, meta): the arrays of ``step`` (None = the latest) in the
         structure of ``tree_like``, each leaf a tensor of its template
         leaf's dtype (a bf16 leaf comes back from its float32 copy) on
@@ -230,9 +328,63 @@ class Checkpointer:
         (``launch/mesh.py`` ``make_index_mesh``), the reference's
         ``NamedSharding(mesh, P("parts", None))`` for ``dim = 0``.  The
         saved arrays are unsharded, so any mesh whose size divides the
-        dimension restores them (elastic re-mesh)."""
+        dimension restores them (elastic re-mesh).
+
+        With ``ctx`` (the context of the LM's world of ranks) each entry of
+        ``shardings`` is the leaf's partition spec (``ctx.spec_for``) and
+        this rank keeps its block, cut from each leaf as it is read."""
+        if ctx is not None and ctx.world is not None:
+            return self._restore_blocks(tree_like, step, shardings, ctx)
         flat, meta = self.restore_raw(step)
         tree = _map(_typed, _unflatten(tree_like, flat), tree_like)
         if shardings is not None:
             tree = _map(_place, tree, shardings)
         return tree, meta
+
+    def _restore_blocks(self, tree_like, step, shardings, ctx):
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        blocks = {}
+        for key, ref, spec in _keyed(tree_like, shardings):
+            whole = _npz_leaf(os.path.join(path, "arrays.npz"), key)
+            blocks[key] = _typed(
+                np.array(whole[ctx.block(spec, whole.shape)]), ref)
+            del whole
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        return _unflatten(tree_like, blocks), meta
+
+
+def _npz_leaf(path: str, key: str) -> np.ndarray:
+    """Leaf ``key`` of the npz at ``path``: a read-only memory map of its
+    bytes where the archive stores it uncompressed (``np.savez`` does), so
+    that a rank reading its block of a leaf reads that block's pages, not
+    the whole leaf; otherwise the leaf read whole."""
+    name = key + ".npy"
+    with zipfile.ZipFile(path) as z:
+        try:
+            info = z.getinfo(name)
+        except KeyError:
+            raise KeyError(f"checkpoint missing leaf {key!r}") from None
+        if info.compress_type != zipfile.ZIP_STORED:
+            with z.open(name) as f:
+                return np.lib.format.read_array(f)
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        local = f.read(30)
+        n_name, n_extra = struct.unpack("<HH", local[26:30])
+        f.seek(info.header_offset + 30 + n_name + n_extra)
+        version = np.lib.format.read_magic(f)
+        read = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}.get(version)
+        if read is not None:
+            shape, fortran, dtype = read(f)
+            offset = f.tell()
+    if read is None or dtype.hasobject or not shape or 0 in shape:
+        with np.load(path) as z:
+            return z[key]
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=shape,
+                     order="F" if fortran else "C")

@@ -3,7 +3,10 @@ package's ``training/optimizer.py`` computes it.
 
 The moments are float32 whatever the param dtype (bf16-safe).  The update
 writes params and moments in place under ``torch.no_grad()``, the
-counterpart of the reference's donated state.  ``torch.optim.AdamW`` is not
+counterpart of the reference's donated state.  In a world of ranks
+(``sharding.world_context``) the params, gradients and moments are the
+rank's blocks and AdamW is elementwise on them; only the global gradient
+norm crosses ranks (``global_norm`` with the leaves' specs).  ``torch.optim.AdamW`` is not
 used: it factors the bias corrections differently and decays 1-D leaves.
 """
 
@@ -53,10 +56,24 @@ def init_opt_state(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, ctx=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+    In a world (``ctx``; ``specs`` the leaves' partition specs, the same
+    tree) the leaves are this rank's blocks of the global ones: each rank
+    sums a block only at coordinate 0 of every axis the leaf is
+    replicated over, so each global element counts once, and one psum
+    over the world adds the ranks' sums."""
+    if ctx is None or ctx.world is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+    from ..sharding import psum
+
+    leaves = tree_leaves(tree)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x, spec in zip(leaves, tree_leaves(specs)):
+        if all(ctx.coordinate((a,)) == 0 for a in ctx.replicated(spec)):
+            total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(psum(total, ctx, tuple(ctx.mesh), "norm"))
 
 
 @torch.no_grad()
@@ -82,14 +99,17 @@ def _update_leaf(p, g, m, v, *, scale, lr, bc1, bc2, cfg: AdamWConfig):
         p.copy_(p.float().sub_(g))
 
 
-def adamw_update(grads, state: dict, params, cfg: AdamWConfig):
+def adamw_update(grads, state: dict, params, cfg: AdamWConfig, ctx=None,
+                 specs=None):
     """Returns (params, state, metrics): ``params`` and ``state``'s moments
     and count updated in place (the same objects come back); metrics
-    ``grad_norm`` (before clipping) and ``lr`` as 0-d float32 tensors."""
+    ``grad_norm`` (before clipping) and ``lr`` as 0-d float32 tensors, the
+    same on every rank of a world (``ctx`` and the leaves' ``specs``, as
+    ``global_norm`` takes them)."""
     with torch.no_grad():
         count = state["count"].add_(1)
         lr = schedule(cfg, count)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, ctx, specs)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         c = count.float()

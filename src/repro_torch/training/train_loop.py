@@ -6,6 +6,18 @@ The gradient is autograd's over the param tree (``models/transformer.py``
 ``loss_fn``, each stacked group rematerialised by ``remat_policy``); the
 step is eager PyTorch, not compiled.  Where the reference donates the
 state to its jitted step, the step here updates it in place.
+
+In a world of ranks (``sharding.world_context``, one process per rank) the
+same functions train the rank's blocks, as the reference's jitted step
+does on a mesh: the params are ``init_model``'s blocks (each leaf drawn
+whole, then cut), the moments and error buffer blocks like them, each rank
+reads the loader's global batch and keeps its rows, the gradient goes
+through the collectives (``sharding.py``) and is summed over the axes each
+leaf is replicated over (ZeRO-3 over ``data``, heads / mlp / experts over
+``model``, the batch over ``(pod, data)``), and ``loss``, ``grad_norm``,
+``lr`` and ``count`` are the same on every rank.  Checkpoints of a world
+are gathered to rank 0 and written unsharded (``training/checkpoint.py``),
+so a run resumes in a world of another size, or on one device.
 """
 
 from __future__ import annotations
@@ -22,7 +34,7 @@ from ..configs.base import ArchConfig
 from ..devices import resolve_device
 from ..models import transformer as tf
 from ..models.common import tree_leaves, tree_map
-from ..sharding import MeshContext
+from ..sharding import MeshContext, reduce_gradients
 from . import compression
 from .checkpoint import Checkpointer
 from .optimizer import AdamWConfig, adamw_update, init_opt_state
@@ -64,26 +76,28 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(was)
 
 
-def one_device_training(ctx: MeshContext) -> None:
-    """Raise for a context of a world of ranks: training there is not
-    ported."""
-    if ctx.world is not None:
-        raise NotImplementedError(
-            "training in a world of ranks (gradients through the "
-            "collectives, data / FSDP / expert-parallel updates) is ROADMAP "
-            "A16b and not ported; train on one device "
-            "(single_device_context())")
+def state_shardings(cfg: ArchConfig, ctx: MeshContext,
+                     tcfg: TrainConfig) -> dict:
+    """The partition spec of every leaf of a train state on ``ctx``'s
+    mesh: params, moments and error buffer laid out as the params
+    (``transformer.model_shardings``), the step count replicated."""
+    specs = tf.model_shardings(cfg, ctx)
+    out = {"params": specs, "opt": {"m": specs, "v": specs, "count": ()}}
+    if tcfg.compress_grads:
+        out["err"] = specs
+    return out
 
 
 def make_train_step(cfg: ArchConfig, ctx: MeshContext, tcfg: TrainConfig):
     """Returns (state, batch) -> (state, metrics).
 
     state = {params, opt, err?}, updated in place and returned; batch =
-    {'tokens', 'labels'} tensors on the params' device.  metrics: ``loss``,
-    ``grad_norm`` (before clipping) and ``lr``, 0-d float32 tensors.  The
-    step runs under the caller's deterministic-algorithms setting
-    (``train`` turns it on).  One device only: a world's context raises."""
-    one_device_training(ctx)
+    {'tokens', 'labels'} tensors on the params' device (in a world the
+    global batch, on every rank).  metrics: ``loss``, ``grad_norm``
+    (before clipping) and ``lr``, 0-d float32 tensors (in a world the
+    same on every rank).  The step runs under the caller's
+    deterministic-algorithms setting (``train`` turns it on)."""
+    specs = tf.model_shardings(cfg, ctx) if ctx.world is not None else None
 
     def step(state, batch):
         params = state["params"]
@@ -94,22 +108,26 @@ def make_train_step(cfg: ArchConfig, ctx: MeshContext, tcfg: TrainConfig):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
         by_leaf = {id(t): g for t, g in zip(leaves, grads)}
-        grads = tree_map(lambda t: by_leaf[id(t)], live)
+        grads = reduce_gradients(tree_map(lambda t: by_leaf[id(t)], live),
+                                 ctx, specs)
         if tcfg.compress_grads:
             grads, state["err"] = compression.compressed_grads(
-                grads, state["err"])
-        _, _, metrics = adamw_update(grads, state["opt"], params, tcfg.opt)
+                grads, state["err"], ctx, specs)
+        _, _, metrics = adamw_update(grads, state["opt"], params, tcfg.opt,
+                                     ctx, specs)
         return state, dict(metrics, loss=loss.detach())
 
     return step
 
 
 def init_train_state(cfg: ArchConfig, generator: torch.Generator,
-                     tcfg: TrainConfig, dtype=torch.float32, device=None):
+                     tcfg: TrainConfig, dtype=torch.float32, device=None,
+                     ctx: MeshContext | None = None):
     """{params, opt, err?}: random weights from ``generator``
     (``transformer.init_model``) on ``device`` (None = the card), zero
-    float32 moments and error buffer."""
-    params = tf.init_model(cfg, generator, dtype, device)
+    float32 moments and error buffer; in a world (``ctx``) this rank's
+    blocks of each."""
+    params = tf.init_model(cfg, generator, dtype, device, ctx)
     state = {"params": params, "opt": init_opt_state(params)}
     if tcfg.compress_grads:
         state["err"] = compression.init_error_state(params)
@@ -138,19 +156,26 @@ def train(
     ``checkpoint_every`` steps and at the end; ``resume=True`` continues
     from the latest one, repeating the uninterrupted run's losses bit for
     bit (the run is under ``deterministic_algorithms``).  Returns
-    {'state', 'losses' (this run's steps)}."""
-    one_device_training(ctx)
+    {'state', 'losses' (this run's steps)}.
+
+    In a world (``ctx`` of ``sharding.world_context``) every rank calls
+    this with the same arguments and gets its blocks of the state and the
+    global losses; checkpoints are written by rank 0 (the leaves gathered
+    to it) and read by every rank (its blocks cut), whatever world or
+    device wrote them; ``log`` is called on every rank."""
     device = resolve_device(device)
     with deterministic_algorithms():      # before any work on the card
         step_fn = make_train_step(cfg, ctx, tcfg)
         state = init_train_state(
             cfg, torch.Generator(device).manual_seed(seed), tcfg, dtype,
-            device)
+            device, ctx)
+        world = ({"ctx": ctx, "shardings": state_shardings(cfg, ctx, tcfg)}
+                 if ctx.world is not None else {})
         start = 0
         ckpt = (Checkpointer(ckpt_dir, keep=tcfg.keep_checkpoints)
                 if ckpt_dir else None)
         if resume and ckpt and ckpt.latest_step() is not None:
-            state, meta = ckpt.restore(state)
+            state, meta = ckpt.restore(state, **world)
             start = meta["step"]
             log(f"resumed at step {start}")
 
@@ -170,8 +195,8 @@ def train(
                 )
             if (ckpt and tcfg.checkpoint_every
                     and (i + 1) % tcfg.checkpoint_every == 0):
-                ckpt.save_async(i + 1, state)
+                ckpt.save_async(i + 1, state, **world)
         if ckpt:
             ckpt.wait()
-            ckpt.save(num_steps, state)
+            ckpt.save(num_steps, state, **world)
     return {"state": state, "losses": losses}

@@ -782,7 +782,7 @@ def test_phase_lm_world_runs_on_the_cpu():
     (4 ranks, and 8 for the MoE config) on the 'card' (the CPU here)
     against the same world on the CPU agrees exactly; no index kernel
     launches in any rank."""
-    rec, launches = chip_smoke.phase_lm_world(
+    rec, launches, _ = chip_smoke.phase_lm_world(
         device="cpu", archs=["qwen2p5_3b", "deepseek_v2_236b"], full=False)
     four, eight = rec["reduced"]["4_ranks"], rec["reduced"]["8_ranks"]
     assert four["transport"] == eight["transport"] == "gloo, direct"
@@ -818,3 +818,36 @@ def test_lm_world_full_parts_run_on_the_cpu():
     assert [r["local_experts"] for r in d["ranks"]] == [4, 4]
     assert d["forward_max_err"] <= chip_smoke.LM_BF16_TOL * d["max_abs_logit"]
     assert set(launches.values()) <= {0}
+
+
+def test_phase_lm_train_runs_on_the_cpu():
+    """Phase 15 on the CPU: (a) phase 14 (a)'s worlds with their train
+    steps (a dense config also compressed, an MoE config in 4 and 8
+    ranks), the 'card' (the CPU here) against the CPU exactly; (b) the
+    world of (1, 2, 2) training a 2-layer reduced qwen2p5_3b for 3 steps
+    against one rank, its checkpoint of step 2 restored and step 3 taken
+    again bit for bit, with the collectives of a step by kind and pass;
+    no index kernel launches in any rank."""
+    spec = dict(chip_smoke.LM_TRAIN_WORLD, config="get_reduced_config",
+                layers=2, seq=16)
+    rec, launches = chip_smoke.phase_lm_train(
+        "cpu", archs=["qwen2p5_3b", "deepseek_v2_236b"], spec=spec)
+    four, eight = rec["reduced"]["4_ranks"], rec["reduced"]["8_ranks"]
+    assert set(four) == {"mesh", "qwen2p5_3b", "qwen2p5_3b_compressed",
+                         "deepseek_v2_236b"}
+    assert set(eight) == {"mesh", "deepseek_v2_236b"}
+    for r in (four["qwen2p5_3b"], four["qwen2p5_3b_compressed"],
+              four["deepseek_v2_236b"], eight["deepseek_v2_236b"]):
+        assert r["grad_err"] == r["state_err"] == r["loss_fn_err"] == 0
+    assert four["qwen2p5_3b_compressed"]["ties"] >= 0
+    full = rec["full"]
+    assert full["resumed_bitwise"] and len(full["losses"]) == 3
+    assert full["loss_max_err"] <= chip_smoke.LM_TOL * 10
+    per = full["collectives_per_step"]
+    assert per["all_gather/forward"] == per["all_gather/remat"] == \
+        per["reduce_scatter/backward"] > 0
+    assert per["psum/forward"] == per["psum/backward"] > 0
+    assert per["psum/grads"] > 0 and per["psum/norm"] == 2
+    assert full["checkpoint_bytes"] > 0
+    assert set(launches.values()) <= {0}
+

@@ -219,3 +219,104 @@ def test_a_mesh_of_the_wrong_size_is_refused():
     with pytest.raises(RuntimeError, match="needs 4 ranks, the world has 2"):
         run_world(2, lm_constrain_rank, timeout_s=TIMEOUT_S,
                   mesh_shape=LM_MESH)
+
+
+# --------------------------------------------------------------------------
+# the collectives' backward: each one's transpose (sharding.py)
+# --------------------------------------------------------------------------
+
+# (name, the global array's layout, what each rank computes from its
+# block): psum over model, over the batch axes; tiled all_gather over
+# model on dim 1, over the batch axes on dim 0; gather_spec of every dim
+GRAD_SPEC = ("data", "model")
+GRAD_CASES = ("psum_model", "psum_batch", "gather_model", "gather_batch",
+              "gather_spec")
+
+
+def _collective(name, x, ctx):
+    from repro_torch.sharding import all_gather, gather_spec, psum
+
+    return {"psum_model": lambda: psum(x, ctx),
+            "psum_batch": lambda: psum(x, ctx, ("pod", "data")),
+            "gather_model": lambda: all_gather(x, ctx, ("model",), 1),
+            "gather_batch": lambda: all_gather(x, ctx, ("pod", "data"), 0),
+            "gather_spec": lambda: gather_spec(x, ctx, GRAD_SPEC)}[name]()
+
+
+def lm_backward_rank(mesh) -> dict:
+    """Per case: the gradient of sum_r <f_r(block of X), W_r> over the
+    world with respect to this rank's block of X (its share, then summed
+    over the axes the block is replicated over), and the same function of
+    the global X through autograd in this process, cut to the block."""
+    from repro_torch import sharding
+    from repro_torch.sharding import reduce_gradients, world_context
+
+    ctx = world_context(mesh)
+    me = torch.distributed.get_rank()
+    X = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(4, 6)).astype(np.float32))
+    block = ctx.block(GRAD_SPEC, X.shape)
+    out = {}
+    for name in GRAD_CASES:
+        def weight(rank, shape):
+            return torch.from_numpy(np.random.default_rng(
+                [GRAD_CASES.index(name), rank]).normal(size=shape).astype(
+                    np.float32))
+
+        x = X[block].clone().requires_grad_()
+        y = _collective(name, x, ctx)
+        (g,) = torch.autograd.grad(torch.sum(y * weight(me, y.shape)), x)
+        (g,) = reduce_gradients([g], ctx, [GRAD_SPEC])
+        # the global function: every rank's output from the global X;
+        # rank q sits at (data, model) = divmod(q, 2) and holds block q
+        Xg = X.clone().requires_grad_()
+        parts = [Xg[2 * d:2 * d + 2, 3 * m:3 * m + 3]
+                 for d, m in map(lambda q: divmod(q, 2), range(ctx.size))]
+        total = 0
+        for r in range(ctx.size):
+            data_r, model_r = divmod(r, 2)
+            same_data = parts[2 * data_r:2 * data_r + 2]
+            same_model = parts[model_r::2]
+            yr = {"psum_model": lambda: sum(same_data),
+                  "psum_batch": lambda: sum(same_model),
+                  "gather_model": lambda: torch.cat(same_data, 1),
+                  "gather_batch": lambda: torch.cat(same_model, 0),
+                  "gather_spec": lambda: Xg}[name]()
+            total = total + torch.sum(yr * weight(r, yr.shape))
+        (want,) = torch.autograd.grad(total, Xg)
+        out[name] = {"got": g, "want": want[block], "y_graph":
+                     y.grad_fn is not None}
+    sharding.reset_traffic()
+    with torch.no_grad():
+        y = _collective("psum_model", X[block].clone().requires_grad_(), ctx)
+        out["no_grad_graph"] = y.grad_fn is not None
+    out["traffic"] = dict(sharding.TRAFFIC)
+    return out
+
+
+@pytest.fixture(scope="module")
+def backward_world():
+    return run_world(4, lm_backward_rank, timeout_s=TIMEOUT_S,
+                     mesh_shape=LM_MESH)
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_collective_backward_is_its_transpose(backward_world, name):
+    """In a world of 4 (1, 2, 2): the gradient of every rank's output
+    weighted by its own W_r, taken through the collective on each rank's
+    block and summed over the axes the block is replicated over, equals
+    autograd of the same function on the global tensor, cut to the
+    rank's block (psum's backward a psum, a tiled all_gather's a
+    reduce-scatter, gather_spec's their chain)."""
+    for r in backward_world:
+        assert r[name]["y_graph"]
+        np.testing.assert_allclose(r[name]["got"], r[name]["want"],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_collectives_record_no_graph_with_grad_off(backward_world):
+    """With grad mode off a collective is the plain call: no graph, one
+    forward call counted by kind and pass."""
+    for r in backward_world:
+        assert not r["no_grad_graph"]
+        assert r["traffic"] == {"psum/forward": [1, 2 * 3 * 4]}

@@ -220,7 +220,7 @@ def world_rank(mesh, ref: dict, todo: list) -> dict:
     )
 
     me = dist.get_rank()
-    out = {"refusals": refusals(mesh)}
+    out = {}
     for case in todo:
         n, rules, arch, b = case
         if n != mesh.size():
@@ -280,41 +280,6 @@ def world_rank(mesh, ref: dict, todo: list) -> dict:
     return out
 
 
-def refusals(mesh) -> list:
-    """What a world refuses, each call's exception and message: a gradient,
-    the loss, a train step and the train loop (ROADMAP A16b)."""
-    from repro_torch.configs import base
-    from repro_torch.models import transformer as tf
-    from repro_torch.sharding import world_context
-    from repro_torch.training.train_loop import (
-        TrainConfig,
-        make_train_step,
-        train,
-    )
-
-    ctx = world_context(mesh)
-    cfg = base.get_reduced_config("qwen2p5_3b")
-    params = tf.init_model(cfg, torch.Generator().manual_seed(0),
-                           torch.float32, "cpu", ctx)
-    live = {**params, "lm_head": params["lm_head"].requires_grad_()}
-    batch = {"tokens": torch.zeros(4, 8, dtype=torch.int32)}
-    calls = (lambda: tf.forward(live, batch, cfg, ctx),
-             lambda: tf.loss_fn(params, dict(batch, labels=batch["tokens"]),
-                                cfg, ctx),
-             lambda: make_train_step(cfg, ctx, TrainConfig()),
-             lambda: train(cfg, ctx, TrainConfig(), iter(()), 1,
-                           device="cpu"))
-    out = []
-    for call in calls:
-        try:
-            call()
-        except NotImplementedError as e:
-            out.append(str(e))
-        else:
-            out.append("")
-    return out
-
-
 def run_worlds(ref: dict, todo: list) -> dict:
     """{case key: [each rank's record]} from one world per mesh, the
     worlds side by side."""
@@ -334,7 +299,6 @@ def run_worlds(ref: dict, todo: list) -> dict:
         for n, ranks in zip(sizes, list(pool.map(world, sizes))):
             for k in ranks[0]:
                 out[k] = [r[k] for r in ranks]
-            out[f"refusals/{n}"] = out.pop("refusals")
     return out
 
 
@@ -462,16 +426,6 @@ def test_a_single_kv_head_is_replicated_over_model(world, reference):
     assert sorted(map(tuple, reference[f"{k}/index/blocks/s2/mixer/wq"][
         :, 2])) == [(0, 2), (0, 2), (2, 4), (2, 4)]
     assert world[k][0]["mismatch"] == []
-
-
-@pytest.mark.parametrize("n", sorted(MESHES))
-def test_a_world_serves_only(world, n):
-    """A gradient, the loss, a train step and the train loop raise in a
-    world, naming ROADMAP A16b, on every rank."""
-    for rank in world[f"refusals/{n}"]:
-        assert len(rank) == 4
-        for message in rank:
-            assert "A16b" in message
 
 
 def test_the_world_gathers_only_under_train_rules(world):

@@ -218,9 +218,3 @@ def test_launcher_resumes(tmp_path, capsys):
     assert want.keys() == got.keys()
     for k in want:
         assert np.array_equal(want[k], got[k]), k
-
-
-def test_launcher_refuses_a_world(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A16"):
-        launch_train.main(["--arch", "qwen2p5_3b", "--device", "cpu"])
