@@ -233,7 +233,16 @@ script exits nonzero and prints no final result:
      trace, a measured time under its bound (a micro-batch under its
      FLOPs over the bf16 peak, a decode step or an index cell under its
      bytes over 3.35 TB/s) or a measured peak more than 10% over its
-     meta estimate fails the run
+     meta estimate fails the run.  On the reference's production meshes
+     (16x16, 2x16x16) six LM cells (LAUNCH_MESH_SUBSET) are traced for
+     rank 0 in worlds where no data moves, and perf's LM variants (the
+     four fsdp rule sets among them) carry per-rank 16x16 estimates: a
+     traced mesh cell that counts no work or moves no collective bytes
+     where its rules split a weight fails, as does llama4 decode_32k on
+     16x16 saying it fits.  Every trace of the phase runs on the CPU at a
+     lower priority while phase 12 runs, and is collected here.  After
+     phases 14 and 15, their (b) parts' measured step peaks a rank are
+     held to 1.10 x their meta world estimates (a line of its own)
  14  LM serving in worlds of ranks sharing the card (gloo; their CUDA
      tensors staged through pinned host buffers; no index kernel may
      launch in any rank): (a) the ten reduced configs in float32 in a
@@ -287,8 +296,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -297,6 +308,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -5658,6 +5670,24 @@ def phase_train(device="cuda", archs=None, full=True,
 
 LAUNCH_LM_CELLS = 40             # ten configs x four shapes
 LAUNCH_PEAK_SLACK = 1.10         # measured peak over its meta estimate
+LAUNCH_MESH_CELLS = 80           # the same on the 16x16 and 2x16x16 meshes
+LAUNCH_NICE = 10                 # the priority the early traces run at
+# the production-mesh cells phase 13 traces (the script's time: all 80
+# are a separate command, PERF.md section 4): qwen2p5_3b train on both
+# meshes
+# (its fsdp rule sets in perf), deepseek_v2_236b's MLA + MoE train and
+# decode with expert_ff over pod, llama4's decode that does not fit a
+# card, and mamba2_1p3b's 512k decode
+LAUNCH_MESH_SUBSET = (
+    ("qwen2p5_3b", "train_4k", "16x16"),
+    ("qwen2p5_3b", "train_4k", "2x16x16"),
+    ("deepseek_v2_236b", "train_4k", "2x16x16"),
+    ("deepseek_v2_236b", "decode_32k", "2x16x16"),
+    ("llama4_maverick_400b_a17b", "decode_32k", "16x16"),
+    ("mamba2_1p3b", "long_500k", "16x16"),
+)
+# a cell that must not fit one card at full size (its arguments alone)
+LAUNCH_TOO_BIG = ("llama4_maverick_400b_a17b", "decode_32k", "16x16")
 LAUNCH_NEEDED = {"dryrun_index_build": ("radix_hist", "radix_pos",
                                         "char_histogram"),
                  "dryrun_index_serve": ("rank_select",)}
@@ -5679,15 +5709,189 @@ def check_launch_cell(rec: dict, what: str) -> None:
                 f"{LAUNCH_PEAK_SLACK - 1:.0%}")
 
 
+def check_mesh_cell(rec: dict, what: str) -> None:
+    """A traced production-mesh cell must count work, and its collectives
+    must move bytes where its rules split a weight over an axis of size
+    over 1 (a world step that gathers or sums nothing there is not the
+    sharded step)."""
+    require(rec["counts"]["flops"] > 0 and rec["counts"]["bytes"] > 0,
+            f"{what}: no FLOPs or bytes counted")
+    if rec["split_axes"]:
+        require(rec["collectives"]["moved_bytes"] > 0,
+                f"{what}: its rules split weights over {rec['split_axes']} "
+                f"but its collectives move 0 bytes")
+
+
+def check_world_peak(peak_bytes: float, est: dict, what: str) -> dict:
+    """A rank's measured peak of a world step against that step's meta
+    world estimate (``LAUNCH_PEAK_SLACK``, as ``check_launch_cell``)."""
+    total = est["total_bytes"]
+    require(peak_bytes <= LAUNCH_PEAK_SLACK * total,
+            f"{what}: measured peak {peak_bytes} B a rank exceeds its meta "
+            f"world estimate {total} B by more than "
+            f"{LAUNCH_PEAK_SLACK - 1:.0%}")
+    return {"measured_bytes": peak_bytes, "estimate_bytes": total,
+            "ratio": peak_bytes / total}
+
+
+def _mesh_summary(est: dict) -> dict:
+    return {"total_bytes": est["memory"]["total_bytes"],
+            "argument_bytes": est["memory"]["argument_size_in_bytes"],
+            "temp_bytes": est["memory"]["temp_size_in_bytes"],
+            "collective_bytes": est["collectives"]["moved_bytes"],
+            "trace_s": est["trace_s"]}
+
+
+def world_peak_estimates(config: str = "get_config") -> dict:
+    """Phase 15 (b)'s train step and phase 14 (b)'s serving steps (its
+    prefill and its decode at the generate's cache length, the larger
+    total) traced for rank 0 in meta worlds of their meshes, at their
+    batch, sequence and dtype: the estimates their measured peaks a rank
+    are held to once they ran.  ``config`` names the function of
+    ``configs.base`` that gives the configs."""
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import TRAIN_RULES
+
+    spec = LM_TRAIN_WORLD
+    cfg = getattr(base, config)(spec["arch"]).replace(
+        num_layers=spec["layers"])
+    train = dryrun.trace_mesh_cell(
+        cfg, "train_4k", spec["mesh"], rules=TRAIN_RULES, remat="full",
+        n_micro=1, global_batch=spec["batch"], seq_len=spec["seq"],
+        dtype=torch.float32)
+    name, arch, layers, dtype, (fb, fs), (gb, prompt, new) = LM_WORLD_FULL[0]
+    cfg = getattr(base, config)(arch)
+    dtype = getattr(torch, dtype)
+    serve = [dryrun.trace_mesh_cell(cfg, "prefill_32k", LM_WORLD_FULL_MESH,
+                                    global_batch=fb, seq_len=fs, dtype=dtype),
+             dryrun.trace_mesh_cell(cfg, "decode_32k", LM_WORLD_FULL_MESH,
+                                    global_batch=gb, seq_len=prompt + new,
+                                    dtype=dtype, cache_dtype=dtype)]
+    totals = [e["memory"]["total_bytes"] for e in serve]
+    i = totals.index(max(totals))
+    return {"lm_world_train": dict(_mesh_summary(train), arch=spec["arch"],
+                                   mesh=spec["mesh"], kind="train"),
+            "lm_world_full": dict(_mesh_summary(serve[i]), arch=name,
+                                  mesh=LM_WORLD_FULL_MESH,
+                                  kind=("prefill", "decode")[i],
+                                  other_total_bytes=totals[1 - i])}
+
+
+def check_world_peaks(est: dict, served=None, trained=None) -> dict:
+    """Phase 14 (b)'s and phase 15 (b)'s measured step peaks a rank (the
+    largest rank's, from just after the weights or state are made to
+    the steps' end) against phase 13's meta world estimates."""
+    out = {}
+    if served is not None:
+        name = est["lm_world_full"]["arch"]
+        peak = max(r["step_peak_gib"] for r in served[name]["ranks"])
+        out["lm_world_full"] = check_world_peak(
+            peak * 2**30, est["lm_world_full"],
+            f"phase 14 {name} step peak")
+    if trained is not None:
+        peak = max(trained["step_peak_gib_per_rank"])
+        out["lm_world_train"] = check_world_peak(
+            peak * 2**30, est["lm_world_train"],
+            f"phase 15 {est['lm_world_train']['arch']} step peak")
+    return out
+
+
+def check_mesh_cells(lm: list, config_of) -> dict:
+    """Production-mesh cell records: each traced cell counts work and
+    moves collective bytes where its rules split a weight
+    (``check_mesh_cell``), a skipped one has the reference's reason, and
+    the cell that cannot fit one card at full size says so.  Returns
+    each cell's summary."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.specs import shape_skip_reason
+
+    for c in lm:
+        what = f"phase 13: mesh cell {c['arch']} x {c['shape']} x {c['mesh']}"
+        skip = shape_skip_reason(config_of(c["arch"]), c["shape"])
+        require(c["status"] == ("skipped" if skip else "traced")
+                and c.get("reason") == skip,
+                f"{what}: {c['status']} ({c.get('reason')})"
+                + (f"\n{c['error']}" if "error" in c else ""))
+        if c["status"] == "traced":
+            check_mesh_cell(c, what)
+    out = {f"{c['arch']}__{c['shape']}__{c['mesh']}": (
+        {"status": "skipped"} if c["status"] == "skipped" else
+        {"status": "traced", "chips": c["chips"], "rank": c["rank"],
+         "argument_gib": sum(c["argument_bytes"].values()) / 2**30,
+         "total_gib": c["memory"]["total_bytes"] / 2**30,
+         "fits": c["memory"]["fits"], "n_micro": c.get("n_micro"),
+         "flops": c["counts"]["flops"], "bytes": c["counts"]["bytes"],
+         "collective_bytes": c["collectives"]["moved_bytes"],
+         "collectives": c["collectives"]["calls"],
+         "compute_s": c["roofline"]["compute_s"],
+         "memory_s": c["roofline"]["memory_s"],
+         "collective_s": c["roofline"]["collective_s"],
+         "bottleneck": c["roofline"]["bottleneck"],
+         "useful_flops_ratio": c["roofline"]["useful_flops_ratio"],
+         "trace_s": c["trace_s"]})
+        for c in lm}
+    big = "__".join(LAUNCH_TOO_BIG)
+    if config_of is get_config and big in out:
+        require(not out[big]["fits"],
+                f"phase 13: {big} says it fits one card")
+    return out
+
+
+def launch_prework(jobs: int, config_of=None,
+                   mesh_cells=LAUNCH_MESH_SUBSET) -> tuple:
+    """Phase 13's traces on ``meta``, started at once in ``jobs`` spawned
+    processes at a lower priority (nice ``LAUNCH_NICE``), so that ``main``
+    can start them while phase 12 keeps the card busy and its main
+    thread holds a core: the 40 one-card LM cells, the production-mesh
+    ``mesh_cells`` (each rank 0 in a meta world of its own) and perf's
+    per-rank 16x16 estimates.  With ``jobs`` 1 nothing starts and each
+    traces in this process when asked.  Returns (the executor or None,
+    {"lm": [call giving a cell's record], "mesh": [...], "perf": {target:
+    ``perf.mesh_estimates``}})."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun, perf
+
+    config_of = config_of or get_config
+    pool = None
+    if jobs > 1:
+        pool = ProcessPoolExecutor(
+            jobs, mp_context=multiprocessing.get_context("spawn"),
+            initializer=os.nice, initargs=(LAUNCH_NICE,))
+
+    def traced(cell):
+        if pool is None:
+            return functools.partial(dryrun.cell_record, cell, True,
+                                     config_of)
+        return pool.submit(dryrun.cell_record, cell, True, config_of).result
+
+    return pool, {
+        "lm": [traced(c) for c in dryrun.cells_of() if c[0] != "bwt_index"],
+        "mesh": [traced(c) for c in mesh_cells],
+        "perf": {t: perf.mesh_estimates(t, config_of=config_of, pool=pool)
+                 for t in perf.MESH_ESTIMATED}}
+
+
 def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
-                 max_decode_batch=None, workdir=None) -> tuple:
-    """Phase 13: (a) ``dryrun.main`` over every cell (the LM cells traced
-    on meta in ``jobs`` processes, long_500k skipped where the reference
-    skips it; the two bwt_index cells built and served in a one-rank
-    world), (b) ``perf``'s three targets, then ``report.main``'s tables.
-    Returns (record, launches by path: the index cells' own counts, reset
-    just before each counted run and read just after, and perf's
-    bwt_build, reset before it and read after)."""
+                 max_decode_batch=None, workdir=None,
+                 mesh_cells=LAUNCH_MESH_SUBSET,
+                 world_config: str = "get_config", prework=None) -> tuple:
+    """Phase 13: (a) the dry run of every cell (the LM cells traced on
+    meta, long_500k skipped where the reference skips it, the production
+    mesh cells ``mesh_cells`` for rank 0 in meta worlds: ``prework`` of
+    ``launch_prework``, or started here with ``jobs`` processes; the two
+    bwt_index cells built and served in a one-rank world through
+    ``dryrun.main``), (b) ``perf``'s three targets (qwen_train's four
+    rule-set variants estimated per rank on 16x16, every LM variant with
+    its per-rank estimate from the prework), then ``report.main``'s
+    tables, and the meta world estimates of phases 14 (b) and 15 (b)
+    (``world_peak_estimates`` with ``world_config``'s configs), which
+    ``main`` holds their measured peaks to.  Returns (record, launches by
+    path: the index cells' own counts, reset just before each counted run
+    and read just after, and perf's bwt_build, reset before it and read
+    after)."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -5702,12 +5906,23 @@ def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
     rec, launches = {}, {}
     if cuda:    # what earlier phases still hold: perf's budget is the rest
         rec["allocated_at_start"] = torch.cuda.memory_allocated()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_",
-                                     dir=workdir) as tmp:
+    pool, work = prework or launch_prework(jobs, config_of, mesh_cells)
+    with contextlib.ExitStack() as stack:
+        if pool is not None:
+            stack.callback(pool.shutdown, cancel_futures=True)
+        tmp = stack.enter_context(tempfile.TemporaryDirectory(
+            prefix="chip_smoke_launch_", dir=workdir))
         dr_dir, pf_dir = Path(tmp) / "dryrun", Path(tmp) / "perf"
-        cells = dryrun.main(["--out", str(dr_dir), "--jobs", str(jobs)],
-                            config_of=config_of, index_cfg=icfg,
-                            index_device=device)
+        cells = [get() for get in work["lm"]]
+        for c in cells:
+            dryrun.save_result(c, dr_dir)
+        require(not any(c["status"] == "failed" for c in cells),
+                "phase 13: " + "\n".join(c["error"] for c in cells
+                                          if c["status"] == "failed"))
+        rec["lm_waited_s"] = time.perf_counter() - t0
+        cells += dryrun.main(["--arch", "bwt_index", "--out", str(dr_dir)],
+                             config_of=config_of, index_cfg=icfg,
+                             index_device=device)
         rec["dryrun_s"] = time.perf_counter() - t0
         lm = [c for c in cells if c["arch"] != "bwt_index"]
         require(len(lm) == LAUNCH_LM_CELLS, f"phase 13: {len(lm)} LM cells")
@@ -5759,11 +5974,22 @@ def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
                              in_scope_bytes=counts["in_scope_bytes"],
                              count_s=counts["seconds"])
         t1 = time.perf_counter()
+        mesh = [get() for get in work["mesh"]]
+        for c in mesh:
+            dryrun.save_result(c, dr_dir)
+        rec["mesh_cells"] = check_mesh_cells(mesh, config_of)
+        # every estimate is done before perf times anything on the card
+        for get in (g for e in work["perf"].values() for g in e.values()):
+            get()
+        rec["mesh_waited_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
         runs = perf.qwen_train(out_dir=pf_dir, device=device,
-                               config_of=config_of)
-        runs += perf.musicgen_decode(out_dir=pf_dir, device=device,
-                                     config_of=config_of,
-                                     max_batch=max_decode_batch)
+                               config_of=config_of,
+                               estimates=work["perf"]["qwen_train"])
+        runs += perf.musicgen_decode(
+            out_dir=pf_dir, device=device, config_of=config_of,
+            max_batch=max_decode_batch,
+            estimates=work["perf"]["musicgen_decode"])
         _counts_reset()
         runs += perf.bwt_build(out_dir=pf_dir, device=device, icfg=icfg)
         launches["perf_bwt_build"], _ = _counts()
@@ -5778,6 +6004,18 @@ def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
                 and r["variant"] == "baseline"]
         require(len(base) == 1 and base[0]["sa_equals_baseline"],
                 "phase 13: bwt_build baseline")
+        fsdp = {r["variant"]: r for r in runs if r["target"] == "qwen_train"
+                and r["variant"] in perf.QWEN_MESH_VARIANTS}
+        require(sorted(fsdp) == sorted(perf.QWEN_MESH_VARIANTS) and all(
+            (r["status"], r["mesh"]) == ("estimated", perf.PERF_MESH)
+            for r in fsdp.values()),
+            f"phase 13: qwen_train's rule-set variants: "
+            f"{[(v, r['status']) for v, r in fsdp.items()]}")
+        for r in runs:
+            if "mesh_estimate" in r or "mesh" in r:
+                check_mesh_cell(r.get("mesh_estimate", r["estimate"]),
+                                f"phase 13 {r['target']}/{r['variant']} "
+                                f"on {perf.PERF_MESH}")
         rec["perf"] = {f"{r['target']}/{r['variant']}": {
             k: r[k] for k in (
                 "status", "reason", "measured_s", "bound_s", "micro_s",
@@ -5787,10 +6025,16 @@ def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
             | ({"estimate_bytes": r["estimate"]["memory"]["total_bytes"],
                 "estimate_fits": r["estimate"]["memory"]["fits"]}
                if "estimate" in r else {})
+            | ({"mesh": _mesh_summary(r.get("mesh_estimate",
+                                            r["estimate"]))}
+               if "mesh_estimate" in r or "mesh" in r else {})
             for r in runs}
         require(not cuda or launches["perf_bwt_build"]["radix_hist"] > 0,
                 "phase 13: perf's bwt_build launched no radix_hist")
         report.main(["--dryrun", str(dr_dir), "--perf", str(pf_dir)])
+    t1 = time.perf_counter()
+    rec["world_peak_estimates"] = world_peak_estimates(world_config)
+    rec["world_peak_estimates_s"] = time.perf_counter() - t1
     if cuda:
         total = torch.cuda.get_device_properties(0).total_memory
         rec["hbm_bytes"] = {"card": total, "roofline": rf.HBM_BYTES}
@@ -6110,6 +6354,10 @@ def lm_world_full_rank(mesh, spec: dict) -> dict:
                  else params["suffix"][0]["mixer"])
         rec = {"init_s": init_s, "weights_gib": mem.allocated_gib(),
                "local_heads": mixer["wo"].shape[1]}
+        # the steps' own peak from here (the weights made, the whole
+        # leaves init draws freed), beside the part's peak from the start
+        init_peak = mem.peak_gib()
+        mem.reset_peak()
         if cfg.num_experts:
             rec["local_experts"] = params["blocks"]["s0"]["ffn"][
                 "w_gate"].shape[1]
@@ -6139,7 +6387,8 @@ def lm_world_full_rank(mesh, spec: dict) -> dict:
                     "collective_bytes_per_step": {
                         k: (v[0] + v[1]) / steps for k, v in
                         dist_sort.COLLECTIVE_BYTES.items() if v[0]}}
-        rec["peak_gib"] = mem.peak_gib()
+        rec["step_peak_gib"] = mem.peak_gib()
+        rec["peak_gib"] = max(init_peak, rec["step_peak_gib"])
         launches, _ = _counts()
         for k, v in launches.items():
             out["launches"][k] = out["launches"].get(k, 0) + v
@@ -6371,17 +6620,22 @@ def lm_world_train_rank(mesh, spec: dict) -> dict:
         cfg, torch.Generator(dev).manual_seed(0), tcfg, torch.float32, dev,
         ctx), dev)
     rec = {"init_s": init_s, "state_gib": mem.allocated_gib()}
+    # the steps' own peak from here (the state made), beside the rank's
+    # peak from the start
+    init_peak = mem.peak_gib()
+    mem.reset_peak()
     shardings = state_shardings(cfg, ctx, tcfg)
     ckpt = Checkpointer(spec["ckpt_dir"], keep=1)
     state, first = lm_train_steps(cfg, ctx, tcfg, loader,
                                   spec["steps"] - 1, dev, state)
+    rec["step_peak_gib"] = mem.peak_gib()
     _, rec["gather_s"] = timed(lambda: ckpt.save_async(
         spec["steps"] - 1, state, ctx=ctx, shardings=shardings), dev)
     state, last = lm_train_steps(cfg, ctx, tcfg, loader, 1, dev, state)
     _, rec["write_wait_s"] = timed(ckpt.wait, dev)
     dist.barrier()                      # rank 0's write is on disk
     rec["steps"] = first + last
-    rec["peak_gib"] = mem.peak_gib()
+    rec["peak_gib"] = max(init_peak, mem.peak_gib())
     (state, _), rec["restore_s"] = timed(lambda: ckpt.restore(
         state, shardings=shardings, ctx=ctx), dev)
     state, again = lm_train_steps(cfg, ctx, tcfg, loader, 1, dev, state)
@@ -6490,6 +6744,7 @@ def lm_world_train(device, spec=LM_TRAIN_WORLD) -> tuple[dict, dict]:
                                          for k, v in per_step.items()},
            "resumed_bitwise": True,
            "peak_gib_per_rank": [r["peak_gib"] for r in ranks],
+           "step_peak_gib_per_rank": [r["step_peak_gib"] for r in ranks],
            "state_gib_per_rank": [r["state_gib"] for r in ranks],
            "init_s": ranks[0]["init_s"], "gather_s": ranks[0]["gather_s"],
            "write_wait_s": ranks[0]["write_wait_s"],
@@ -6824,6 +7079,10 @@ def main(argv=None) -> int:
         rec, path_launches["lm_serving"] = phase_lm()
         emit({"phase": 11, **rec})
 
+    # phase 13's traces on meta (CPU only) run beside phase 12, which
+    # keeps the card busy; at a lower priority than its main thread
+    prework = (launch_prework(min(8, os.cpu_count() or 1))
+               if {12, 13} <= phases else None)
     if 12 in phases:
         rec, launches = phase_train()
         screened = launches["train_screen"]
@@ -6835,8 +7094,10 @@ def main(argv=None) -> int:
             main_launches[name] += v
         emit({"phase": 12, **rec})
 
+    world_est = None    # phase 13's estimates of phases 14 (b), 15 (b)
     if 13 in phases:
-        rec, launches = phase_launch()
+        rec, launches = phase_launch(prework=prework)
+        world_est = rec["world_peak_estimates"]
         for path, counts in launches.items():
             path_launches[path] = counts
             for name, v in counts.items():
@@ -6844,15 +7105,23 @@ def main(argv=None) -> int:
         emit({"phase": 13, **rec})
 
     trained = None      # phase 15 (a), taken in phase 14's worlds
+    served = full_train = None
     if 14 in phases:
         rec, path_launches["lm_world"], trained = phase_lm_world(
             train=15 in phases)
+        served = rec.get("full")
         emit({"phase": 14, **rec})
 
     if 15 in phases:
         rec, path_launches["lm_world_train"] = phase_lm_train(
             reduced=trained)
+        full_train = rec.get("full")
         emit({"phase": 15, **rec})
+
+    if world_est is not None and (served or full_train):
+        # phase 13's estimates, where both readings exist
+        emit({"phase": 13, "world_peaks": check_world_peaks(
+            world_est, served, full_train)})
 
     if {1, 2, 3, 7, 8} <= phases:
         for name in _build.KERNELS:

@@ -15,9 +15,16 @@ output bytes summed per kind in ``COLLECTIVE_BYTES`` (what
 * an NCCL group (one rank per card) takes CUDA tensors as they are;
 * a gloo group takes CPU tensors as they are, and CUDA tensors (ranks that
   share one card) through pinned host copies: each collective copies its
-  input to the host, runs there and copies the result back
-  (``transport`` says which).  A failing collective raises; nothing falls
-  back to another route.
+  input to the host, runs there and copies the result back;
+* a meta world's group (``launch/mesh.py`` ``meta_world``, torch's fake
+  backend) takes ``meta`` tensors only and moves nothing: each call
+  returns what the real one returns in shape and dtype (``gather`` its
+  ``(P, ...)`` on rank 0, None elsewhere) and is recorded as a real
+  call is; a tensor with storage raises, so no value is ever computed
+  through collectives that move nothing.
+
+``transport`` says which.  A failing collective raises; nothing falls back
+to another route.
 
 Engines, as in the reference: ``bitonic_sort_sharded`` (Batcher
 merge-exchange, power-of-two parts, log^2 P ppermute rounds),
@@ -43,6 +50,7 @@ these calls are ``sharding.py``'s (autograd Functions over them).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Sequence
 
 import torch
@@ -51,10 +59,14 @@ import torch.distributed as dist
 # the local-sort dispatch lives in kernels.ops, shared with the
 # single-device builder
 from ..kernels import ops as kernel_ops
+from ..kernels import traffic
 from ..kernels._bits import u32
 from ..kernels.ops import COMPARE
 
 AXIS = "parts"
+# the backend of a meta world (``launch/mesh.py`` ``meta_world``): torch's
+# fake process group, whose collectives return at once
+META_BACKEND = "fake"
 # collective calls made by this rank, by kind
 COLLECTIVES = {"all_gather": 0, "gather": 0, "ppermute": 0, "all_to_all": 0,
                "psum": 0, "pmax": 0}
@@ -148,6 +160,8 @@ def world_info(mesh) -> ShardInfo:
 def transport(info: ShardInfo, device) -> str:
     """How this group's collectives move tensors that live on ``device``."""
     backend = dist.get_backend(info.group)
+    if backend == META_BACKEND:
+        return "meta: shapes only, no data moves"
     if torch.device(device).type == "cuda" and backend == "gloo":
         return "gloo, host-staged (CUDA tensors copied through pinned " \
                "host buffers)"
@@ -158,10 +172,14 @@ def _wire(info: ShardInfo, x: torch.Tensor) -> torch.Tensor:
     """``x`` as the group's backend takes it: contiguous, its dtype kept
     (int32 words, float32, bfloat16; bools widen to int32), on the host
     through a pinned buffer when gloo meets a CUDA tensor."""
+    backend = dist.get_backend(info.group)
+    if backend == META_BACKEND and x.device.type != "meta":
+        raise ValueError(
+            f"a meta world's collectives take meta tensors only, got one on "
+            f"{x.device}: no data moves there, so no real value may pass")
     x = x.contiguous()
     if x.dtype == torch.bool:
         x = x.to(torch.int32)
-    backend = dist.get_backend(info.group)
     if x.device.type == "cuda" and backend == "gloo":
         h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         h.copy_(x)
@@ -169,6 +187,27 @@ def _wire(info: ShardInfo, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda" and backend == "nccl":
         raise ValueError("an NCCL group takes CUDA tensors only")
     return x
+
+
+def _collective(info: ShardInfo, call, *tensors: torch.Tensor) -> None:
+    """Run ``call`` (one collective over ``tensors``); while a counter
+    records (``launch/roofline.py`` ``count``), return only once the
+    group holds none of them.  gloo's worker thread drops its references
+    to a finished collective's tensors just after the caller wakes: a
+    buffer the caller lets go at once would otherwise be freed there, at
+    a moment no run repeats (the storage peak a counted step reports would
+    vary from run to run and rank to rank).  The wait is bounded: a group
+    that keeps a reference longer only loses that determinism.  Outside
+    a count nothing waits."""
+    if not traffic.counting() or dist.get_backend(info.group) != "gloo":
+        call()
+        return
+    before = [t._use_count() for t in tensors]
+    call()
+    deadline = time.monotonic() + 1.0
+    while (any(t._use_count() > n for t, n in zip(tensors, before))
+           and time.monotonic() < deadline):
+        time.sleep(0)
 
 
 def _back(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -180,7 +219,8 @@ def all_gather(info: ShardInfo, x: torch.Tensor) -> torch.Tensor:
     """(P, *x.shape): every rank's ``x``, in rank order."""
     t = _wire(info, x)
     out = [torch.empty_like(t) for _ in range(info.parts)]
-    dist.all_gather(out, t, group=info.group)
+    _collective(info, lambda: dist.all_gather(out, t, group=info.group),
+                t, *out)
     gathered = torch.stack(out)
     _record("all_gather", t, gathered)
     return _back(gathered, x)
@@ -214,8 +254,10 @@ def gather(info: ShardInfo, x: torch.Tensor) -> torch.Tensor | None:
     t = _wire(info, x)
     out = (torch.empty((info.parts, *t.shape), dtype=t.dtype,
                        device=t.device) if _me(info) == 0 else None)
-    dist.gather(t, None if out is None else list(out.unbind(0)),
-                dst=dist.get_global_rank(info.group, 0), group=info.group)
+    rows = [] if out is None else list(out.unbind(0))
+    _collective(info, lambda: dist.gather(
+        t, rows or None, dst=dist.get_global_rank(info.group, 0),
+        group=info.group), t, *rows)
     _record("gather", t, out)
     return None if out is None else _back(out, x)
 
@@ -236,7 +278,8 @@ def ppermute(info: ShardInfo, x: torch.Tensor, perm) -> torch.Tensor:
     send = [0] * info.parts
     recv = [0] * info.parts
     send[dst[me]] = recv[src[me]] = t.numel()
-    dist.all_to_all_single(out, t, recv, send, group=info.group)
+    _collective(info, lambda: dist.all_to_all_single(
+        out, t, recv, send, group=info.group), t, out)
     _record("ppermute", t, out)
     return _back(out.view(x.shape), x)
 
@@ -246,7 +289,8 @@ def all_to_all(info: ShardInfo, buf: torch.Tensor) -> torch.Tensor:
     block s from rank s (the reference's tiled ``lax.all_to_all``)."""
     t = _wire(info, buf)
     out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=info.group)
+    _collective(info, lambda: dist.all_to_all_single(
+        out, t, group=info.group), t, out)
     _record("all_to_all", t, out)
     return _back(out, buf)
 
@@ -255,7 +299,8 @@ def _all_reduce(info: ShardInfo, x: torch.Tensor, op, name: str):
     t = _wire(info, x)
     if t is x:
         t = t.clone()
-    dist.all_reduce(t, op=op, group=info.group)
+    _collective(info, lambda: dist.all_reduce(t, op=op, group=info.group),
+                t)
     _record(name, t, t)
     return _back(t, x)
 

@@ -38,6 +38,11 @@ def current_scope():
     return getattr(_local, "scope", None)
 
 
+def counting() -> bool:
+    """Whether a counter is recording on this thread."""
+    return bool(getattr(_local, "sinks", ()))
+
+
 @contextlib.contextmanager
 def recording(sink):
     """Report every outermost kernel-wrapper call on this thread to

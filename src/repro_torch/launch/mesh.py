@@ -27,6 +27,11 @@ process in (``python -m torch.distributed.run``, which ships with torch,
 sets ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and the store's address in
 each rank's environment); the serving launcher runs in it.
 
+``meta_world`` makes this process one rank of a world of any size in
+which no data moves (torch's fake process group): a full-size step of
+the 256- or 512-rank production mesh is traced there on ``meta`` for one
+rank (``launch/dryrun.py``).
+
 ``run_world`` runs a function in each rank of a world of ``parts`` local
 processes and returns each rank's result as numpy (``single_rank_world``
 makes the calling process a world of one):
@@ -143,6 +148,7 @@ def _join(workdir: str, rank: int, parts: int, device_type: str,
     import torch
     import torch.distributed as dist
 
+    _refuse_nesting("a world of ranks")
     if device_type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(
@@ -163,6 +169,56 @@ def single_rank_world(device_type: str, timeout_s: float = 300.0):
             yield make_index_mesh(device_type, parts=1)
         finally:
             dist.destroy_process_group()
+
+
+def _refuse_nesting(what: str) -> None:
+    """Raise when this process already belongs to a process group: a real
+    world and a meta world never share a process."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"{what} cannot open inside the process group this process "
+            f"already belongs to (backend "
+            f"{dist.get_backend()!r}, {dist.get_world_size()} ranks); "
+            f"leave that world first")
+
+
+@contextlib.contextmanager
+def meta_world(axes: dict, rank: int = 0):
+    """This process as rank ``rank`` of a world of ``prod(axes)`` ranks in
+    which no data moves; yields its LM mesh (``make_lm_mesh("cpu",
+    axes)``) and leaves the world on exit.
+
+    The world's process group is torch's fake backend: every rank of the
+    mesh has its coordinates and its groups, and a collective returns at
+    once.  ``core/dist_sort.py`` takes ``meta`` tensors only on such a
+    group (any other raises) and gives each collective's result the shape
+    and dtype the real call gives, so a step traced here on ``meta``
+    (``roofline.count``) is one rank's step of the full mesh, its
+    collectives counted as in a real world, without the other ranks.
+    Refuses to open inside another world, as a real world refuses to open
+    inside this one."""
+    import torch.distributed as dist
+
+    from ..core.dist_sort import META_BACKEND
+
+    _refuse_nesting("a meta world")
+    size = 1
+    for n in axes.values():
+        size *= n
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} is not one of the {size} ranks of "
+                         f"mesh {axes}")
+    # registers the fake backend's process group with torch.distributed
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+
+    dist.init_process_group(META_BACKEND, store=dist.HashStore(), rank=rank,
+                            world_size=size)
+    try:
+        yield make_lm_mesh("cpu", axes)
+    finally:
+        dist.destroy_process_group()
 
 
 @contextlib.contextmanager
@@ -201,10 +257,17 @@ def launched_world(device, timeout_s: float = 300.0, mesh_shape=None):
 def _rank_main(workdir: str, rank: int, parts: int, device_type: str,
                timeout_s: float, fn, args, mesh_shape=None) -> None:
     """One rank: join the world, build the mesh, run ``fn``, write its
-    result (or the traceback) under ``workdir``."""
+    result (or the traceback) under ``workdir``, then leave at once.
+
+    The rank skips the interpreter's teardown (``os._exit``, as a forked
+    child leaves): once the outcome is on disk there is nothing left to
+    do, and the teardown of the process group's native state could abort
+    the process ("terminate called without an active exception", exit
+    -6) after a good result, failing the world."""
     import torch
     import torch.distributed as dist
 
+    code = 0
     try:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // parts))
         _join(workdir, rank, parts, device_type, timeout_s)
@@ -220,7 +283,10 @@ def _rank_main(workdir: str, rank: int, parts: int, device_type: str,
         # outcomes
         with open(f"{workdir}/error_{rank}.txt", "w") as f:
             f.write(traceback.format_exc())
-        sys.exit(1)
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def run_world(parts: int, fn, *args, device_type: str = "cpu",

@@ -1,5 +1,7 @@
 """The dry-run, roofline and perf tables from the JSON that
-``launch/dryrun.py`` and ``launch/perf.py`` write.
+``launch/dryrun.py`` and ``launch/perf.py`` write; the production mesh
+cells (one rank's step traced in a meta world) and the perf variants'
+per-rank estimates also with their collective term.
 
     PYTHONPATH=src python -m repro_torch.launch.report \\
         [--dryrun build/dryrun] [--perf build/perf]
@@ -86,22 +88,56 @@ def roofline_table(cells):
     return "\n".join(rows)
 
 
+def mesh_table(cells):
+    """The production mesh cells: one rank's memory, the bytes its
+    collectives move and their term of the roofline."""
+    rows = ["| arch | shape | mesh | rank | arguments | temp | total | "
+            "fits 80 GB | collectives moved | collective s | bottleneck |",
+            "|---|---|---|---|---|---|---|---|---|---|---|"]
+    for c in cells:
+        if c.get("chips", 1) == 1 or c.get("status") != "traced":
+            continue
+        mem, r = c["memory"], c["roofline"]
+        rows.append(
+            f"| {c['arch']} | {c['shape']} | {c['mesh']} | {c['rank']} | "
+            f"{fmt_bytes(mem['argument_size_in_bytes'])} | "
+            f"{fmt_bytes(mem['temp_size_in_bytes'])} | "
+            f"{fmt_bytes(mem['total_bytes'])} | {_fits(mem)} | "
+            f"{fmt_bytes(c['collectives']['moved_bytes'])} | "
+            f"{r['collective_s']:.4f} | **{r['bottleneck']}** |")
+    return "\n".join(rows)
+
+
+def _per_rank(r):
+    """A perf variant's per-rank mesh estimate, if it has one."""
+    if "mesh_estimate" in r:
+        return r["mesh_estimate"]
+    return r.get("estimate") if "mesh" in r else None
+
+
 def perf_table(runs):
     rows = ["| target | variant | status | estimate | measured peak | "
-            "peak / estimate | measured s | bound s | bound share |",
-            "|---|---|---|---|---|---|---|---|---|"]
+            "peak / estimate | measured s | bound s | bound share | "
+            "16x16 rank total | rank collective s |",
+            "|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in runs:
         est = r.get("estimate", {}).get("memory", {}).get("total_bytes")
         peak, s, bound = (r.get("peak_bytes"), r.get("measured_s"),
                           r.get("bound_s"))
         ratio = f"{peak / est:.3f}" if peak and est else "-"
         share = f"{bound / s:.3f}" if bound and s else "-"
+        mesh = _per_rank(r)
+        rank = ((fmt_bytes(mesh["memory"]["total_bytes"]),
+                 f"{mesh['roofline']['collective_s']:.4f}")
+                if mesh else ("-", "-"))
+        if "mesh" in r:                # the estimate is the rank's
+            est = None
         rows.append(
             f"| {r['target']} | {r['variant']} | {r['status']} | "
             f"{fmt_bytes(est)} | {fmt_bytes(peak)} | {ratio} | "
             + (f"{s:.4f}" if s is not None else "-") + " | "
             + (f"{bound:.4f}" if bound is not None else "-")
-            + f" | {share} |")
+            + f" | {share} | {rank[0]} | {rank[1]} |")
     return "\n".join(rows)
 
 
@@ -122,6 +158,9 @@ def main(argv=None):
     print(dryrun_table(cells))
     print("\n## Roofline terms\n")
     print(roofline_table(cells))
+    if any(c.get("chips", 1) > 1 for c in cells):
+        print("\n## Production mesh cells, per rank\n")
+        print(mesh_table(cells))
     print("\n## Perf variants\n")
     print(perf_table(load_cells(args.perf)))
     print("\nsummary:", summarize(cells))

@@ -19,6 +19,7 @@ collectives (``COLLECTIVE_BYTES``), not to HLO text.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 import weakref
 
@@ -356,7 +357,9 @@ class _CountMode(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         scope = traffic.current_scope()
-        if scope is traffic.RECKONING:
+        if scope is traffic.RECKONING or func.namespace == "c10d":
+            # a process group's own ops (a collective's send and receive)
+            # belong to the collective term, from dist_sort's record
             return out
         c = self.c
         c.ops += 1
@@ -402,13 +405,27 @@ def count(fn, *args, **kwargs):
       kernel wrapper reports (``kernels/traffic.py``), whose own aten ops
       are kept apart in ``in_scope_bytes``;
     * the high-water mark of live storage created inside ``fn``, per
-      storage (views of it count once), freed when its last tensor dies.
+      storage (views of it count once), freed when its last tensor dies;
+      the cyclic garbage collector is off for the run, so that a storage
+      is freed where its last reference goes, not wherever a collection
+      happens to fall (two runs of one step, or one step on two ranks,
+      give one peak).
+
+    A process group's ops (``c10d``: the transfers of a collective) are
+    left out: what a collective moves is the collective term's
+    (``collective_bytes`` of ``dist_records``).
 
     On ``meta`` tensors nothing is allocated and nothing computed."""
     c = Counts()
     t0 = time.perf_counter()
     mode = _CountMode(c)
-    with traffic.recording(mode), mode:
-        out = fn(*args, **kwargs)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with traffic.recording(mode), mode:
+            out = fn(*args, **kwargs)
+    finally:
+        if collecting:
+            gc.enable()
     c.seconds = time.perf_counter() - t0
     return out, c

@@ -75,10 +75,12 @@ def _batch_axes_for(B: int, ctx: MeshContext):
 
 
 def batch_specs(cfg: ArchConfig, shape: str, ctx: MeshContext, *,
-                global_batch: int | None = None) -> Abstract:
-    """The batch of a cell (``global_batch`` overrides the shape's)."""
+                global_batch: int | None = None,
+                seq_len: int | None = None) -> Abstract:
+    """The batch of a cell (``global_batch`` / ``seq_len`` override the
+    shape's)."""
     info = SHAPES[shape]
-    B, S = global_batch or info["global_batch"], info["seq_len"]
+    B, S = global_batch or info["global_batch"], seq_len or info["seq_len"]
     bdp = _batch_axes_for(B, ctx)
     tree, specs = {}, {}
     if info["kind"] in ("train", "prefill"):
@@ -137,11 +139,12 @@ def _map_with_path(fn, tree, path=()):
 
 
 def cache_specs(cfg: ArchConfig, shape: str, ctx: MeshContext,
-                dtype=None, *, global_batch: int | None = None) -> Abstract:
-    """The decode cache of a cell (``global_batch`` overrides the
-    shape's), from ``init_cache`` on ``meta``."""
+                dtype=None, *, global_batch: int | None = None,
+                seq_len: int | None = None) -> Abstract:
+    """The decode cache of a cell (``global_batch`` / ``seq_len``
+    override the shape's), from ``init_cache`` on ``meta``."""
     info = SHAPES[shape]
-    B, S = global_batch or info["global_batch"], info["seq_len"]
+    B, S = global_batch or info["global_batch"], seq_len or info["seq_len"]
     cache = tf.init_cache(cfg, B, S, dtype or torch.bfloat16, device="meta")
     specs = _map_with_path(
         lambda path, t: _cache_spec_for_path(path, t.shape, cfg, ctx, B),
@@ -167,6 +170,21 @@ def opt_state_abstract(params: Abstract, ctx: MeshContext) -> Abstract:
             "count": _meta((), torch.int32)}
     specs = {"m": params.specs, "v": params.specs, "count": ()}
     return _abstract(tree, specs, ctx)
+
+
+def local_nbytes(abstract: Abstract) -> int:
+    """Bytes of one rank's blocks of every leaf of ``abstract`` (each
+    leaf's per-device shape on the context's mesh)."""
+    from ..models.common import tree_leaves
+
+    total = 0
+    for t, shape in zip(tree_leaves(abstract.tree),
+                        tree_leaves(abstract.local)):
+        n = t.element_size()
+        for size in shape:
+            n *= size
+        total += n
+    return total
 
 
 def tree_nbytes(tree) -> int:

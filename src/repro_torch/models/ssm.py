@@ -178,12 +178,13 @@ class _Mamba2Local:
         whole = gathered({k: p[k] for k in packed}, ctx,
                          lambda: {k: specs[k] for k in packed}, keep=())
         c0 = self.h0 * hd
-        own = torch.arange(c0, c0 + self.di)
-        bc = torch.arange(di, di + 2 * gn)
-        heads = torch.arange(self.h0, self.h0 + self.nh)
+        dev = p["in_proj"].device            # the indices where they index
+        own = torch.arange(c0, c0 + self.di, device=dev)
+        bc = torch.arange(di, di + 2 * gn, device=dev)
+        heads = torch.arange(self.h0, self.h0 + self.nh, device=dev)
         cols = torch.cat([own, di + own, di + bc, 2 * di + 2 * gn + heads])
-        conv = torch.cat([own, bc]).to(p["conv_b"].device)
-        w["in_proj"] = whole["in_proj"][:, cols.to(p["in_proj"].device)]
+        conv = torch.cat([own, bc])
+        w["in_proj"] = whole["in_proj"][:, cols]
         w["conv_w"] = whole["conv_w"][:, conv]
         w["conv_b"] = whole["conv_b"][conv]
         self.p = w

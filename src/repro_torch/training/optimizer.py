@@ -62,7 +62,9 @@ def global_norm(tree, ctx=None, specs=None) -> torch.Tensor:
     tree) the leaves are this rank's blocks of the global ones: each rank
     sums a block only at coordinate 0 of every axis the leaf is
     replicated over, so each global element counts once, and one psum
-    over the world adds the ranks' sums."""
+    over the world adds the ranks' sums.  Every rank runs the same ops (a
+    sum it does not count is clamped to 0, exactly), so each rank's step
+    costs what rank 0's does."""
     if ctx is None or ctx.world is None:
         return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                               for x in tree_leaves(tree)))
@@ -71,8 +73,9 @@ def global_norm(tree, ctx=None, specs=None) -> torch.Tensor:
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for x, spec in zip(leaves, tree_leaves(specs)):
-        if all(ctx.coordinate((a,)) == 0 for a in ctx.replicated(spec)):
-            total = total + torch.sum(torch.square(x.float()))
+        counts = all(ctx.coordinate((a,)) == 0 for a in ctx.replicated(spec))
+        total = total + torch.clamp(torch.sum(torch.square(x.float())),
+                                    max=math.inf if counts else 0.0)
     return torch.sqrt(psum(total, ctx, tuple(ctx.mesh), "norm"))
 
 

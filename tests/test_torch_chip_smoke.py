@@ -851,3 +851,101 @@ def test_phase_lm_train_runs_on_the_cpu():
     assert full["checkpoint_bytes"] > 0
     assert set(launches.values()) <= {0}
 
+
+
+# --------------------------------------------------------------------------
+# phase 13's production mesh cells and the world peaks it holds
+# --------------------------------------------------------------------------
+
+def _mesh_cell(**kw):
+    rec = {"counts": {"flops": 10, "bytes": 20}, "split_axes": ["model"],
+           "collectives": {"moved_bytes": 30}}
+    rec.update(kw)
+    return rec
+
+
+def test_check_mesh_cell_refuses_broken_readings():
+    """A traced mesh cell that counts no work, or whose collectives move
+    nothing where its rules split a weight over an axis, fails; a cell
+    whose rules split nothing may move nothing."""
+    chip_smoke.check_mesh_cell(_mesh_cell(), "ok")
+    chip_smoke.check_mesh_cell(
+        _mesh_cell(split_axes=[], collectives={"moved_bytes": 0}), "unsplit")
+    with pytest.raises(AssertionError, match="move 0 bytes"):
+        chip_smoke.check_mesh_cell(
+            _mesh_cell(collectives={"moved_bytes": 0}), "silent")
+    with pytest.raises(AssertionError, match="no FLOPs or bytes"):
+        chip_smoke.check_mesh_cell(
+            _mesh_cell(counts={"flops": 0, "bytes": 20}), "idle")
+
+
+def test_mesh_cells_all_80_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 13's mesh checks over every cell (``dryrun.main --multi-pod
+    both``, the separate command) at reduced configs and shorter
+    sequences: 32 traced and 8 skipped per mesh, the bwt_index cells
+    skipped for their reason, each traced cell moving collective bytes; a
+    cell whose step gathers nothing where its rules split a weight, or
+    traced where the reference skips it, is refused."""
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import SHAPES
+
+    for name, seq in (("train_4k", 64), ("prefill_32k", 256),
+                      ("decode_32k", 128), ("long_500k", 256)):
+        monkeypatch.setitem(SHAPES, name, dict(SHAPES[name], seq_len=seq))
+    recs = dryrun.main(["--out", str(tmp_path), "--multi-pod", "both"],
+                       config_of=get_reduced_config)
+    lm = [r for r in recs if r["arch"] != "bwt_index"]
+    out = chip_smoke.check_mesh_cells(lm, get_reduced_config)
+    assert len(out) == chip_smoke.LAUNCH_MESH_CELLS
+    traced = [v for v in out.values() if v["status"] == "traced"]
+    assert len(traced) == 64
+    assert all(v["collective_bytes"] > 0 and v["flops"] > 0 for v in traced)
+    assert {v["chips"] for v in traced} == {256, 512}
+    assert len(list(tmp_path.glob("*__16x16.json"))) == 42
+    assert [(r["status"], r["reason"]) for r in recs
+            if r["arch"] == "bwt_index"] == [
+        ("skipped", dryrun.INDEX_MESH_REASON)] * 4
+    # a world step whose collectives moved nothing is not the sharded
+    # step; a cell traced where the reference skips it is refused
+    rec = dryrun.run_cell("qwen2p5_3b", "decode_32k", mesh="16x16",
+                          config_of=get_reduced_config)
+    chip_smoke.check_mesh_cells([rec], get_reduced_config)
+    rec["collectives"]["moved_bytes"] = 0
+    with pytest.raises(AssertionError, match="move 0 bytes"):
+        chip_smoke.check_mesh_cells([rec], get_reduced_config)
+    with pytest.raises(AssertionError, match="long_500k x 16x16: traced"):
+        chip_smoke.check_mesh_cells([dict(rec, shape="long_500k")],
+                                    get_reduced_config)
+
+
+def test_world_peaks_are_held_to_their_meta_estimates():
+    """Phases 14 (b) and 15 (b) traced for rank 0 in meta worlds (reduced
+    configs): a measured step peak up to 1.10 x the estimate passes, one
+    over it fails."""
+    est = chip_smoke.world_peak_estimates("get_reduced_config")
+    train, serve = est["lm_world_train"], est["lm_world_full"]
+    assert train["mesh"] == chip_smoke.LM_TRAIN_WORLD["mesh"]
+    assert serve["mesh"] == chip_smoke.LM_WORLD_FULL_MESH
+    assert serve["kind"] in ("prefill", "decode")
+    assert serve["total_bytes"] >= serve["other_total_bytes"]
+    for e in (train, serve):
+        assert e["total_bytes"] == e["argument_bytes"] + e["temp_bytes"] > 0
+        assert e["collective_bytes"] > 0
+    gib = 2**30
+
+    def records(t, s):
+        served = {serve["arch"]: {"ranks": [
+            {"step_peak_gib": s * serve["total_bytes"] / gib},
+            {"step_peak_gib": 0.5 * serve["total_bytes"] / gib}]}}
+        trained = {"step_peak_gib_per_rank": [
+            t * train["total_bytes"] / gib, 0.0]}
+        return served, trained
+
+    got = chip_smoke.check_world_peaks(est, *records(1.0, 1.1))
+    assert got["lm_world_full"]["ratio"] == pytest.approx(1.1)
+    assert got["lm_world_train"]["ratio"] == pytest.approx(1.0)
+    assert chip_smoke.check_world_peaks(est, None, None) == {}
+    for t, s, match in ((1.0, 1.11, "phase 14"), (1.2, 1.0, "phase 15")):
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_world_peaks(est, *records(t, s))

@@ -85,7 +85,10 @@ def _reference_variants() -> dict:
     return out
 
 
-def test_perf_variants_are_the_reference_names():
+def test_perf_variants_are_the_reference_names(tmp_path):
+    """The reference's variant names, in its order; the four that change
+    only the sharding rules come back as per-rank 16x16 estimates."""
+    from repro_torch.configs.base import get_reduced_config
     from repro_torch.launch import perf
 
     ref = _reference_variants()
@@ -94,9 +97,10 @@ def test_perf_variants_are_the_reference_names():
         ref["qwen_train"]
     assert list(perf.MUSICGEN_VARIANTS) == ref["musicgen_decode"]
     assert list(perf.BWT_VARIANTS) == ref["bwt_build"]
-    for v in perf.QWEN_MESH_VARIANTS:
-        with pytest.raises(NotImplementedError, match="A16"):
-            perf.qwen_train([v], device="cpu")
+    runs = perf.qwen_train(list(perf.QWEN_MESH_VARIANTS), out_dir=tmp_path,
+                           device="cpu", config_of=get_reduced_config)
+    assert [(r["variant"], r["status"], r["mesh"]) for r in runs] == [
+        (v, "estimated", "16x16") for v in perf.QWEN_MESH_VARIANTS]
 
 
 def test_report_renders_a_dry_run(tmp_path, capsys):
@@ -145,14 +149,29 @@ def short_shapes(monkeypatch):
 def test_phase_launch_runs_on_the_cpu(short_shapes, capsys):
     """Phase 13 on the CPU: every LM cell traced or skipped for the
     reference's reason, both index cells measured with their kernels'
-    reported bytes, perf's measured variants and report's tables."""
+    reported bytes, the subset of production mesh cells traced for one
+    rank in meta worlds, perf's measured variants and its rule-set
+    variants' per-rank estimates, report's tables, and the meta world
+    estimates of phases 14 (b) and 15 (b)."""
     from repro_torch.configs.base import get_reduced_config
     from repro_torch.configs.bwt_index import reduced
 
-    rec, launches = _chip_smoke().phase_launch(
+    cs = _chip_smoke()
+    rec, launches = cs.phase_launch(
         device="cpu", config_of=get_reduced_config, icfg=reduced(), jobs=1,
-        max_decode_batch=2)
+        max_decode_batch=2, world_config="get_reduced_config")
     assert rec["lm_traced"] == 32
+    mesh = rec["mesh_cells"]
+    assert sorted(mesh) == sorted("__".join(c)
+                                  for c in cs.LAUNCH_MESH_SUBSET)
+    assert all(v["status"] == "traced" and v["collective_bytes"] > 0
+               for v in mesh.values())
+    assert {k: v["chips"] for k, v in mesh.items()
+            if k.startswith("qwen2p5_3b")} == {
+        "qwen2p5_3b__train_4k__16x16": 256,
+        "qwen2p5_3b__train_4k__2x16x16": 512}
+    assert set(rec["world_peak_estimates"]) == {"lm_world_train",
+                                                "lm_world_full"}
     assert sum(c["status"] == "skipped" for c in rec["lm_cells"].values()) \
         == 8
     assert rec["dryrun_index_build"]["kernel_bytes"]["char_histogram"] > 0
@@ -166,6 +185,10 @@ def test_phase_launch_runs_on_the_cpu(short_shapes, capsys):
         "bwt_build/baseline", "bwt_build/rounds10",
         "bwt_build/rounds10_cap125", "bwt_build/bitonic"}
     assert perf["qwen_train/micro1"]["status"] == "estimated"
+    for v in ("fsdp_v2", "fsdp_v2_dots", "fsdp_v3", "fsdp_v3_dots"):
+        assert perf[f"qwen_train/{v}"]["status"] == "estimated"
+        assert perf[f"qwen_train/{v}"]["mesh"]["collective_bytes"] > 0
+    assert "mesh" in perf["qwen_train/baseline"]
     assert all(perf[f"bwt_build/{v}"]["sa_equals_baseline"]
                for v in ("rounds10", "bitonic"))
     assert set(launches) == {"dryrun_index_build", "dryrun_index_serve",
@@ -173,6 +196,8 @@ def test_phase_launch_runs_on_the_cpu(short_shapes, capsys):
     assert all(sum(v.values()) == 0 for v in launches.values())   # CPU
     out = capsys.readouterr().out
     assert "## Perf variants" in out and "| qwen_train | baseline |" in out
+    assert "## Production mesh cells, per rank" in out
+    assert "| qwen2p5_3b | train_4k | 2x16x16 | 0 |" in out
 
 
 def test_check_launch_cell_refuses_broken_readings():

@@ -10,9 +10,11 @@ four shapes x the two production meshes and the one-device mesh, every
 leaf of the batch, the cache, the params and the AdamW state (shape,
 dtype, partition spec, ``NamedSharding.shard_shape``), the skip reasons,
 ``_micro_batches`` at 1, 256 and 512 chips, ``dryrun --list`` for one pod,
-and the JAX mesh build of a repetitive text over two devices at capped
-and default rounds.  The port's side is computed here and compared
-exactly.
+one rank's argument bytes of every cell on both production meshes (the
+shard shapes' sum, as the reference's dry run lays the arguments out),
+``dryrun --list`` for one pod and for both, and the JAX mesh build of a
+repetitive text over two devices at capped and default rounds.  The
+port's side is computed here and compared exactly.
 """
 
 import json
@@ -62,6 +64,7 @@ def _jax_reference(out_path: str) -> None:
     import io
 
     import jax
+    import jax.numpy as jnp
     from jax.sharding import NamedSharding
 
     from repro.configs.base import ARCH_IDS, get_config
@@ -69,6 +72,7 @@ def _jax_reference(out_path: str) -> None:
     from repro.core.pipeline import build_index
     from repro.launch import dryrun
     from repro.launch.mesh import make_production_mesh
+    from repro.launch.specs import SHAPES as RSHAPES
     from repro.launch.specs import (
         batch_specs,
         cache_specs,
@@ -117,15 +121,39 @@ def _jax_reference(out_path: str) -> None:
             for chips in CHIPS:
                 ref["micro"][f"{arch}|{shape}|{chips}"] = \
                     dryrun._micro_batches(cfg, shape, chips)
-    buf = io.StringIO()
-    argv = sys.argv
-    sys.argv = ["dryrun", "--list", "--multi-pod", "single"]
-    try:
-        with contextlib.redirect_stdout(buf):
-            dryrun.main()
-    finally:
-        sys.argv = argv
-    ref["list"] = buf.getvalue().splitlines()
+    # one rank's argument bytes of each cell on each production mesh, as
+    # lower_cell lays the arguments out: the sum of every leaf's
+    # NamedSharding.shard_shape x itemsize, by kind
+    ref["rank_bytes"] = {}
+    for arch in archs:
+        cfg = get_config(arch)
+        for mname in ("16x16", "2x16x16"):
+            for shape in SHAPES:
+                kind = RSHAPES[shape]["kind"]
+                ctx = MeshContext(meshes[mname], TRAIN_RULES if kind == "train"
+                                  else DECODE_RULES)
+                params = param_specs_abstract(cfg, ctx, jnp.bfloat16)
+                args = {"params": params,
+                        "batch": batch_specs(cfg, shape, ctx)}
+                if kind == "train":
+                    args["opt_state"] = opt_state_abstract(params)
+                if kind == "decode":
+                    args["cache"] = cache_specs(cfg, shape, ctx)
+                ref["rank_bytes"][f"{arch}|{shape}|{mname}"] = {
+                    k: sum(int(np.prod(leaves(v)[key][3]))
+                           * np.dtype(leaves(v)[key][1]).itemsize
+                           for key in leaves(v))
+                    for k, v in args.items()}
+    for key, pods in (("list", "single"), ("list_both", "both")):
+        buf = io.StringIO()
+        argv = sys.argv
+        sys.argv = ["dryrun", "--list", "--multi-pod", pods]
+        try:
+            with contextlib.redirect_stdout(buf):
+                dryrun.main()
+        finally:
+            sys.argv = argv
+        ref[key] = buf.getvalue().splitlines()
     ref["family"] = get_config("bwt_index").family
     toks = rounds_tokens()
     mesh = jax.make_mesh((2,), ("parts",), devices=jax.devices()[:2])
@@ -265,6 +293,57 @@ def test_dryrun_list_matches_the_reference_on_one_card(reference, capsys):
     assert [c[:2] for c in got] == [c[:2] for c in want]
     assert {c[2] for c in got} == {"h100x1"}
     assert not any(c[2] for c in want)     # the reference's single pod
+
+
+def test_rank_argument_bytes_equal_the_reference_on_both_meshes(
+        reference, tmp_path):
+    """One rank's argument bytes of every cell (all 40, skipped or not)
+    on the 16x16 and 2x16x16 meshes equal the reference's sum of
+    ``NamedSharding.shard_shape`` x itemsize; ``dryrun --no-compile
+    --multi-pod both`` writes them for the 32 cells of each mesh it would
+    trace, the reference's skip reason for the 8 others, and the
+    bwt_index cells as skipped."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import local_nbytes
+
+    for arch in _archs():
+        cfg = get_config(arch)
+        for mesh in ("16x16", "2x16x16"):
+            for shape in SHAPES:
+                _, _, args = dryrun.cell_inputs(cfg, shape, mesh=mesh)
+                got = {k: local_nbytes(v) for k, v in args.items()}
+                assert got == reference["rank_bytes"][
+                    f"{arch}|{shape}|{mesh}"], (arch, shape, mesh)
+    recs = dryrun.main(["--no-compile", "--multi-pod", "both", "--out",
+                        str(tmp_path)])
+    lm = [r for r in recs if r["arch"] != "bwt_index"]
+    assert len(lm) == 80
+    for r in lm:
+        key = f"{r['arch']}|{r['shape']}"
+        assert r["chips"] == {"16x16": 256, "2x16x16": 512}[r["mesh"]]
+        if reference["skip"][key]:
+            assert (r["status"], r["reason"]) == ("skipped",
+                                                  reference["skip"][key])
+        else:
+            assert r["status"] == "specs"
+            assert r["argument_bytes"] == reference["rank_bytes"][
+                f"{key}|{r['mesh']}"]
+    index = [r for r in recs if r["arch"] == "bwt_index"]
+    assert [(r["shape"], r["mesh"], r["status"]) for r in index] == [
+        (s, m, "skipped") for s in ("build", "serve")
+        for m in ("16x16", "2x16x16")]
+    assert all(r["reason"] == dryrun.INDEX_MESH_REASON for r in index)
+
+
+def test_dryrun_list_on_both_meshes_matches_the_reference(reference,
+                                                          capsys):
+    """``--list --multi-pod both`` prints the reference's (arch, shape,
+    multi_pod) cells, in its order."""
+    from repro_torch.launch import dryrun
+
+    dryrun.main(["--list", "--multi-pod", "both"])
+    assert capsys.readouterr().out.splitlines() == reference["list_both"]
 
 
 def test_bwt_index_config_family_and_rounds(reference):
