@@ -4211,9 +4211,11 @@ def mesh_path(toks, pats, mesh, engine: str, cf: float, device) -> dict:
     from repro_torch.core.pipeline import build_index
 
     cuda = torch.device(device).type == "cuda"
+    base = 0
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     _counts_reset()
     t0 = time.perf_counter()
     index = build_index(toks, mesh, sample_rate=64, sa_sample_rate=32,
@@ -4224,7 +4226,10 @@ def mesh_path(toks, pats, mesh, engine: str, cf: float, device) -> dict:
     rec = {"engine": engine, "capacity_factor": cf, "n": len(toks),
            "build_s": time.perf_counter() - t0,
            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
-                            if cuda else None)}
+                            if cuda else None),
+           # what the build added to what the rank held before it
+           "build_peak_bytes": (torch.cuda.max_memory_allocated() - base
+                                if cuda else None)}
     rec["launches_build"], rec["collectives_build"] = _counts()
     launches = dict(rec["launches_build"])
     P = pad_patterns(pats, max(len(p) for p in pats), device)
@@ -4836,6 +4841,8 @@ def dist_worlds(spec: dict, parts, saved: Path, device, rank_fn,
                            if k not in ("sa", "bwt", "counts", "pos", "cnt",
                                         "launches")}
             world[name]["launches_all_ranks"] = total
+            world[name]["build_peak_bytes_per_rank"] = [
+                r[name]["build_peak_bytes"] for r in ranks]
             if i == 0 and name == DIST_SAVED:
                 saved_ref = _host_answers(ref["counts"], ref["pos"],
                                           ref["cnt"])
@@ -5670,6 +5677,7 @@ def phase_train(device="cuda", archs=None, full=True,
 
 LAUNCH_LM_CELLS = 40             # ten configs x four shapes
 LAUNCH_PEAK_SLACK = 1.10         # measured peak over its meta estimate
+LAUNCH_PEAK_FLOOR = 0.90         # the least a world's measured peak may be
 LAUNCH_MESH_CELLS = 80           # the same on the 16x16 and 2x16x16 meshes
 LAUNCH_NICE = 10                 # the priority the early traces run at
 # the production-mesh cells phase 13 traces (the script's time: all 80
@@ -5691,6 +5699,25 @@ LAUNCH_TOO_BIG = ("llama4_maverick_400b_a17b", "decode_32k", "16x16")
 LAUNCH_NEEDED = {"dryrun_index_build": ("radix_hist", "radix_pos",
                                         "char_histogram"),
                  "dryrun_index_serve": ("rank_select",)}
+# the bwt_index cells on the production meshes (rank 0 of the flat index
+# mesh over their 256 / 512 chips, traced on meta), in the reference's
+# order, and the kernels whose bytes each must count
+INDEX_MESH_CELLS = tuple(("bwt_index", shape, mesh)
+                         for shape in ("build", "serve")
+                         for mesh in ("16x16", "2x16x16"))
+INDEX_MESH_NEEDED = {"build": ("radix_hist", "radix_pos"),
+                     "serve": ("rank_select",)}
+# the build peaks the meta ISA estimates are held to on the card: (a)
+# phase 13's one-rank english build (the config's n), (b) each rank of
+# phase 10 (b)'s world of 4 building proteins at 2^22 by samplesort (a
+# rank's part is 2^20 tokens, as on the 16x16 mesh)
+INDEX_PEAK_WORLD = ("proteins_samplesort", 4)
+# the doubling rounds an ISA estimate traces: every round after the q-gram
+# init is one program over arrays of the same shapes, so the init and two
+# rounds reach the peak of the whole budget (equal to the byte at n = 2^28
+# and at the world's 2^22; tests/test_torch_chip_smoke.py holds it at a
+# small n) in a tenth of its trace
+INDEX_PEAK_ROUNDS = 2
 
 
 def check_launch_cell(rec: dict, what: str) -> None:
@@ -5724,14 +5751,125 @@ def check_mesh_cell(rec: dict, what: str) -> None:
 
 def check_world_peak(peak_bytes: float, est: dict, what: str) -> dict:
     """A rank's measured peak of a world step against that step's meta
-    world estimate (``LAUNCH_PEAK_SLACK``, as ``check_launch_cell``)."""
+    world estimate: at most ``LAUNCH_PEAK_SLACK`` times it (as
+    ``check_launch_cell``: a term the count misses), and at least
+    ``LAUNCH_PEAK_FLOOR`` times it (a stale or inflated estimate)."""
     total = est["total_bytes"]
     require(peak_bytes <= LAUNCH_PEAK_SLACK * total,
             f"{what}: measured peak {peak_bytes} B a rank exceeds its meta "
             f"world estimate {total} B by more than "
             f"{LAUNCH_PEAK_SLACK - 1:.0%}")
+    require(peak_bytes >= LAUNCH_PEAK_FLOOR * total,
+            f"{what}: measured peak {peak_bytes} B a rank is under "
+            f"{LAUNCH_PEAK_FLOOR:.0%} of its meta world estimate {total} B")
     return {"measured_bytes": peak_bytes, "estimate_bytes": total,
             "ratio": peak_bytes / total}
+
+
+def check_index_mesh_cells(recs: list) -> dict:
+    """The bwt_index cells on the production meshes: each traced, its
+    counts holding the bytes of its kernels (``INDEX_MESH_NEEDED``: the
+    radix pair in every build round, ``rank_select`` in every search
+    step), its collectives moving bytes and its total fitting one card.
+    Returns each cell's summary."""
+    out = {}
+    for c in recs:
+        key = f"{c['arch']}__{c['shape']}__{c['mesh']}"
+        what = f"phase 13: index mesh cell {key}"
+        require(c["status"] == "traced",
+                f"{what}: {c['status']}" + (f"\n{c['error']}"
+                                            if "error" in c else ""))
+        kb = c["counts"]["kernel_bytes"]
+        for name in INDEX_MESH_NEEDED[c["shape"]]:
+            require(kb.get(name, 0) > 0,
+                    f"{what}: no {name} bytes counted")
+        require(c["collectives"]["moved_bytes"] > 0,
+                f"{what}: its collectives move 0 bytes")
+        require(c["memory"]["fits"], f"{what}: does not fit one card")
+        mem, r = c["memory"], c["roofline"]
+        out[key] = {"chips": c["chips"], "part_size": c["part_size"],
+                    "argument_bytes": c["argument_bytes"],
+                    "held_argument_bytes": c["held_argument_bytes"],
+                    "temp_bytes": mem["temp_size_in_bytes"],
+                    "total_bytes": mem["total_bytes"],
+                    "kernel_bytes": kb, "bytes": c["counts"]["bytes"],
+                    "collectives": c["collectives"]["calls"],
+                    "collective_bytes": c["collectives"]["moved_bytes"],
+                    "memory_s": r["memory_s"],
+                    "collective_s": r["collective_s"],
+                    "bottleneck": r["bottleneck"], "trace_s": c["trace_s"],
+                    **{k: c[k] for k in ("rounds_traced", "bucket_capacity",
+                                         "local_sort") if k in c}}
+    return out
+
+
+def isa_estimate(parts: int, icfg=None, kind: str | None = None,
+                 log2n: int | None = None) -> dict:
+    """The ISA build of ``parts`` ranks traced for rank 0 in a meta world
+    (``dryrun.trace_index_mesh_cell``, ``INDEX_PEAK_ROUNDS`` rounds): the
+    estimate a rank's measured build peak is held to.  ``icfg`` (default
+    the bwt_index config) gives the engine, its knobs, n and sigma; with
+    ``kind`` the text is instead that corpus at 2^``log2n`` tokens
+    prepared as ``build_index`` prepares it for ``parts`` ranks (its
+    length and alphabet)."""
+    from repro_torch.configs.bwt_index import CONFIG
+    from repro_torch.core.pipeline import prepare_tokens
+    from repro_torch.data.corpus import corpus
+    from repro_torch.launch import dryrun
+
+    icfg = icfg or CONFIG
+    if kind is not None:
+        s, sigma = prepare_tokens(corpus(kind, 1 << log2n), parts * 64)
+        icfg = icfg.replace(n=len(s), sigma=sigma)
+    est = dryrun.trace_index_mesh_cell(
+        "build", parts, icfg.replace(rounds=INDEX_PEAK_ROUNDS))
+    return dict(_mesh_summary(est), kind=kind or "english", n=icfg.n,
+                sigma=icfg.sigma, parts=parts,
+                rounds_traced=est["rounds_traced"])
+
+
+def check_index_peaks(est: dict, one_rank=None, world=None) -> dict:
+    """Phase 13's one-rank english build peak (a) and phase 10 (b)'s
+    build peaks a rank in its world of 4 (b), each against its meta ISA
+    estimate (``check_world_peak``: between ``LAUNCH_PEAK_FLOOR`` and
+    ``LAUNCH_PEAK_SLACK`` times it; the ISA stage holds the build's peak,
+    the BWT and its samples after it hold less); a reading that is None
+    (the CPU) is not held."""
+    out = {}
+    if one_rank is not None:
+        out["isa_one_rank"] = check_world_peak(
+            one_rank, est["isa_one_rank"],
+            "phase 13 (a) one-rank build peak")
+    if world is not None:
+        out["isa_world"] = check_world_peak(
+            max(world), est["isa_world"],
+            f"phase 13 (b) build peak a rank of phase 10's "
+            f"{INDEX_PEAK_WORLD[0]} world of {INDEX_PEAK_WORLD[1]}")
+        out["isa_world"]["measured_bytes_per_rank"] = list(world)
+    return out
+
+
+def sort_workspace(n: int = 1 << 28) -> dict:
+    """The device memory a stable ``torch.sort`` of ``n`` int32 keys holds
+    on the card beyond its outputs (values and int64 indices), beside
+    what ``roofline.workspace_bytes`` charges a count on ``meta`` for it
+    (the samplesort scatter sorts its slots so)."""
+    import torch
+
+    from repro_torch.launch.roofline import workspace_bytes
+
+    keys = torch.randint(0, 1 << 20, (n,), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vals, idx = torch.sort(keys, stable=True)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - vals.nbytes - idx.nbytes
+    charged = workspace_bytes(torch.ops.aten.sort.stable, (keys,), {})
+    del keys, vals, idx
+    torch.cuda.empty_cache()
+    return {"n": n, "bytes": extra, "bytes_per_key": extra / n,
+            "charged_bytes_per_key": charged / n}
 
 
 def _mesh_summary(est: dict) -> dict:
@@ -5841,15 +5979,21 @@ def check_mesh_cells(lm: list, config_of) -> dict:
 
 
 def launch_prework(jobs: int, config_of=None,
-                   mesh_cells=LAUNCH_MESH_SUBSET) -> tuple:
+                   mesh_cells=LAUNCH_MESH_SUBSET, icfg=None, mesh_icfg=None,
+                   world_log2n: int = 22) -> tuple:
     """Phase 13's traces on ``meta``, started at once in ``jobs`` spawned
     processes at a lower priority (nice ``LAUNCH_NICE``), so that ``main``
     can start them while phase 12 keeps the card busy and its main
     thread holds a core: the 40 one-card LM cells, the production-mesh
-    ``mesh_cells`` (each rank 0 in a meta world of its own) and perf's
+    ``mesh_cells`` (each rank 0 in a meta world of its own), the four
+    bwt_index cells on the production meshes (``INDEX_MESH_CELLS``, of
+    ``mesh_icfg``, default ``icfg``), the ISA estimates (``isa_estimate``)
+    of phase 13's one-rank build (of ``icfg``) and of phase 10 (b)'s
+    world (``INDEX_PEAK_WORLD`` at 2^``world_log2n``), and perf's
     per-rank 16x16 estimates.  With ``jobs`` 1 nothing starts and each
     traces in this process when asked.  Returns (the executor or None,
-    {"lm": [call giving a cell's record], "mesh": [...], "perf": {target:
+    {"lm": [call giving a cell's record], "mesh": [...], "index_mesh":
+    [...], "index_peaks": {name: call}, "perf": {target:
     ``perf.mesh_estimates``}})."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import dryrun, perf
@@ -5861,13 +6005,23 @@ def launch_prework(jobs: int, config_of=None,
             jobs, mp_context=multiprocessing.get_context("spawn"),
             initializer=os.nice, initargs=(LAUNCH_NICE,))
 
-    def traced(cell):
+    def called(fn, *args):
         if pool is None:
-            return functools.partial(dryrun.cell_record, cell, True,
-                                     config_of)
-        return pool.submit(dryrun.cell_record, cell, True, config_of).result
+            return functools.partial(fn, *args)
+        return pool.submit(fn, *args).result
 
+    def traced(cell):
+        return called(dryrun.cell_record, cell, True, config_of,
+                      mesh_icfg or icfg)
+
+    kind, parts = INDEX_PEAK_WORLD
+    # the longest traces first: the pool takes them in order
+    index = {"isa_one_rank": called(isa_estimate, 1, icfg),
+             "isa_world": called(isa_estimate, parts, None,
+                                 kind.split("_")[0], world_log2n)}
     return pool, {
+        "index_mesh": [traced(c) for c in INDEX_MESH_CELLS],
+        "index_peaks": index,
         "lm": [traced(c) for c in dryrun.cells_of() if c[0] != "bwt_index"],
         "mesh": [traced(c) for c in mesh_cells],
         "perf": {t: perf.mesh_estimates(t, config_of=config_of, pool=pool)
@@ -5877,13 +6031,19 @@ def launch_prework(jobs: int, config_of=None,
 def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
                  max_decode_batch=None, workdir=None,
                  mesh_cells=LAUNCH_MESH_SUBSET,
-                 world_config: str = "get_config", prework=None) -> tuple:
+                 world_config: str = "get_config", prework=None,
+                 mesh_icfg=None, world_peaks=None,
+                 world_log2n: int = 22) -> tuple:
     """Phase 13: (a) the dry run of every cell (the LM cells traced on
     meta, long_500k skipped where the reference skips it, the production
-    mesh cells ``mesh_cells`` for rank 0 in meta worlds: ``prework`` of
-    ``launch_prework``, or started here with ``jobs`` processes; the two
-    bwt_index cells built and served in a one-rank world through
-    ``dryrun.main``), (b) ``perf``'s three targets (qwen_train's four
+    mesh cells ``mesh_cells`` and the four bwt_index cells on the
+    production meshes (of ``mesh_icfg``, default ``icfg``) for rank 0 in
+    meta worlds: ``prework`` of ``launch_prework``, or started here with
+    ``jobs`` processes; the two bwt_index cells built and served in a
+    one-rank world through ``dryrun.main``), the build peaks held to their
+    meta ISA estimates (``check_index_peaks``: the one-rank build's, and
+    ``world_peaks``, each rank's of phase 10 (b)'s ``INDEX_PEAK_WORLD`` at
+    2^``world_log2n``), (b) ``perf``'s three targets (qwen_train's four
     rule-set variants estimated per rank on 16x16, every LM variant with
     its per-rank estimate from the prework), then ``report.main``'s
     tables, and the meta world estimates of phases 14 (b) and 15 (b)
@@ -5906,7 +6066,8 @@ def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
     rec, launches = {}, {}
     if cuda:    # what earlier phases still hold: perf's budget is the rest
         rec["allocated_at_start"] = torch.cuda.memory_allocated()
-    pool, work = prework or launch_prework(jobs, config_of, mesh_cells)
+    pool, work = prework or launch_prework(jobs, config_of, mesh_cells,
+                                           icfg, mesh_icfg, world_log2n)
     with contextlib.ExitStack() as stack:
         if pool is not None:
             stack.callback(pool.shutdown, cancel_futures=True)
@@ -5978,6 +6139,16 @@ def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
         for c in mesh:
             dryrun.save_result(c, dr_dir)
         rec["mesh_cells"] = check_mesh_cells(mesh, config_of)
+        index_mesh = [get() for get in work["index_mesh"]]
+        for c in index_mesh:
+            dryrun.save_result(c, dr_dir)
+        rec["index_mesh_cells"] = check_index_mesh_cells(index_mesh)
+        est = {k: get() for k, get in work["index_peaks"].items()}
+        rec["index_peak_estimates"] = est
+        rec["index_peaks"] = check_index_peaks(
+            est, rec["dryrun_index_build"]["peak_bytes"], world_peaks)
+        if cuda:
+            rec["index_peaks"]["sort_workspace"] = sort_workspace()
         # every estimate is done before perf times anything on the card
         for get in (g for e in work["perf"].values() for g in e.values()):
             get()
@@ -7055,13 +7226,15 @@ def main(argv=None) -> int:
                     f"phase 9: kernel {name} never launched on {path}")
         emit({"phase": 9, **rec})
 
+    world_peaks = None    # phase 10 (b)'s build peaks a rank, for phase 13
+    world_log2n = min(22, args.proteins_log2n)   # phase 10 (b)'s proteins
     if 10 in phases:
         try:
             rec, launches, dist_rows = phase_dist(
                 dna_toks, refs, dna_log2n=args.dna_log2n,
                 proteins_log2n=args.proteins_log2n,
                 small_dna_log2n=min(24, args.dna_log2n),
-                small_proteins_log2n=min(22, args.proteins_log2n),
+                small_proteins_log2n=world_log2n,
                 fm_ckpt=fm_ckpt, chase=chase, warp=warp, stamps=stamps)
         finally:
             if fm_ckpt is not None:
@@ -7069,6 +7242,9 @@ def main(argv=None) -> int:
         for name, row in dist_rows.items():
             if name in rows:
                 rows[name]["dist"] = row
+        name, parts = INDEX_PEAK_WORLD
+        if f"p{parts}" in rec and name in rec[f"p{parts}"]:
+            world_peaks = rec[f"p{parts}"][name]["build_peak_bytes_per_rank"]
         for path, counts in launches.items():
             path_launches[path] = counts
             for name, v in counts.items():
@@ -7081,7 +7257,8 @@ def main(argv=None) -> int:
 
     # phase 13's traces on meta (CPU only) run beside phase 12, which
     # keeps the card busy; at a lower priority than its main thread
-    prework = (launch_prework(min(8, os.cpu_count() or 1))
+    prework = (launch_prework(min(8, os.cpu_count() or 1),
+                              world_log2n=world_log2n)
                if {12, 13} <= phases else None)
     if 12 in phases:
         rec, launches = phase_train()
@@ -7096,7 +7273,8 @@ def main(argv=None) -> int:
 
     world_est = None    # phase 13's estimates of phases 14 (b), 15 (b)
     if 13 in phases:
-        rec, launches = phase_launch(prework=prework)
+        rec, launches = phase_launch(prework=prework, world_peaks=world_peaks,
+                                     world_log2n=world_log2n)
         world_est = rec["world_peak_estimates"]
         for path, counts in launches.items():
             path_launches[path] = counts

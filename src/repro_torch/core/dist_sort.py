@@ -21,7 +21,8 @@ output bytes summed per kind in ``COLLECTIVE_BYTES`` (what
   returns what the real one returns in shape and dtype (``gather`` its
   ``(P, ...)`` on rank 0, None elsewhere) and is recorded as a real
   call is; a tensor with storage raises, so no value is ever computed
-  through collectives that move nothing.
+  through collectives that move nothing, and a ``meta`` tensor raises in
+  any other group.
 
 ``transport`` says which.  A failing collective raises; nothing falls back
 to another route.
@@ -177,6 +178,10 @@ def _wire(info: ShardInfo, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"a meta world's collectives take meta tensors only, got one on "
             f"{x.device}: no data moves there, so no real value may pass")
+    if backend != META_BACKEND and x.device.type == "meta":
+        raise ValueError(
+            f"a meta tensor reached a {backend} group's collective: it "
+            f"holds no values, so only a meta world takes it")
     x = x.contiguous()
     if x.dtype == torch.bool:
         x = x.to(torch.int32)

@@ -19,7 +19,8 @@ functions on its shard of the text, and the collectives of
                becomes a pad, and samplesort's all_to_all skips pad slots
     Scatter    new ranks + active flags back to index order
     Iterate    h <- q, 2q, 4q, ...; a round runs while any suffix is
-               active anywhere (one host read of the psum'd flag a round)
+               active anywhere (one host read of the psum'd flag a round;
+               a rank traced on ``meta`` runs every round of the budget)
 
 ``build_isa_sharded`` / ``build_bwt_sharded`` are the entry points; they
 take the whole prepared text on every rank and return this rank's shards.
@@ -132,9 +133,11 @@ def dist_rerank(info: ShardInfo, cols, n_valid, *, grouped: bool = False,
     pos = torch.arange(slots, dtype=torch.int32, device=dev)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=dev)
     valid = pos < n_valid
-    last = torch.clamp(n_valid - 1, min=0).long()
+    # 1-D indices throughout: a 0-dim index is read on the host, which a
+    # meta rank cannot do
+    last = torch.clamp(n_valid - 1, min=0).long().reshape(1)
     halo = torch.cat([n_valid.reshape(1)]
-                     + [c[last].reshape(1).to(torch.int32) for c in cols]
+                     + [c[last].to(torch.int32) for c in cols]
                      + [c[:1].to(torch.int32) for c in cols])
     g = all_gather(info, halo)                         # (P, 1 + 2K)
     g_valid, g_last, g_first = g[:, 0], g[:, 1: 1 + K], g[:, 1 + K:]
@@ -144,7 +147,8 @@ def dist_rerank(info: ShardInfo, cols, n_valid, *, grouped: bool = False,
     jidx = torch.arange(info.parts, device=dev)
     prev_mask = (jidx < me) & g_has
     prev_exists = prev_mask.any()
-    prev_k = g_last[torch.argmax(torch.where(prev_mask, jidx, -1))]
+    prev_k = g_last[torch.argmax(torch.where(prev_mask, jidx, -1))
+                    .reshape(1)][0]
 
     neq0 = None
     neq_pair = torch.zeros(slots, dtype=torch.bool, device=dev)
@@ -173,7 +177,8 @@ def dist_rerank(info: ShardInfo, cols, n_valid, *, grouped: bool = False,
         return ranks, None
 
     next_mask = (jidx > me) & g_has
-    next_k = g_first[torch.argmax(next_mask.to(torch.int32))]  # first True
+    next_k = g_first[torch.argmax(next_mask.to(torch.int32))  # first True
+                     .reshape(1)][0]
     total = g_valid.sum(dtype=torch.int32)
     in_shard = pos + 1 < n_valid
     neq_succ = torch.zeros(slots, dtype=torch.bool, device=dev)
@@ -327,37 +332,58 @@ def num_rounds(n: int, h0: int = 1) -> int:
     return max(1, math.ceil(math.log2(n / h0)))
 
 
-def dist_isa_local(info: ShardInfo, cfg: DistSAConfig, s_local: torch.Tensor,
-                   sigma: int, *, stats: dict | None = None) -> torch.Tensor:
-    """Local shard of S -> local shard of the ISA.  ``stats``, when given,
-    receives the first pairing distance ``h0``, the suffixes still active
-    anywhere after the init and after each round run (``remaining``: the
-    round loop's one host read per round) and the seconds up to each of
-    those reads (``init_s``, then ``round_s``)."""
-    t0 = time.perf_counter()
-    eng = resolve_local_sort(cfg.local_sort, s_local.device)
+def isa_init(info: ShardInfo, cfg: DistSAConfig, eng: str,
+             s_local: torch.Tensor, sigma: int):
+    """The ISA build up to its first doubling round: (rank, active, h0,
+    done, remaining) after the init (the q-gram init, or the histogram
+    init with ``qgram`` off), with ``remaining`` the suffixes still active
+    anywhere (one psum) and ``done`` the round loop's flag."""
     if cfg.qgram and info.n > 1:
         rank, active, h0, bad = dist_qgram_init(info, cfg, eng, s_local,
                                                 sigma)
     else:
         rank, active = dist_initial_ranks(info, s_local, sigma)
         h0, bad = 1, torch.tensor(False, device=s_local.device)
-    gidx = _gidx(info, s_local.device)
-    spec = keypack.pair_spec(info.n)
     remaining = psum(info, active.sum(dtype=torch.int32))
     done = (remaining == 0) | bad | (info.n <= 1)
+    return rank, active, h0, done, remaining
+
+
+def dist_isa_local(info: ShardInfo, cfg: DistSAConfig, s_local: torch.Tensor,
+                   sigma: int, *, stats: dict | None = None) -> torch.Tensor:
+    """Local shard of S -> local shard of the ISA.  ``stats``, when given,
+    receives the first pairing distance ``h0``, the suffixes still active
+    anywhere after the init and after each round run (``remaining``: the
+    round loop's one host read per round) and the seconds up to each of
+    those reads (``init_s``, then ``round_s``).
+
+    On ``meta`` tensors (a rank of a ``launch/mesh.py`` ``meta_world``)
+    no value exists to read: every one of the config's rounds is traced,
+    as the reference's ``lax.cond`` loop lowers them all, and ``stats``
+    gets no ``remaining``.  A round after the last needed one leaves the
+    ISA as it is, so the traced program is the real one run to its
+    budget; on real tensors the loop stops at the psum'd flag."""
+    t0 = time.perf_counter()
+    eng = resolve_local_sort(cfg.local_sort, s_local.device)
+    rank, active, h0, done, remaining = isa_init(info, cfg, eng, s_local,
+                                                 sigma)
+    gidx = _gidx(info, s_local.device)
+    spec = keypack.pair_spec(info.n)
     rounds = cfg.rounds if cfg.rounds is not None else num_rounds(info.n, h0)
+    traced = s_local.device.type == "meta"
     if stats is not None:
-        stats.update(h0=h0, remaining=[int(remaining)],
-                     init_s=time.perf_counter() - t0, round_s=[])
+        stats.update(h0=h0, init_s=time.perf_counter() - t0, round_s=[])
+        if not traced:
+            stats["remaining"] = [int(remaining)]
     for r in range(rounds):
-        if bool(done):   # the same psum'd flag on every rank
+        if not traced and bool(done):   # the same psum'd flag on every rank
             break
         t0 = time.perf_counter()
         rank, active, done, remaining = _doubling_round(
             info, cfg, eng, spec, h0 * 2 ** r, rank, gidx, active)
         if stats is not None:
-            stats["remaining"].append(int(remaining))
+            if not traced:
+                stats["remaining"].append(int(remaining))
             stats["round_s"].append(time.perf_counter() - t0)
     return rank
 

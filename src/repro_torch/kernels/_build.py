@@ -204,14 +204,18 @@ def query(name: str, symbol: str, argtypes, *args) -> int:
     return fn(*args)
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous int32 CUDA tensor on one
-    device (what every kernel here takes)."""
+def _check_words(name: str, tensors) -> None:
     for t in tensors:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: expected int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous int32 CUDA tensor on one
+    device (what every kernel here takes)."""
+    _check_words(name, tensors)
     dev = tensors[0].device
     if any(t.device != dev or t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{name}: tensors must share one CUDA device")
@@ -219,6 +223,30 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """The dispatch rule of every wrapper: CPU tensors take the plain
-    version; anything else launches the kernel (or raises in
-    ``check_cuda``).  No switch or fallback reroutes a CUDA tensor."""
+    version; ``meta`` tensors (``on_meta``: a trace of a rank in a meta
+    world) get an empty result of the plain version's shape and dtype,
+    allocated as the kernel allocates it; anything else launches the
+    kernel (or raises in ``check_cuda``).  No switch or fallback reroutes
+    a CUDA tensor: a call whose tensors are not all on the CPU, or all on
+    ``meta``, reaches ``check_cuda``, which takes CUDA tensors only, so
+    neither the plain version nor the meta branch ever sees one."""
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor is a ``meta`` tensor: the wrapper launches
+    nothing and computes nothing, and its ``traffic.reports`` reckoning
+    still reports the bytes the kernel would move for those shapes."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
+def traced(name: str, *tensors: torch.Tensor) -> bool:
+    """The check of a wrapper that takes ``meta`` tensors, past its CPU
+    branch: True when every tensor is a contiguous int32 ``meta`` tensor
+    (allocate the outputs, launch nothing), False when ``check_cuda``
+    passes (launch); raises otherwise."""
+    if on_meta(*tensors):
+        _check_words(name, tensors)
+        return True
+    check_cuda(name, *tensors)
+    return False

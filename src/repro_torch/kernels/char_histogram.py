@@ -25,10 +25,10 @@ def char_histogram_plain(tokens: torch.Tensor, sigma: int) -> torch.Tensor:
                  traffic.char_histogram_bytes(tokens.numel(), sigma))
 def char_histogram(tokens: torch.Tensor, sigma: int) -> torch.Tensor:
     """Token histogram; the plain version for CPU tensors, the CUDA kernel
-    otherwise."""
+    otherwise (``meta`` tokens: empty counts, nothing launched)."""
     if _build.on_cpu(tokens):
         return char_histogram_plain(tokens, sigma)
-    _build.check_cuda("char_histogram", tokens)
+    meta = _build.traced("char_histogram", tokens)
     if not 0 < sigma <= MAX_SIGMA:
         raise ValueError(f"char_histogram: sigma={sigma} outside "
                          f"(0, {MAX_SIGMA}]")
@@ -36,7 +36,7 @@ def char_histogram(tokens: torch.Tensor, sigma: int) -> torch.Tensor:
     if n >= 1 << 31:
         raise ValueError(f"char_histogram: {n} tokens exceed int32 indexing")
     counts = torch.zeros(sigma, dtype=torch.int32, device=tokens.device)
-    if n:
+    if n and not meta:
         _build.launch("char_histogram", tokens.data_ptr(), n, sigma,
                       counts.data_ptr())
     return counts

@@ -50,15 +50,16 @@ def radix_hist(keys, shift: int, *, block: int = 1024):
 
     The kernel stores the counts digit-major, as a contiguous (256,
     n/block) tensor, and returns its transposed view: the values are the
-    JAX layout, and ``digit_major_bases`` scans the storage in place."""
+    JAX layout, and ``digit_major_bases`` scans the storage in place.
+    ``meta`` keys get the same view of an empty tensor."""
     if _build.on_cpu(keys):
         return radix_hist_plain(keys, shift, block=block)
-    _build.check_cuda("radix_hist", keys)
+    meta = _build.traced("radix_hist", keys)
     n = keys.shape[0]
     check_tile("radix_hist", n, block)
     hist = torch.empty((256, n // block), dtype=torch.int32,
                        device=keys.device)
-    if n:
+    if n and not meta:
         _build.launch("radix_hist", keys.data_ptr(), shift, n, block,
                       hist.data_ptr())
     return hist.t()

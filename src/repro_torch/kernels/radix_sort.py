@@ -67,7 +67,9 @@ def radix_pos_plain(keys, base, shift: int, *, block: int = 1024):
 
 
 def _launch_pos(keys, base, shift, block, pos_out, operands, outs):
-    _build.check_cuda("radix_pos", keys, *operands, *outs)
+    """Check one pass's CUDA (or ``meta``) tensors and launch it: on
+    ``meta`` nothing is launched and nothing written."""
+    meta = _build.traced("radix_pos", keys, *operands, *outs)
     # the bases are read through their strides: a digit-major view
     # (digit_major_bases) and a contiguous tile-major table both work
     if base.device != keys.device or base.dtype != torch.int32:
@@ -84,7 +86,7 @@ def _launch_pos(keys, base, shift, block, pos_out, operands, outs):
             raise ValueError("radix_pos: operands must match the keys")
     ins = [t.data_ptr() for t in operands] + [None] * (MAX_OPS - len(operands))
     ots = [t.data_ptr() for t in outs] + [None] * (MAX_OPS - len(outs))
-    if n:
+    if n and not meta:
         _build.launch("radix_pos", keys.data_ptr(), base.data_ptr(),
                       base.stride(0), base.stride(1), shift, n, block,
                       None if pos_out is None else pos_out.data_ptr(),
@@ -97,7 +99,8 @@ def radix_pos(keys, base, shift: int, *, block: int = 1024):
     """Destination of every key for one 8-bit pass (int32[n]); the plain
     version for CPU tensors, the CUDA kernel otherwise.  ``base`` holds
     int32 values of shape (n/block, 256) in any strides: the kernel reads
-    the digit-major view that ``digit_major_bases`` returns in place."""
+    the digit-major view that ``digit_major_bases`` returns in place
+    (``meta`` keys: an empty result, nothing launched)."""
     if _build.on_cpu(keys, base):
         return radix_pos_plain(keys, base, shift, block=block)
     pos = torch.empty_like(keys)
@@ -120,7 +123,8 @@ def radix_scatter(keys, base, shift: int, operands, outs, *,
                   block: int = 1024) -> None:
     """One stable pass: ``outs[k][pos[i]] = operands[k][i]`` for every
     operand, with ``pos`` as in ``radix_pos``.  The CUDA kernel fuses the
-    position and the scatter; CPU tensors take the plain version."""
+    position and the scatter; CPU tensors take the plain version, and
+    ``meta`` tensors write nothing."""
     if _build.on_cpu(keys, base):
         radix_scatter_plain(keys, base, shift, operands, outs, block=block)
         return

@@ -98,17 +98,18 @@ def rank_packed_plain(fused, block_idx, c, cutoff, *, bits: int, sigma: int):
                                                   sigma, bits))
 def rank_packed(fused, block_idx, c, cutoff, *, bits: int, sigma: int):
     """Occ(c_i, block_idx_i * r + cutoff_i) over the fused packed layout;
-    the plain version for CPU tensors, the CUDA kernel otherwise."""
+    the plain version for CPU tensors, the CUDA kernel otherwise (``meta``
+    tensors: an empty result, nothing launched)."""
     if _build.on_cpu(fused, block_idx, c, cutoff):
         return rank_packed_plain(fused, block_idx, c, cutoff,
                                  bits=bits, sigma=sigma)
-    _build.check_cuda("rank_packed", fused, block_idx, c, cutoff)
+    meta = _build.traced("rank_packed", fused, block_idx, c, cutoff)
     if bits not in _REP or fused.dim() != 2 or fused.shape[1] <= sigma:
         raise ValueError(f"rank_packed: bad layout {tuple(fused.shape)}, "
                          f"bits={bits}, sigma={sigma}")
     B = block_idx.shape[0]
     out = torch.empty(B, dtype=torch.int32, device=fused.device)
-    if B:
+    if B and not meta:
         _build.launch("rank_packed", fused.data_ptr(), fused.shape[1], sigma,
                       bits, block_idx.data_ptr(), c.data_ptr(),
                       cutoff.data_ptr(), out.data_ptr(), B)
@@ -235,13 +236,16 @@ def rank_select_launch(bwt_blocks, block_idx, c, cutoff,
 def rank_select(bwt_blocks, block_idx, c, cutoff):
     """In-block counts over unpacked int32 blocks (checkpoint NOT
     included); the plain version for CPU tensors, the CUDA kernel
-    otherwise (``launch_plan``)."""
+    otherwise (``launch_plan``).  ``meta`` tensors get an empty result
+    and ask the card nothing (no plan, no launch)."""
     if _build.on_cpu(bwt_blocks, block_idx, c, cutoff):
         return rank_select_plain(bwt_blocks, block_idx, c, cutoff)
-    _build.check_cuda("rank_select", bwt_blocks, block_idx, c, cutoff)
+    meta = _build.traced("rank_select", bwt_blocks, block_idx, c, cutoff)
     if bwt_blocks.dim() != 2:
         raise ValueError(f"rank_select: blocks must be int32[n_blocks, r], "
                          f"got {tuple(bwt_blocks.shape)}")
     B = block_idx.shape[0]
+    if meta:
+        return torch.empty(B, dtype=torch.int32, device="meta")
     return rank_select_launch(bwt_blocks, block_idx, c, cutoff,
                               launch_plan(bwt_blocks, B) if B else None)

@@ -38,10 +38,11 @@ def rerank_scan(r1: torch.Tensor, r2: torch.Tensor):
     the CUDA kernel otherwise.  Equal pairs must be adjacent, as any sorted
     order makes them: the kernel finds the head of a group that starts
     before its tile by probing earlier pairs.  ``num_groups`` stays on the
-    device: read it only where the caller needs it on the host."""
+    device: read it only where the caller needs it on the host.  ``meta``
+    pairs get empty results in the kernel's allocations."""
     if _build.on_cpu(r1, r2):
         return rerank_scan_plain(r1, r2)
-    _build.check_cuda("rerank_scan", r1, r2)
+    meta = _build.traced("rerank_scan", r1, r2)
     n = r1.shape[0]
     if r1.dim() != 1 or r2.shape != r1.shape:
         raise ValueError("rerank_scan: r1 and r2 must be 1-D of one length")
@@ -54,6 +55,7 @@ def rerank_scan(r1: torch.Tensor, r2: torch.Tensor):
     # zeroed by the C entry; num_groups is returned as a view of it
     scratch = torch.empty(HEAD_INTS + 2 * (-(-n // TILE)), dtype=torch.int32,
                           device=r1.device)
-    _build.launch("rerank_scan", r1.data_ptr(), r2.data_ptr(), n,
-                  ranks.data_ptr(), scratch.data_ptr(), scratch.numel())
+    if not meta:
+        _build.launch("rerank_scan", r1.data_ptr(), r2.data_ptr(), n,
+                      ranks.data_ptr(), scratch.data_ptr(), scratch.numel())
     return ranks, scratch[1]

@@ -9,8 +9,12 @@ around the launch on the card) are the counter's ``in_scope`` bytes, and
 ``nbytes(*args, **kwargs)`` — each input read once, each output written
 once, computed from the call's arguments — is what the call adds to the
 counted bytes, on either device.  A CPU run thus counts what the card's
-kernels move, and shows beside it what the plain versions moved.  With no
-counter recording, a wrapper runs as it is (one thread-local read).
+kernels move, and shows beside it what the plain versions moved.  A trace
+on ``meta`` (a rank of a meta world) counts the same reckonings from the
+shapes alone: the streams need no values, and the rank kernels, whose
+sectors depend on the queries, count a batch that reads whole blocks
+(``whole_blocks``).  With no counter recording, a wrapper runs as it is
+(one thread-local read).
 
 The reckonings are the ones ``chip_smoke.py`` holds each kernel's time
 against: the rank kernels' distinct 32-byte sectors, the fused query
@@ -89,13 +93,38 @@ def sector_bytes(word_idx) -> int:
     return int(torch.unique(word_idx // 8).numel()) * 32
 
 
+def same_words(a, b) -> bool:
+    """Whether two int32 tensors start at the same word: one address, or
+    on ``meta`` (where every address is 0) one storage at one offset."""
+    if a.device.type == "meta":
+        return (a.untyped_storage() is b.untyped_storage()
+                and a.storage_offset() == b.storage_offset())
+    return a.data_ptr() == b.data_ptr()
+
+
+def whole_blocks(n_blocks: int, r: int, B: int) -> tuple:
+    """A batch of ``B`` rank queries over ``n_blocks`` blocks of ``r``
+    symbols that reads whole blocks, as CPU tensors (block, symbol, cut):
+    distinct blocks while there are any, each cut at ``r``, symbol 0.  A
+    ``meta`` batch has no values, so the rank reckonings count this one:
+    the most a batch of those shapes reads (to a sector shared at a
+    block's edge)."""
+    blk = torch.arange(B, dtype=torch.int32) % max(1, n_blocks)
+    return (blk, torch.zeros(B, dtype=torch.int32),
+            torch.full((B,), r, dtype=torch.int32))
+
+
 def rank_packed_bytes(fused, blk, c, cut, sigma: int, bits: int) -> int:
     """Bytes a batch of packed rank queries must move: the checkpoint of
     c and the packed words up to each cutoff's word (their distinct
-    sectors), and four int32 words in and out per query."""
+    sectors), and four int32 words in and out per query (on ``meta``:
+    ``whole_blocks``)."""
     W = fused.shape[1] - sigma
+    if fused.device.type == "meta":
+        blk, c, cut = whole_blocks(fused.shape[0], W * (32 // bits),
+                                   blk.shape[0])
     row0 = blk.long() * (sigma + W)
-    w = torch.arange(W, device=fused.device)
+    w = torch.arange(W, device=blk.device)
     upto = torch.clamp(cut.long() // (32 // bits), max=W - 1)
     packed = (row0[:, None] + sigma + w)[w[None, :] <= upto[:, None]]
     return sector_bytes(torch.cat([row0 + c.long(), packed])) + \
@@ -105,9 +134,11 @@ def rank_packed_bytes(fused, blk, c, cut, sigma: int, bits: int) -> int:
 def rank_select_bytes(blocks, blk, cut) -> int:
     """Bytes a batch of unpacked in-block counts must move: the symbols
     below each query's cut (their distinct sectors), and four int32 words
-    in and out per query."""
+    in and out per query (on ``meta``: ``whole_blocks``)."""
     r = blocks.shape[1]
-    j = torch.arange(r, device=blocks.device)
+    if blocks.device.type == "meta":
+        blk, _, cut = whole_blocks(blocks.shape[0], r, blk.shape[0])
+    j = torch.arange(r, device=blk.device)
     read = (blk.long()[:, None] * r + j)[j[None, :] < cut.long()[:, None]]
     return sector_bytes(read) + blk.numel() * 16
 
@@ -122,7 +153,7 @@ def radix_pass_bytes(keys, base, operands=(), positions: bool = False) -> int:
     operands) and the bases read once, each operand read and written once,
     and the positions written when the pass returns them."""
     n = keys.shape[0]
-    own = any(o.data_ptr() == keys.data_ptr() for o in operands)
+    own = any(same_words(o, keys) for o in operands)
     return (4 * n * (not own) + 4 * base.numel() + 8 * n * len(operands)
             + 4 * n * positions)
 
@@ -131,7 +162,7 @@ def rerank_scan_bytes(r1, r2) -> int:
     """Both rank words read once (one when aliased), the ranks written,
     and the group count."""
     n = r1.shape[0]
-    return (8 if r1.data_ptr() == r2.data_ptr() else 12) * n + 4
+    return (8 if same_words(r1, r2) else 12) * n + 4
 
 
 def char_histogram_bytes(n: int, sigma: int) -> int:

@@ -1,9 +1,8 @@
 """Dry run of every (architecture x input shape) cell on one H100: each LM
 cell's step traced on ``meta`` at full width and depth for its memory and
 roofline, and the bwt_index cells built and served for real; with
-``--multi-pod``, every LM cell on the reference's production meshes
-(16x16 and 2x16x16), one rank's step traced in a world where no data
-moves.
+``--multi-pod``, every cell on the reference's production meshes (16x16
+and 2x16x16), one rank's step traced in a world where no data moves.
 
 The JAX package lowers and compiles each cell on 512 forced host devices
 and reads XLA's memory and cost analyses; on one card the same proof is a
@@ -24,15 +23,20 @@ cell records the rank's argument bytes (the reference's partition specs,
 ``specs.py``), the step's temp peak and whether the total fits one card,
 its counts, its collectives by kind and pass (``sharding.TRAFFIC``) with
 the bytes they move (``roofline.collective_bytes``), and the roofline
-with its collective term over ``NVLINK_BW``.  The bwt_index cells are
-not traced on the meshes: the distributed build decides its rounds,
-overflow retries and discards from values, which a world without data
-cannot supply (they are recorded as skipped with that reason).
+with its collective term over ``NVLINK_BW``.  The bwt_index cells run
+there too, on the flat index mesh over the same 256 or 512 chips, as the
+reference lowers them: rank 0 of a meta world traces the ISA build
+(``dist_isa_local``: the q-gram init and every doubling round of the
+budget, as the reference's ``lax.cond`` loop lowers them all; a real
+text stops earlier) or one ``dist_count`` batch over its ``DistFMIndex``
+shards, each kernel wrapper reporting the bytes its kernel would move
+(``trace_index_mesh_cell``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun              # all
     ... dryrun --arch qwen2p5_3b --shape train_4k
     ... dryrun --arch bwt_index            # build + serve on the card
     ... dryrun --multi-pod both --jobs 8   # the 16x16 and 2x16x16 meshes
+    ... dryrun --arch bwt_index --multi-pod both   # the index cells there
     ... dryrun --list [--multi-pod both]
     ... dryrun --no-compile                # specs only, no trace
 
@@ -91,10 +95,10 @@ INDEX_SHAPES = ("build", "serve")
 MESHES = {"16x16": False, "2x16x16": True}
 MULTI_POD = {"single": ("16x16",), "multi": ("2x16x16",),
              "both": ("16x16", "2x16x16")}
-INDEX_MESH_REASON = (
-    "the distributed index build is host-driven: it decides its rounds, "
-    "overflow retries and discards from values, which a world where no "
-    "data moves cannot supply (ROADMAP.md A16d)")
+# a traced build's rounds: every round of the budget, as the reference's
+# lax.cond loop lowers them; a real text stops once no suffix is active
+ROUNDS_NOTE = ("an upper bound: every round of the budget is traced; a "
+               "real text stops at its psum'd flag")
 
 
 # --------------------------------------------------------------------------
@@ -596,12 +600,164 @@ def with_model_flops(rec: dict, cfg) -> dict:
     return rec
 
 
-def index_mesh_record(shape: str, mesh: str) -> dict:
-    """A bwt_index cell on a production mesh: skipped, for
-    ``INDEX_MESH_REASON``."""
-    return {"arch": "bwt_index", "shape": shape, "mesh": mesh,
-            "chips": _chips(mesh_axes(mesh)), "kind": shape,
-            "status": "skipped", "reason": INDEX_MESH_REASON}
+# --------------------------------------------------------------------------
+# bwt_index cells on a production mesh: one rank traced on meta
+# --------------------------------------------------------------------------
+
+def index_parts(mesh) -> int:
+    """The parts of the flat index mesh over a production mesh's chips
+    (``"16x16"``: 256, ``"2x16x16"``: 512), or ``mesh`` itself when it is
+    already a count of parts."""
+    return mesh if isinstance(mesh, int) else _chips(mesh_axes(mesh))
+
+
+def index_mesh_specs(shape: str, parts: int, icfg) -> dict:
+    """The reference's arguments of a bwt_index cell on a flat mesh of
+    ``parts`` (``launch/dryrun.py`` ``lower_index_cell``): name ->
+    (global shape, dtype, one rank's shape).  The build takes the text
+    ``s`` int32[n] over parts; serve the BWT int32[n] and the Occ
+    checkpoints int32[n/r, sigma] over parts, the C array, the unpacked
+    layout's (1, 1) fused placeholder and the patterns, replicated."""
+    n, r, sigma = icfg.n, icfg.sample_rate, icfg.sigma
+    split = {"s": (n,), "bwt": (n,), "occ_samples": (n // r, sigma)}
+    whole = {"c_array": (sigma,), "fused": (1, 1),
+             "patterns": (icfg.query_batch, icfg.query_len)}
+    names = (("s",) if shape == "build" else
+             ("bwt", "occ_samples", "c_array", "fused", "patterns"))
+    return {k: (split[k], torch.int32, (split[k][0] // parts,
+                                        *split[k][1:]))
+            if k in split else (whole[k], torch.int32, whole[k])
+            for k in names}
+
+
+def index_argument_bytes(shape: str, parts: int, icfg) -> dict:
+    """One rank's bytes of each of the reference's arguments."""
+    return {k: int(np.prod(local)) * dtype.itemsize
+            for k, (_, dtype, local) in index_mesh_specs(shape, parts,
+                                                         icfg).items()}
+
+
+def index_rank_inputs(shape: str, parts: int, icfg) -> dict:
+    """One rank's inputs of a bwt_index cell on ``meta``: the text shard,
+    or the rank's ``DistFMIndex`` (its BWT shard and Occ checkpoints, the
+    C array and the row; the unpacked layout, as the reference's
+    ``bits = 0``; no SA sample: count only) and the replicated
+    patterns."""
+    from ..core.dist_fm import DistFMIndex
+
+    arg = {k: torch.empty(local, dtype=dtype, device="meta")
+           for k, (_, dtype, local) in index_mesh_specs(shape, parts,
+                                                        icfg).items()}
+    if shape == "build":
+        return arg
+    index = DistFMIndex(
+        bwt=arg["bwt"], occ_samples=arg["occ_samples"],
+        c_array=arg["c_array"],
+        row=torch.empty((), dtype=torch.int32, device="meta"), fused=None,
+        sa_marks=None, sa_mark_ranks=None, sa_vals=None,
+        sample_rate=icfg.sample_rate, sigma=icfg.sigma, length=icfg.n,
+        parts=parts, bits=0, sa_sample_rate=0)
+    return {"index": index, "patterns": arg["patterns"]}
+
+
+def index_sa_config(icfg):
+    """The mesh build's ``DistSAConfig`` of ``icfg`` with its local sort
+    resolved for the card an estimate is for (``"auto"``: the radix
+    kernels), not for the ``meta`` tensors it is traced on."""
+    from ..core.pipeline import mesh_sa_config
+    from ..kernels.ops import resolve_sort_engine
+
+    cfg = mesh_sa_config(icfg)
+    return cfg._replace(local_sort=resolve_sort_engine(cfg.local_sort,
+                                                       "cuda"))
+
+
+def trace_index_mesh_cell(shape: str, mesh, icfg=None) -> dict:
+    """Rank 0's step of the bwt_index ``shape`` cell (``"build"`` or
+    ``"serve"``) on the flat index mesh over ``mesh``'s chips (a
+    production mesh by name, or a count of parts), traced on ``meta``
+    under ``roofline.count`` in a ``meta_world`` of that many ranks, the
+    estimate for one card: ``build`` is ``dist_isa_local`` over
+    the text shard, the ISA the reference's ``_isa_jit`` lowers (local
+    sorts by ``index_sa_config``); ``serve`` is one ``dist_count`` batch.
+
+    Returns the record fields of ``trace_mesh_cell``: ``argument_bytes``
+    by the reference's specs (``index_mesh_specs``),
+    ``held_argument_bytes`` what the port's rank holds (serve: its
+    ``DistFMIndex`` arrays, which hold the row where the reference holds
+    a fused placeholder), the memory with the step's temp peak, the
+    counts, the collectives by kind with the bytes they move and the
+    roofline with its collective term; and ``rounds_traced``, the build's
+    rounds (``ROUNDS_NOTE``)."""
+    from ..configs.bwt_index import CONFIG
+    from ..core.dist_fm import dist_count
+    from ..core.dist_sort import AXIS, _capacity, shard_info
+    from ..core.dist_suffix_array import dist_isa_local
+    from .mesh import meta_world
+
+    icfg = icfg or CONFIG
+    parts = index_parts(mesh)
+    cfg = index_sa_config(icfg)
+    rec = {"mesh": mesh, "chips": parts, "rank": 0, "parts": parts,
+           "n": icfg.n, "part_size": icfg.n // parts, "sigma": icfg.sigma,
+           "argument_bytes": index_argument_bytes(shape, parts, icfg)}
+    inputs, stats = index_rank_inputs(shape, parts, icfg), {}
+    t0 = time.perf_counter()
+    with meta_world({AXIS: parts}, 0) as world:
+        info = shard_info(world, icfg.n)
+        if shape == "build":
+            _, counts, traffic = _collecting(
+                lambda s: dist_isa_local(info, cfg, s, icfg.sigma,
+                                         stats=stats), inputs["s"])
+        else:
+            _, counts, traffic = _collecting(dist_count, inputs["index"],
+                                             inputs["patterns"], world)
+    rec["trace_s"] = time.perf_counter() - t0
+    if shape == "build":
+        rec["held_argument_bytes"] = {"s": inputs["s"].nbytes}
+        rec.update(engine=cfg.engine, capacity_factor=cfg.capacity_factor,
+                   local_sort=cfg.local_sort, h0=stats["h0"],
+                   rounds_traced=len(stats["round_s"]),
+                   rounds_note=ROUNDS_NOTE,
+                   bucket_capacity=_capacity(info, cfg.capacity_factor))
+        rec["tokens"] = icfg.n
+    else:
+        index = inputs["index"]
+        rec["held_argument_bytes"] = {
+            "bwt": index.bwt.nbytes, "occ_samples": index.occ_samples.nbytes,
+            "c_array": index.c_array.nbytes, "row": index.row.nbytes,
+            "patterns": inputs["patterns"].nbytes}
+        rec.update(query_batch=icfg.query_batch, query_len=icfg.query_len)
+        rec["tokens"] = icfg.query_batch
+    rec["memory"] = _memory(sum(rec["held_argument_bytes"].values()),
+                            counts.peak_bytes)
+    rec["counts"] = counts.to_dict()
+    stats_c = rf.collective_bytes(traffic.records())
+    rec["collectives"] = {"calls": traffic.calls, "bytes": traffic.nbytes,
+                          "moved": stats_c.bytes_by_op,
+                          "moved_bytes": stats_c.total_bytes}
+    roof = rf.Roofline(counts.flops, counts.bytes, stats_c.total_bytes,
+                       {"counts": stats_c.counts,
+                        "bytes": stats_c.bytes_by_op}, parts, counts.dtype)
+    rec["roofline"] = roof.to_dict()
+    return rec
+
+
+def run_index_mesh_cell(shape: str, mesh: str, *, compile_: bool = True,
+                        icfg=None) -> dict:
+    """A bwt_index cell on a production mesh: its specs only
+    (``compile_=False``), or traced for rank 0 (``trace_index_mesh_cell``)."""
+    from ..configs.bwt_index import CONFIG
+
+    icfg = icfg or CONFIG
+    parts = index_parts(mesh)
+    base = {"arch": "bwt_index", "shape": shape, "mesh": mesh,
+            "chips": parts, "kind": shape}
+    if not compile_:
+        return dict(base, status="specs", argument_bytes=index_argument_bytes(
+            shape, parts, icfg))
+    return dict(base, status="traced", **trace_index_mesh_cell(shape, mesh,
+                                                                icfg))
 
 
 # --------------------------------------------------------------------------
@@ -747,13 +903,17 @@ def save_result(res: dict, out_dir) -> None:
         json.dump(res, f, indent=2, default=str)
 
 
-def cell_record(cell, compile_, config_of):
-    """One LM cell (arch, shape, mesh) in a pool worker: the record, or
-    the failure's."""
+def cell_record(cell, compile_, config_of, index_cfg=None):
+    """One cell (arch, shape, mesh) in a pool worker: the record, or the
+    failure's.  A bwt_index cell on a production mesh is traced for one
+    rank (``run_index_mesh_cell``, of ``index_cfg``)."""
     arch, shape, mesh = cell
     torch.set_num_threads(1)
     t0 = time.perf_counter()
     try:
+        if arch == "bwt_index":
+            return run_index_mesh_cell(shape, mesh, compile_=compile_,
+                                       icfg=index_cfg)
         return run_cell(arch, shape, mesh=mesh, compile_=compile_,
                         config_of=config_of)
     except Exception:
@@ -776,19 +936,22 @@ def cells_of(arch: str = "all", shape: str = "all", meshes=(MESH,)) -> list:
 
 
 def run_cells(cells, *, compile_: bool = True, jobs: int = 1,
-              config_of=get_config) -> list:
-    """The LM cells' records, in ``jobs`` spawned processes when over one
-    (each mesh cell's meta world opens in the process that traces it)."""
+              config_of=get_config, index_cfg=None) -> list:
+    """The cells' records (LM cells, and bwt_index cells on production
+    meshes), in ``jobs`` spawned processes when over one (each mesh
+    cell's meta world opens in the process that traces it)."""
     if jobs > 1 and len(cells) > 1:
         ctx = multiprocessing.get_context("spawn")
         with concurrent.futures.ProcessPoolExecutor(jobs,
                                                     mp_context=ctx) as pool:
             return list(pool.map(cell_record, cells,
                                  [compile_] * len(cells),
-                                 [config_of] * len(cells)))
+                                 [config_of] * len(cells),
+                                 [index_cfg] * len(cells)))
     threads = torch.get_num_threads()
     try:
-        return [cell_record(c, compile_, config_of) for c in cells]
+        return [cell_record(c, compile_, config_of, index_cfg)
+                for c in cells]
     finally:
         torch.set_num_threads(threads)
 
@@ -800,12 +963,14 @@ def main(argv=None, *, config_of=get_config, index_cfg=None,
     cell failed.  The keyword arguments are for rehearsals: other LM
     configs (``get_reduced_config``), another index config and device,
     and an index mesh to run in (default: a one-rank world of its own,
-    NCCL on the card).
+    NCCL on the card).  ``index_cfg`` applies to the mesh cells too.
 
     Without ``--multi-pod`` every cell runs on one card; with it, on the
     reference's production meshes (``single``: 16x16, ``multi``: 2x16x16,
-    ``both``), the LM cells traced for one rank in a meta world each and
-    the bwt_index cells recorded as skipped (``INDEX_MESH_REASON``)."""
+    ``both``), every cell traced for rank 0 in a meta world of its own,
+    in the same ``--jobs`` processes: the LM cells' steps, and the
+    bwt_index cells' ISA build and ``dist_count`` batch on the flat index
+    mesh over the same chips (``trace_index_mesh_cell``)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
@@ -828,18 +993,14 @@ def main(argv=None, *, config_of=get_config, index_cfg=None,
             print((arch, shape, MESHES[mesh] if args.multi_pod else mesh))
         return []
 
-    lm = [c for c in cells if c[0] != "bwt_index"]
-    index = [(s, m) for a, s, m in cells if a == "bwt_index"]
-    results = run_cells(lm, compile_=not args.no_compile, jobs=args.jobs,
-                        config_of=config_of)
+    traced = [c for c in cells if c[0] != "bwt_index" or args.multi_pod]
+    index = [(s, m) for a, s, m in cells
+             if a == "bwt_index" and not args.multi_pod]
+    results = run_cells(traced, compile_=not args.no_compile, jobs=args.jobs,
+                        config_of=config_of, index_cfg=index_cfg)
     for res in results:
         _emit(res, args.out)
-    if index and args.multi_pod:
-        for shape, mesh in index:
-            res = index_mesh_record(shape, mesh)
-            _emit(res, args.out)
-            results.append(res)
-    elif index and not args.no_compile:
+    if index and not args.no_compile:
         for res in _index_cells([s for s, _ in index], index_cfg,
                                 index_device, index_mesh):
             _emit(res, args.out)

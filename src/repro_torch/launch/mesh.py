@@ -30,7 +30,8 @@ each rank's environment); the serving launcher runs in it.
 ``meta_world`` makes this process one rank of a world of any size in
 which no data moves (torch's fake process group): a full-size step of
 the 256- or 512-rank production mesh is traced there on ``meta`` for one
-rank (``launch/dryrun.py``).
+rank (``launch/dryrun.py``), an LM step on the LM mesh or the index's
+build and serve on the flat index mesh of the same ranks.
 
 ``run_world`` runs a function in each rank of a world of ``parts`` local
 processes and returns each rank's result as numpy (``single_rank_world``
@@ -188,7 +189,9 @@ def _refuse_nesting(what: str) -> None:
 def meta_world(axes: dict, rank: int = 0):
     """This process as rank ``rank`` of a world of ``prod(axes)`` ranks in
     which no data moves; yields its LM mesh (``make_lm_mesh("cpu",
-    axes)``) and leaves the world on exit.
+    axes)``) and leaves the world on exit.  Axes ``{"parts": P}`` make
+    the flat index mesh, what ``make_index_mesh("cpu", parts=P)`` makes:
+    the bwt_index cells of the production meshes are traced on it.
 
     The world's process group is torch's fake backend: every rank of the
     mesh has its coordinates and its groups, and a collective returns at

@@ -1,7 +1,8 @@
 """The dry-run, roofline and perf tables from the JSON that
 ``launch/dryrun.py`` and ``launch/perf.py`` write; the production mesh
-cells (one rank's step traced in a meta world) and the perf variants'
-per-rank estimates also with their collective term.
+cells (one rank's step traced in a meta world: the LM cells and the
+bwt_index build and serve) and the perf variants' per-rank estimates also
+with their collective term.
 
     PYTHONPATH=src python -m repro_torch.launch.report \\
         [--dryrun build/dryrun] [--perf build/perf]
@@ -89,22 +90,28 @@ def roofline_table(cells):
 
 
 def mesh_table(cells):
-    """The production mesh cells: one rank's memory, the bytes its
-    collectives move and their term of the roofline."""
+    """The production mesh cells (the LM cells and the bwt_index cells):
+    one rank's memory, the bytes its collectives move and the three terms
+    of the roofline; a build's traced rounds beside its shape."""
     rows = ["| arch | shape | mesh | rank | arguments | temp | total | "
-            "fits 80 GB | collectives moved | collective s | bottleneck |",
-            "|---|---|---|---|---|---|---|---|---|---|---|"]
+            "fits 80 GB | collectives moved | compute s | memory s | "
+            "collective s | bottleneck |",
+            "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for c in cells:
         if c.get("chips", 1) == 1 or c.get("status") != "traced":
             continue
         mem, r = c["memory"], c["roofline"]
+        shape = c["shape"]
+        if "rounds_traced" in c:
+            shape += f" ({c['rounds_traced']} rounds)"
         rows.append(
-            f"| {c['arch']} | {c['shape']} | {c['mesh']} | {c['rank']} | "
+            f"| {c['arch']} | {shape} | {c['mesh']} | {c['rank']} | "
             f"{fmt_bytes(mem['argument_size_in_bytes'])} | "
             f"{fmt_bytes(mem['temp_size_in_bytes'])} | "
             f"{fmt_bytes(mem['total_bytes'])} | {_fits(mem)} | "
             f"{fmt_bytes(c['collectives']['moved_bytes'])} | "
-            f"{r['collective_s']:.4f} | **{r['bottleneck']}** |")
+            f"{r['compute_s']:.4g} | {r['memory_s']:.4g} | "
+            f"{r['collective_s']:.4g} | **{r['bottleneck']}** |")
     return "\n".join(rows)
 
 

@@ -236,6 +236,44 @@ _ALLOCATIONS = {torch.ops.aten.empty.memory_format,
                 torch.ops.aten.new_empty.default,
                 torch.ops.aten.new_empty_strided.default}
 # in-place ops that write their ``self`` without reading it
+# device memory an op holds on the card while it runs, beyond its inputs
+# and outputs, which an op on ``meta`` does not allocate:
+# * a stable sort over one segment of more than 4096 keys runs CUB's
+#   radix sort, holding the keys' original positions (int64) and CUB's
+#   alternate key and position buffers, (8 + key size + 8) bytes a key (a
+#   stable sort of 2^28 int32 keys on an H100 holds 20.19 B a key beyond
+#   its outputs, chip_smoke.py's ``sort_workspace``); shorter sorts run
+#   in place;
+# * advanced indexing (``x[idx]``, ``x[idx] = v``) first copies each int32
+#   index tensor to int64 at the indices' broadcast shape
+_SORT_IN_PLACE = 4096
+_INDEXING = {torch.ops.aten.index.Tensor, torch.ops.aten.index_put.default,
+             torch.ops.aten.index_put_.default,
+             torch.ops.aten._index_put_impl_.default}
+
+
+def workspace_bytes(func, args, kwargs) -> int:
+    """Device bytes ``func`` holds on the card while it runs beyond its
+    inputs and outputs (a long stable sort's workspace, int32 indices
+    copied to int64), else 0."""
+    if func is torch.ops.aten.sort.stable:
+        x = args[0]
+        n = x.shape[kwargs.get("dim", -1)] if x.dim() else 1
+        if n <= _SORT_IN_PLACE or x.numel() != n:
+            return 0
+        return n * (16 + x.element_size())
+    if func in _INDEXING:
+        idx = [t for t in args[1] if t is not None]
+        if not any(t.dtype == torch.int32 for t in idx):
+            return 0
+        shape = torch.broadcast_shapes(*(t.shape for t in idx))
+        n = 1
+        for d in shape:
+            n *= d
+        return 8 * n * sum(t.dtype == torch.int32 for t in idx)
+    return 0
+
+
 _WRITE_ONLY = {"copy_", "fill_", "zero_", "normal_", "uniform_", "random_"}
 # gathers read only the elements they select from their source (args[0])
 _GATHERS = {"index", "_unsafe_index", "gather", "index_select", "embedding",
@@ -373,6 +411,9 @@ class _CountMode(TorchDispatchMode):
                 fresh.append(st)
         for st in {id(s): s for s in fresh}.values():
             self._track(st)
+        if scope is None:   # inside a wrapper the card runs its kernel
+            c.peak_bytes = max(c.peak_bytes, self.live
+                               + workspace_bytes(func, args, kwargs))
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             name = _matmul_dtype(outs[0].dtype)
@@ -405,7 +446,10 @@ def count(fn, *args, **kwargs):
       kernel wrapper reports (``kernels/traffic.py``), whose own aten ops
       are kept apart in ``in_scope_bytes``;
     * the high-water mark of live storage created inside ``fn``, per
-      storage (views of it count once), freed when its last tensor dies;
+      storage (views of it count once), freed when its last tensor dies,
+      and with it what an op holds on the card while it runs beyond its
+      inputs and outputs (``workspace_bytes``: a long stable sort's
+      workspace, int32 indices copied to int64);
       the cyclic garbage collector is off for the run, so that a storage
       is freed where its last reference goes, not wherever a collection
       happens to fall (two runs of one step, or one step on two ranks,
@@ -416,6 +460,14 @@ def count(fn, *args, **kwargs):
     (``collective_bytes`` of ``dist_records``).
 
     On ``meta`` tensors nothing is allocated and nothing computed."""
+    # torch imports its compiler at the first call of some of its own
+    # functions (``torch._compile._disable_dynamo``): hundreds of modules,
+    # whose import leaves reference cycles through the caller's frames.
+    # With the collector off those frames, and every tensor they hold,
+    # would live to the count's end: the first count of a process would
+    # read a higher peak than the next.  So the import comes first.
+    import torch._dynamo  # noqa: F401
+
     c = Counts()
     t0 = time.perf_counter()
     mode = _CountMode(c)

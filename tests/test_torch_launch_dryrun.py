@@ -105,6 +105,7 @@ def test_perf_variants_are_the_reference_names(tmp_path):
 
 def test_report_renders_a_dry_run(tmp_path, capsys):
     from repro_torch.configs.base import get_reduced_config
+    from repro_torch.configs.bwt_index import reduced
     from repro_torch.launch import dryrun, report
 
     recs = dryrun.main(["--arch", "minitron_4b", "--out", str(tmp_path)],
@@ -114,13 +115,20 @@ def test_report_renders_a_dry_run(tmp_path, capsys):
                              "--no-compile", "--out", str(tmp_path / "s")],
                             config_of=get_reduced_config)
     assert spec_only[0]["status"] == "specs"
+    # a bwt_index cell on a production mesh, in the per-rank table
+    dryrun.save_result(dryrun.run_index_mesh_cell(
+        "build", "16x16", icfg=reduced().replace(n=1 << 16)), tmp_path)
     capsys.readouterr()
     report.main(["--dryrun", str(tmp_path), "--perf",
                  str(tmp_path / "none")])
     out = capsys.readouterr().out
     assert out.count("| minitron_4b |") == 4 + 3     # matrix + roofline
     assert "skipped (pure full-attention arch" in out
-    assert "summary: {'traced': 3, 'measured': 0, 'skipped': 1" in out
+    assert "summary: {'traced': 4, 'measured': 0, 'skipped': 1" in out
+    assert "## Production mesh cells, per rank" in out
+    row = [ln for ln in out.splitlines()
+           if ln.startswith("| bwt_index | build (14 rounds) | 16x16 | 0 |")]
+    assert len(row) == 1 and row[0].count("|") == 14   # 13 columns
     assert report.fmt_bytes(3 * 1024**3) == "3.0GB"
 
 
@@ -149,18 +157,30 @@ def short_shapes(monkeypatch):
 def test_phase_launch_runs_on_the_cpu(short_shapes, capsys):
     """Phase 13 on the CPU: every LM cell traced or skipped for the
     reference's reason, both index cells measured with their kernels'
-    reported bytes, the subset of production mesh cells traced for one
-    rank in meta worlds, perf's measured variants and its rule-set
-    variants' per-rank estimates, report's tables, and the meta world
-    estimates of phases 14 (b) and 15 (b)."""
+    reported bytes, the subset of production mesh cells and the four
+    bwt_index mesh cells (at n = 2^16) traced for one rank in meta
+    worlds, the ISA estimates of (a) and (b), perf's measured variants
+    and its rule-set variants' per-rank estimates, report's tables, and
+    the meta world estimates of phases 14 (b) and 15 (b)."""
     from repro_torch.configs.base import get_reduced_config
     from repro_torch.configs.bwt_index import reduced
 
     cs = _chip_smoke()
     rec, launches = cs.phase_launch(
         device="cpu", config_of=get_reduced_config, icfg=reduced(), jobs=1,
-        max_decode_batch=2, world_config="get_reduced_config")
+        max_decode_batch=2, world_config="get_reduced_config",
+        mesh_icfg=reduced().replace(n=1 << 16), world_log2n=12)
     assert rec["lm_traced"] == 32
+    assert sorted(rec["index_mesh_cells"]) == sorted(
+        "__".join(c) for c in cs.INDEX_MESH_CELLS)
+    assert {k: v["rounds_traced"] for k, v in rec["index_mesh_cells"].items()
+            if "build" in k} == {"bwt_index__build__16x16": 14,
+                                 "bwt_index__build__2x16x16": 14}
+    est = rec["index_peak_estimates"]
+    assert (est["isa_one_rank"]["parts"], est["isa_world"]["parts"]) == (
+        1, 4)
+    assert rec["index_peaks"] == {}      # the CPU reads no device peak
+    assert rec["dryrun_index_build"]["peak_bytes"] is None
     mesh = rec["mesh_cells"]
     assert sorted(mesh) == sorted("__".join(c)
                                   for c in cs.LAUNCH_MESH_SUBSET)
@@ -198,6 +218,7 @@ def test_phase_launch_runs_on_the_cpu(short_shapes, capsys):
     assert "## Perf variants" in out and "| qwen_train | baseline |" in out
     assert "## Production mesh cells, per rank" in out
     assert "| qwen2p5_3b | train_4k | 2x16x16 | 0 |" in out
+    assert "| bwt_index | serve | 2x16x16 | 0 |" in out
 
 
 def test_check_launch_cell_refuses_broken_readings():

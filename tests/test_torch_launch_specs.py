@@ -11,8 +11,9 @@ leaf of the batch, the cache, the params and the AdamW state (shape,
 dtype, partition spec, ``NamedSharding.shard_shape``), the skip reasons,
 ``_micro_batches`` at 1, 256 and 512 chips, ``dryrun --list`` for one pod,
 one rank's argument bytes of every cell on both production meshes (the
-shard shapes' sum, as the reference's dry run lays the arguments out),
-``dryrun --list`` for one pod and for both, and the JAX mesh build of a
+shard shapes' sum, as the reference's dry run lays the arguments out;
+for the bwt_index cells from the arguments of ``lower_index_cell``'s own
+lowering, each in about 6 s), ``dryrun --list`` for one pod and for both, and the JAX mesh build of a
 repetitive text over two devices at capped and default rounds.  The
 port's side is computed here and compared exactly.
 """
@@ -33,6 +34,10 @@ MESHES = ("16x16", "2x16x16", "one")
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 CHIPS = (1, 256, 512)
 ROUNDS = (1, None)
+# the bwt_index cells' arguments, in the order the reference lowers them
+INDEX_ARGS = {"build": ("s",),
+              "serve": ("bwt", "occ_samples", "c_array", "fused",
+                        "patterns")}
 
 
 def rounds_tokens() -> np.ndarray:
@@ -144,6 +149,20 @@ def _jax_reference(out_path: str) -> None:
                            * np.dtype(leaves(v)[key][1]).itemsize
                            for key in leaves(v))
                     for k, v in args.items()}
+    # the bwt_index cells: one rank's bytes of each argument that
+    # lower_index_cell's lowering takes (lowered, not compiled), by name
+    ref["index_bytes"] = {}
+    for shape, names in INDEX_ARGS.items():
+        for mname, multi_pod in (("16x16", False), ("2x16x16", True)):
+            lowered, _, _ = dryrun.lower_index_cell(shape,
+                                                    multi_pod=multi_pod)
+            avals = [a._aval for a in
+                     jax.tree_util.tree_leaves(lowered.args_info)]
+            assert len(avals) == len(names), (shape, avals)
+            ref["index_bytes"][f"{shape}|{mname}"] = {
+                name: int(np.prod(a.sharding.shard_shape(a.shape)))
+                * np.dtype(a.dtype).itemsize
+                for name, a in zip(names, avals)}
     for key, pods in (("list", "single"), ("list_both", "both")):
         buf = io.StringIO()
         argv = sys.argv
@@ -302,7 +321,7 @@ def test_rank_argument_bytes_equal_the_reference_on_both_meshes(
     ``NamedSharding.shard_shape`` x itemsize; ``dryrun --no-compile
     --multi-pod both`` writes them for the 32 cells of each mesh it would
     trace, the reference's skip reason for the 8 others, and the
-    bwt_index cells as skipped."""
+    bwt_index cells' specs with the reference's bytes of each argument."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.specs import local_nbytes
@@ -331,9 +350,43 @@ def test_rank_argument_bytes_equal_the_reference_on_both_meshes(
                 f"{key}|{r['mesh']}"]
     index = [r for r in recs if r["arch"] == "bwt_index"]
     assert [(r["shape"], r["mesh"], r["status"]) for r in index] == [
-        (s, m, "skipped") for s in ("build", "serve")
+        (s, m, "specs") for s in ("build", "serve")
         for m in ("16x16", "2x16x16")]
-    assert all(r["reason"] == dryrun.INDEX_MESH_REASON for r in index)
+    for r in index:
+        assert r["argument_bytes"] == reference["index_bytes"][
+            f"{r['shape']}|{r['mesh']}"]
+
+
+def test_index_mesh_cells_traced_at_full_size(reference, tmp_path):
+    """``dryrun --arch bwt_index --multi-pod both`` at the config's n =
+    2^28: four traced records, each rank's argument bytes the
+    reference's, the build's 26 rounds after the q = 6 init over buckets
+    of ceil(2 m / P) (8192 on 16x16, 2048 on 2x16x16) counting the radix
+    kernels' bytes, the serve cell's 64 psums of int32[1024] counting
+    ``rank_select``'s, each fitting one card."""
+    from repro_torch.launch import dryrun
+
+    recs = dryrun.main(["--arch", "bwt_index", "--multi-pod", "both",
+                        "--out", str(tmp_path)])
+    assert [(r["shape"], r["mesh"], r["status"]) for r in recs] == [
+        (s, m, "traced") for s in ("build", "serve")
+        for m in ("16x16", "2x16x16")]
+    for r in recs:
+        assert r["argument_bytes"] == reference["index_bytes"][
+            f"{r['shape']}|{r['mesh']}"]
+        m = (1 << 28) // r["chips"]
+        assert r["memory"]["fits"] and r["collectives"]["moved_bytes"] > 0
+        kb = r["counts"]["kernel_bytes"]
+        if r["shape"] == "build":
+            assert r["held_argument_bytes"] == {"s": 4 * m}
+            assert (r["rounds_traced"], r["h0"]) == (26, 6)
+            assert r["bucket_capacity"] == {256: 8192, 512: 2048}[
+                r["chips"]]
+            assert kb["radix_hist"] > 0 and kb["radix_pos"] > 0
+        else:
+            assert r["collectives"]["calls"] == {"psum": 64}
+            assert r["collectives"]["bytes"] == {"psum": [64 * 4096] * 2}
+            assert kb["rank_select"] > 0
 
 
 def test_dryrun_list_on_both_meshes_matches_the_reference(reference,
