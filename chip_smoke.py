@@ -238,8 +238,10 @@ script exits nonzero and prints no final result:
      rank 0 in worlds where no data moves, and perf's LM variants (the
      four fsdp rule sets among them) carry per-rank 16x16 estimates: a
      traced mesh cell that counts no work or moves no collective bytes
-     where its rules split a weight fails, as does llama4 decode_32k on
-     16x16 saying it fits.  Every trace of the phase runs on the CPU at a
+     where its rules split a weight fails, as does a decode cell whose
+     rank holds attention caches of other bytes than the reference's
+     layout gives, or llama4 decode_32k on 16x16 saying it fits.  Every
+     trace of the phase runs on the CPU at a
      lower priority while phase 12 runs, and is collected here.  After
      phases 14 and 15, their (b) parts' measured step peaks a rank are
      held to 1.10 x their meta world estimates (a line of its own)
@@ -256,9 +258,12 @@ script exits nonzero and prints no final result:
      one rank in this process and then in a world of 2 (1, 1, 2) from the
      same seeded weights: forward(last_token_only) (B = 8, S = 256 and B
      = 4, S = 1024) within LM_TOL of 1 + |b|, or for (c) within 5% of the
-     max |logit|; (b)'s greedy generate at B = 8 (4 + 8 tokens) equal
-     but at a near tie, with s a decode step and the collectives of a
-     step by kind; each rank's heads and experts, and its peak memory
+     max |logit|; greedy generate, (b) at B = 8 (4 + 8 tokens), (c) at
+     B = 4 (4 + 4 tokens), over caches split by sequence over model,
+     equal but at a near tie, with s a decode step and the collectives
+     of a step by kind, and the decode logits along the single run's
+     tokens within the same rule; each rank's heads and experts, and its
+     peak memory
  15  LM training in worlds of ranks sharing the card (gloo, host-staged;
      no index kernel may launch in any rank): (a) in phase 14 (a)'s
      worlds, after each config's serving cases, one train step of it
@@ -4936,7 +4941,7 @@ def lm_decode(params, cfg, tokens, dtype, ctx=None) -> "torch.Tensor":
     out = []
     for pos in range(T):
         logits, cache = tf.decode_step(params, cache, tokens[:, pos:pos + 1],
-                                       pos, cfg, ctx)
+                                       pos, cfg, ctx, max_len=T)
         out.append(gather_global(logits, ctx, ("batch", "act_model"),
                                  (B, cfg.vocab_size)))
     return torch.stack(out, 1)
@@ -5749,6 +5754,21 @@ def check_mesh_cell(rec: dict, what: str) -> None:
                 f"but its collectives move 0 bytes")
 
 
+def check_cache_layout(rec: dict, what: str) -> None:
+    """A traced decode cell's rank holds its attention caches in the
+    reference's layout: the attention leaves' held bytes equal their
+    argument bytes (a world that kept another layout, e.g. the kv heads
+    over model with the whole sequence, holds up to model x more)."""
+    from repro_torch.launch.specs import SHAPES
+
+    if SHAPES[rec["shape"]]["kind"] != "decode":
+        return
+    got = rec["attention_cache_bytes"]
+    require(got["held"] == got["argument"],
+            f"{what}: the rank holds {got['held']} B of attention cache "
+            f"where the reference's layout gives {got['argument']} B")
+
+
 def check_world_peak(peak_bytes: float, est: dict, what: str) -> dict:
     """A rank's measured peak of a world step against that step's meta
     world estimate: at most ``LAUNCH_PEAK_SLACK`` times it (as
@@ -5955,12 +5975,14 @@ def check_mesh_cells(lm: list, config_of) -> dict:
                 + (f"\n{c['error']}" if "error" in c else ""))
         if c["status"] == "traced":
             check_mesh_cell(c, what)
+            check_cache_layout(c, what)
     out = {f"{c['arch']}__{c['shape']}__{c['mesh']}": (
         {"status": "skipped"} if c["status"] == "skipped" else
         {"status": "traced", "chips": c["chips"], "rank": c["rank"],
          "argument_gib": sum(c["argument_bytes"].values()) / 2**30,
          "total_gib": c["memory"]["total_bytes"] / 2**30,
          "fits": c["memory"]["fits"], "n_micro": c.get("n_micro"),
+         "attention_cache_bytes": c.get("attention_cache_bytes"),
          "flops": c["counts"]["flops"], "bytes": c["counts"]["bytes"],
          "collective_bytes": c["collectives"]["moved_bytes"],
          "collectives": c["collectives"]["calls"],
@@ -6237,11 +6259,12 @@ LM_TRAIN_M0, LM_TRAIN_V0, LM_TRAIN_ERR0 = 1e-3, 1e-6, 1e-4
 LM_TRAIN_TIE = 1e-3
 # the full-width parts: (name, config id, depth cut, dtype, forward (B, S),
 # generate (B, prompt, new) or None); minitron_4b's new tokens cut from 16
-# to 8 to pay for phase 15
+# to 8 to pay for phase 15; deepseek_v2_236b's few steps decode MLA over
+# its latent cache split by sequence
 LM_WORLD_FULL = (
     ("minitron_4b", "minitron_4b", None, "float32", (8, 256), (8, 4, 8)),
     ("deepseek_v2_236b", "deepseek_v2_236b", 3, "bfloat16", (4, 1024),
-     None),
+     (4, 4, 4)),
 )
 
 
@@ -6497,7 +6520,9 @@ def lm_world_full_rank(mesh, spec: dict) -> dict:
     full width (weights drawn on ``spec["device"]`` from a seeded
     generator, the rank's blocks, ``DECODE_RULES``): the local shapes of
     its heads and experts, forward(last_token_only) timed, greedy generate
-    timed with the collectives of its steps, the peak; the global logits
+    timed with the collectives of its steps (its caches split by
+    sequence), the peak; then the decode logits along the single-rank
+    run's tokens (``spec["tokens"]``); the global logits, decode logits
     and tokens on rank 0."""
     import torch
     import torch.distributed as dist
@@ -6559,6 +6584,10 @@ def lm_world_full_rank(mesh, spec: dict) -> dict:
                         k: (v[0] + v[1]) / steps for k, v in
                         dist_sort.COLLECTIVE_BYTES.items() if v[0]}}
         rec["step_peak_gib"] = mem.peak_gib()
+        if gen:
+            with torch.no_grad():
+                decoded = lm_decode(params, cfg, torch.from_numpy(
+                    spec["tokens"][name][:, :-1]).to(dev), dtype, ctx)
         rec["peak_gib"] = max(init_peak, rec["step_peak_gib"])
         launches, _ = _counts()
         for k, v in launches.items():
@@ -6567,6 +6596,7 @@ def lm_world_full_rank(mesh, spec: dict) -> dict:
             rec["logits"] = logits.float()
             if gen:
                 rec["tokens"] = res.tokens
+                rec["decode"] = decoded.float()
         out[name] = rec
         del params, logits
         mem.reset_peak()
@@ -6626,11 +6656,13 @@ def lm_world_full(device, parts=LM_WORLD_FULL,
                   config: str = "get_config") -> tuple[dict, dict]:
     """Phase 14 (b) / (c): each part's single-rank run in this process,
     then all parts in one world of ``LM_WORLD_FULL_MESH`` on ``device``:
-    the forward logits within LM_TOL (float32) or LM_BF16_TOL of the max
-    |logit| (bf16) of the single run's, the greedy tokens equal but at a
-    near tie.  ``config`` names the function of ``configs.base`` that
-    gives the configs (the CPU rehearsal takes the reduced ones).  Returns
-    (record, launches over the world's ranks)."""
+    the forward logits, and the decode logits along the single run's
+    tokens (the world's caches split by sequence over model), within
+    LM_TOL (float32) or LM_BF16_TOL of the max |logit| (bf16) of the
+    single run's, the greedy tokens equal but at a near tie.  ``config``
+    names the function of ``configs.base`` that gives the configs (the
+    CPU rehearsal takes the reduced ones).  Returns (record, launches over
+    the world's ranks)."""
     import torch
 
     from repro_torch.launch.mesh import run_world
@@ -6640,11 +6672,10 @@ def lm_world_full(device, parts=LM_WORLD_FULL,
     for v in LM_WORLD_FULL_MESH.values():
         n *= v
     t0 = time.perf_counter()
-    ranks = run_world(n, lm_world_full_rank, {"parts": parts,
-                                              "device": device,
-                                              "config": config},
-                      mesh_shape=LM_WORLD_FULL_MESH,
-                      timeout_s=LM_WORLD_TIMEOUT_S)
+    ranks = run_world(n, lm_world_full_rank, {
+        "parts": parts, "device": device, "config": config,
+        "tokens": {p[0]: singles[p[0]]["tokens"] for p in parts if p[5]}},
+        mesh_shape=LM_WORLD_FULL_MESH, timeout_s=LM_WORLD_TIMEOUT_S)
     rec = {"mesh": LM_WORLD_FULL_MESH, "world_s": time.perf_counter() - t0}
     launches = {}
     for r in ranks:
@@ -6657,18 +6688,24 @@ def lm_world_full(device, parts=LM_WORLD_FULL,
         part = {"single": {k: v for k, v in one.items()
                            if k not in ("logits", "tokens", "tie_logits")},
                 "ranks": [{k: v for k, v in r[name].items()
-                           if k not in ("logits", "tokens")} for r in ranks],
-                "forward_max_err": max_err(got, want),
-                "max_abs_logit": float(want.abs().max())}
-        if dtype == "float32":
-            require_close(got, want, LM_TOL, f"{what} forward")
-        else:
+                           if k not in ("logits", "tokens", "decode")}
+                          for r in ranks]}
+        checks = [("forward", got, want)]
+        if gen:
+            checks.append(("decode", torch.from_numpy(world.pop("decode")),
+                           one["tie_logits"]))
+        for which, got, want in checks:
+            err, scale = max_err(got, want), float(want.abs().max())
+            part[f"{which}_max_err"] = err
+            part[("" if which == "forward" else f"{which}_")
+                 + "max_abs_logit"] = scale
+            if dtype == "float32":
+                require_close(got, want, LM_TOL, f"{what} {which}")
+                continue
             require(bool(torch.isfinite(got).all())
-                    and part["forward_max_err"]
-                    <= LM_BF16_TOL * part["max_abs_logit"],
-                    f"{what} forward differs by {part['forward_max_err']} "
-                    f"(max |logit| {part['max_abs_logit']}, tol "
-                    f"{LM_BF16_TOL} of it)")
+                    and err <= LM_BF16_TOL * scale,
+                    f"{what} {which} differs by {err} (max |logit| {scale}, "
+                    f"tol {LM_BF16_TOL} of it)")
         if gen:
             part["generate_rows_differ"] = tokens_agree(
                 world["tokens"], one["tokens"], one["tie_logits"], gen[1],

@@ -222,10 +222,11 @@ def _micro_batches(cfg, shape: str, chips: int) -> int:
     return n
 
 
-def _decode_fn(cfg, ctx):
+def _decode_fn(cfg, ctx, max_len: int | None = None):
     def decode(params, cache, tokens, pos):
         with torch.no_grad():
-            return tf.decode_step(params, cache, tokens, pos, cfg, ctx)
+            return tf.decode_step(params, cache, tokens, pos, cfg, ctx,
+                                  max_len=max_len)
 
     return decode
 
@@ -375,18 +376,19 @@ def _train_counts(cfg, ctx, params, opt, batch, n_micro: int, remat: str):
 
 
 def rank_step(cfg, kind: str, ctx, inputs: dict, *, remat: str = "full",
-              n_micro: int = 1, pos: int = 0) -> tuple:
+              n_micro: int = 1, pos: int = 0,
+              max_len: int | None = None) -> tuple:
     """One rank's step of a cell of ``kind`` on ``ctx`` under
     ``roofline.count``: a meta world's rank on ``meta`` tensors, or a real
     world's (or one device's) on tensors with storage, at any size.
     ``inputs``: the rank's ``params`` (and ``opt_state`` to train, its
-    ``cache`` to decode, in the world's own layout) and the global
+    ``cache`` to decode, in the reference's layout) and the global
     ``batch``.  The step is the world step of the model code: train is
     ``loss_fn`` with autograd under ``remat``, ``reduce_gradients`` and
     AdamW with its norm's psum (``n_micro`` micro-batches accumulated);
     prefill ``forward(last_token_only=True)``; decode ``decode_step`` at
-    ``pos``.  Returns (Counts, Traffic, {"micro_batch", "update"} counts
-    of a train step)."""
+    ``pos`` (``max_len`` its cache's length).  Returns (Counts, Traffic,
+    {"micro_batch", "update"} counts of a train step)."""
     params, batch = inputs["params"], inputs["batch"]
     if kind == "train":
         counts, micro, update, traffic = _train_counts(
@@ -397,9 +399,9 @@ def rank_step(cfg, kind: str, ctx, inputs: dict, *, remat: str = "full",
         _, counts, traffic = _collecting(_prefill_fn(cfg, ctx), params,
                                          batch)
     else:
-        _, counts, traffic = _collecting(_decode_fn(cfg, ctx), params,
-                                         inputs["cache"], batch["tokens"],
-                                         pos)
+        _, counts, traffic = _collecting(_decode_fn(cfg, ctx, max_len),
+                                         params, inputs["cache"],
+                                         batch["tokens"], pos)
     return counts, traffic, {}
 
 
@@ -416,10 +418,9 @@ def rank_inputs(cfg, kind: str, ctx, args: dict, *, B: int, S: int,
     """One rank's inputs of a step on ``ctx``'s world, on ``meta``: the
     params (in ``dtype``) and AdamW state as the rank's blocks of
     ``args`` (``cell_inputs``), the global batch (the step reads its
-    rows), and the decode cache in the world's own layout
-    (``init_cache`` with ``ctx``: the kv heads over model where the
-    weights split them, where the reference's dry run splits the cache's
-    sequence)."""
+    rows), and the decode cache as ``init_cache`` lays it out in the
+    world (``ctx``): the reference's layout, the attention caches'
+    sequence over model (``sharding.cache_spec``)."""
     inputs = {"params": _blocks(args["params"], dtype),
               "batch": args["batch"].tree}
     if kind == "train":
@@ -429,6 +430,30 @@ def rank_inputs(cfg, kind: str, ctx, args: dict, *, B: int, S: int,
                                         cache_dtype or torch.bfloat16,
                                         device="meta", ctx=ctx)
     return inputs
+
+
+ATTENTION_CACHE = ("k", "v", "ckv", "k_rope")
+
+
+def attention_cache_nbytes(cache, local=None) -> int:
+    """Bytes of a decode cache's attention leaves (``ATTENTION_CACHE``):
+    of each leaf itself, or of its per-device shape in ``local`` (an
+    ``Abstract``'s tree of shapes of the same structure)."""
+    if isinstance(cache, dict):
+        items = cache.items()
+    elif isinstance(cache, list):
+        items = enumerate(cache)
+    else:
+        return 0
+    total = 0
+    for k, v in items:
+        shape = None if local is None else local[k]
+        if k in ATTENTION_CACHE and isinstance(v, torch.Tensor):
+            total += int(np.prod(v.shape if shape is None else shape)
+                         ) * v.element_size()
+        else:
+            total += attention_cache_nbytes(v, shape)
+    return total
 
 
 def split_axes(cfg, ctx) -> list:
@@ -516,9 +541,11 @@ def trace_mesh_cell(cfg, shape: str, mesh, *, rank: int = 0, rules=None,
 
     ``argument_bytes`` are the rank's blocks by the reference's partition
     specs (``specs.py``); ``held_argument_bytes`` what the port's step
-    holds, the same but for a decode cache, which the world keeps in its
-    own layout (``rank_inputs``); the memory adds the step's temp peak to
-    those.  The collectives are this rank's, by kind and pass, with the
+    holds (``rank_inputs``), and for a decode cell
+    ``attention_cache_bytes`` the attention leaves' part of each: equal,
+    the world's cache in the reference's layout (its SSM / RG-LRU states
+    may differ by a few KB, the Mamba-2 conv window's channels); the
+    memory adds the step's temp peak to the held bytes.  The collectives are this rank's, by kind and pass, with the
     bytes they move; the roofline's collective term is those bytes over
     ``NVLINK_BW``."""
     axes = mesh_axes(mesh)
@@ -544,9 +571,14 @@ def trace_mesh_cell(cfg, shape: str, mesh, *, rank: int = 0, rules=None,
                              cache_dtype=cache_dtype)
         counts, traffic, parts = rank_step(cfg, kind, ctx, inputs,
                                            remat=remat, n_micro=n_micro or 1,
-                                           pos=S - 1)
+                                           pos=S - 1, max_len=S)
         rec["split_axes"] = split_axes(cfg, ctx)
         held = {k: tree_nbytes(v) for k, v in inputs.items()}
+        if kind == "decode":
+            rec["attention_cache_bytes"] = {
+                "argument": attention_cache_nbytes(args["cache"].tree,
+                                                   args["cache"].local),
+                "held": attention_cache_nbytes(inputs["cache"])}
     rec["trace_s"] = time.perf_counter() - t0
     held["batch"] = rec["argument_bytes"]["batch"]     # the rank's rows
     rec["held_argument_bytes"] = held

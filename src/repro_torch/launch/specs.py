@@ -20,7 +20,12 @@ import torch
 from ..configs.base import ArchConfig
 from ..models import transformer as tf
 from ..models.common import tree_map
-from ..sharding import MeshContext
+from ..sharding import (
+    MeshContext,
+    batch_axes_for,
+    cache_spec,
+    normalised_spec as _spec,
+)
 
 # the assigned input-shape sets (LM shapes are seq_len x global_batch)
 SHAPES = {
@@ -56,24 +61,6 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def _spec(*parts) -> tuple:
-    """A partition spec with a one-axis tuple normalised to its name."""
-    return tuple(p[0] if isinstance(p, tuple) and len(p) == 1 else p
-                 for p in parts)
-
-
-def _batch_axes_for(B: int, ctx: MeshContext):
-    """batch sharding with divisibility fallback (long_500k has B=1: the
-    data axis idles — documented single-stream latency shape)."""
-    bdp = ctx.batch_axes
-    if bdp and B % ctx.axis_size(bdp) == 0:
-        return bdp
-    for ax in bdp or ():
-        if B % ctx.mesh[ax] == 0 and ctx.mesh[ax] > 1:
-            return (ax,)
-    return None
-
-
 def batch_specs(cfg: ArchConfig, shape: str, ctx: MeshContext, *,
                 global_batch: int | None = None,
                 seq_len: int | None = None) -> Abstract:
@@ -81,7 +68,7 @@ def batch_specs(cfg: ArchConfig, shape: str, ctx: MeshContext, *,
     shape's)."""
     info = SHAPES[shape]
     B, S = global_batch or info["global_batch"], seq_len or info["seq_len"]
-    bdp = _batch_axes_for(B, ctx)
+    bdp = batch_axes_for(B, ctx)
     tree, specs = {}, {}
     if info["kind"] in ("train", "prefill"):
         if cfg.frontend != "none":
@@ -99,37 +86,6 @@ def batch_specs(cfg: ArchConfig, shape: str, ctx: MeshContext, *,
     return _abstract(tree, specs, ctx)
 
 
-def _cache_spec_for_path(path, leaf_shape, cfg: ArchConfig, ctx: MeshContext,
-                         batch: int):
-    """Sharding for one KV-cache leaf, by leaf name."""
-    bdp = _batch_axes_for(batch, ctx)
-    name = path[-1] if path and isinstance(path[-1], str) else ""
-    model = ctx.model_axis
-
-    def fits(dim, ax):
-        return ax and leaf_shape[dim] % ctx.mesh[ax] == 0
-    if name in ("k", "v"):          # (..., B, T, Hkv, hd)
-        # shard the SEQ dim over model: divisible for every arch (32k % 16)
-        # where head counts (1, 8, 24, 56...) often are not
-        seq_ax = model if fits(len(leaf_shape) - 3, model) else None
-        return _spec(*([None] * (len(leaf_shape) - 4)), bdp, seq_ax, None,
-                     None)
-    if name in ("ckv", "k_rope"):   # (..., B, T, r)
-        seq_ax = model if fits(len(leaf_shape) - 2, model) else None
-        return _spec(*([None] * (len(leaf_shape) - 3)), bdp, seq_ax, None)
-    if name == "conv":              # (..., B, K-1, C)
-        ch_ax = model if fits(len(leaf_shape) - 1, model) else None
-        return _spec(*([None] * (len(leaf_shape) - 3)), bdp, None, ch_ax)
-    if name == "ssm":               # (..., B, nh, hd, state)
-        h_ax = model if fits(len(leaf_shape) - 3, model) else None
-        return _spec(*([None] * (len(leaf_shape) - 4)), bdp, h_ax, None,
-                     None)
-    if name == "h":                 # (..., B, 1, w) rg-lru state
-        w_ax = model if fits(len(leaf_shape) - 1, model) else None
-        return _spec(*([None] * (len(leaf_shape) - 3)), bdp, None, w_ax)
-    return _spec(*([None] * len(leaf_shape)))
-
-
 def _map_with_path(fn, tree, path=()):
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, (*path, k)) for k, v in tree.items()}
@@ -142,13 +98,14 @@ def cache_specs(cfg: ArchConfig, shape: str, ctx: MeshContext,
                 dtype=None, *, global_batch: int | None = None,
                 seq_len: int | None = None) -> Abstract:
     """The decode cache of a cell (``global_batch`` / ``seq_len``
-    override the shape's), from ``init_cache`` on ``meta``."""
+    override the shape's), from ``init_cache`` on ``meta``, each leaf
+    laid out by its name (``sharding.cache_spec``, the rule a world's
+    ``init_cache`` lays its blocks out by)."""
     info = SHAPES[shape]
     B, S = global_batch or info["global_batch"], seq_len or info["seq_len"]
     cache = tf.init_cache(cfg, B, S, dtype or torch.bfloat16, device="meta")
     specs = _map_with_path(
-        lambda path, t: _cache_spec_for_path(path, t.shape, cfg, ctx, B),
-        cache)
+        lambda path, t: cache_spec(path[-1], t.shape, ctx, B), cache)
     return _abstract(cache, specs, ctx)
 
 

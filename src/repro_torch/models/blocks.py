@@ -10,13 +10,16 @@ the JAX package's ``models/blocks.py``, and come in two modes:
 Spec builders (``*_specs``) are the single source of truth for shapes and
 logical sharding axes (models/common.ParamSpec).
 
-In a world of ranks (``sharding.world_context``) the params, caches and
-activations are this rank's blocks by ``spec_for``, and each function runs
-on them as the reference's GSPMD program does on a device: the dims over
-``data`` / ``pod`` (ZeRO-3's fsdp, the lora ranks, the expert hidden dim)
-are gathered before use, the heads / mlp / experts stay split over
-``model`` and one ``psum`` over ``model`` sums the rank's share of the
-output projection.  The MoE follows the reference's ``shard_map``: routing
+In a world of ranks (``sharding.world_context``) the params and
+activations are this rank's blocks by ``spec_for`` and the decode caches
+by the reference's cache layout (``sharding.cache_spec``: attention's
+sequence over ``model``), and each function runs on them as the
+reference's GSPMD program does on a device: the dims over ``data`` /
+``pod`` (ZeRO-3's fsdp, the lora ranks, the expert hidden dim) are
+gathered before use, the heads / mlp / experts stay split over ``model``
+and one ``psum`` over ``model`` sums the rank's share of the output
+projection; a decode step scores each rank's positions and combines the
+ranks' partial softmaxes.  The MoE follows the reference's ``shard_map``: routing
 on the rank's own tokens, capacity from their count.  Attention is the
 reference's own math (a materialised softmax, or the online softmax over
 KV chunks), not a library attention, so the port computes what the
@@ -34,6 +37,7 @@ from ..sharding import (
     MeshContext,
     all_gather,
     axes_of,
+    cache_spec,
     constrain,
     gather_spec,
     psum,
@@ -257,50 +261,188 @@ def gqa_attention(p, x, cfg: ArchConfig, ctx: MeshContext, *, window: int = 0,
 def gqa_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                    device=None, ctx: MeshContext | None = None):
     """Zeroed k / v (batch, max_len, kv heads, head_dim); in a world this
-    rank's rows and kv heads."""
-    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    if ctx is not None:
-        batch = local_batch(ctx, batch)
-        Hkv = model_block(ctx, spec_of(ctx, gqa_specs(cfg)["wk"])[1], Hkv)[1]
-    return {
-        "k": torch.zeros((batch, max_len, Hkv, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, max_len, Hkv, hd), dtype=dtype, device=device),
-    }
+    rank's block by the reference's cache layout (``cache_leaf``)."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {name: cache_leaf(name, shape, dtype, device, ctx)
+            for name in ("k", "v")}
 
 
 def gqa_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext, *,
                window: int = 0):
     """One-token decode.  x (B, 1, d); cache k/v (B, T, Hkv, hd), written in
     place at the new token's slot; pos — the index of the new token.
-    Returns (y, cache)."""
+    Returns (y, cache).  In a world the cache is the rank's block of the
+    reference's layout (``_gqa_decode_world``)."""
     require_one_device(ctx)
     B = x.shape[0]
-    T = cache["k"].shape[1]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     p = gathered(p, ctx, gqa_specs, cfg)
-    kv_idx = _kv_index(cfg, ctx)
     q, k, v = _gqa_qkv(p, x, cfg, positions)
+    if ctx.world is not None:
+        out = _gqa_decode_world(q, k, v, cache, pos, cfg, ctx, window)
+        return _attn_out(p, out, x, cfg, ctx), cache
     # windowed caches store key at pos % T (ring buffer); full caches at pos
     # (caches may be low-precision, e.g. fp8 — cast on write, upcast on read)
+    T = cache["k"].shape[1]
     cdt = cache["k"].dtype
     slot = pos % T if window > 0 else min(pos, T - 1)
     cache["k"][:, slot] = k[:, 0].to(cdt)
     cache["v"][:, slot] = v[:, 0].to(cdt)
-    kpos = torch.arange(T, device=x.device)
+    mask = _decode_mask(torch.arange(T, device=x.device), pos, slot, T,
+                        window)
+    out = _attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+                  mask[None, None, None, :])
+    return _attn_out(p, out, x, cfg, ctx), cache
+
+
+def _decode_mask(kpos, pos: int, slot: int, T: int, window: int):
+    """Which cache entries (global indices ``kpos`` of a cache of T) a
+    token at ``pos`` sees, its key written at ``slot``."""
     if window > 0:
         # ring: entry j holds the absolute position below; valid if within
         # the last ``window`` positions <= pos
         abs_pos = torch.where(kpos <= slot, pos - slot + kpos,
                               pos - slot - T + kpos)
-        mask = (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - window)
+        return (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - window)
+    return kpos <= pos
+
+
+# ---------------------------------------------------------------------------
+# decode over a cache split by sequence (a world)
+# ---------------------------------------------------------------------------
+#
+# The reference's layout splits the sequence of every attention cache leaf
+# over ``model`` and keeps all kv heads (or the whole latent) in each
+# block (``sharding.cache_spec``).  A rank scores every q head against its
+# own positions and keeps the running max, sum and weighted values of its
+# softmax share; one all_gather over model brings every rank's shares of
+# its head block, which it combines.  No rank holds a whole sequence.
+
+def cache_leaf(name: str, shape, dtype, device, ctx: MeshContext | None):
+    """A zeroed cache leaf of global ``shape``: in a world this rank's
+    block by ``sharding.cache_spec``."""
+    if ctx is not None and ctx.world is not None:
+        shape = ctx.local_shape(cache_spec(name, shape, ctx, shape[0]),
+                                shape)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _cache_positions(ctx: MeshContext, name: str, local: tuple,
+                     window: int = 0) -> tuple[int, int, int]:
+    """(T, first, count): the global length of an attention cache leaf
+    whose block on this rank has shape ``local`` (B, T_local, ...), and
+    the block's first position and count.  T is the call's ``cache_len``
+    (a ring's at most ``window``), or read off the block where only one
+    layout gives it: a block that ``model`` divides is a split one."""
+    M = ctx.mesh.get("model", 1)
+    if ctx.cache_len is not None:
+        T = min(window, ctx.cache_len) if window > 0 else ctx.cache_len
+    elif local[1] % M == 0:
+        T = local[1] * M
     else:
-        mask = kpos <= pos
-    ck, cv = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
-    if kv_idx is not None:
-        ck, cv = ck[:, :, kv_idx.to(x.device)], cv[:, :, kv_idx.to(x.device)]
-    out = _attend(q, ck, cv, mask[None, None, None, :])
-    return _attn_out(p, out, x, cfg, ctx), cache
+        raise ValueError(
+            f"a cache block of {local[1]} positions over model = {M} is a "
+            f"whole cache or one of {M}: pass decode_step its max_len")
+    shape = (ctx.batch, T, *local[2:])
+    blk = ctx.block(cache_spec(name, shape, ctx, ctx.batch), shape)[1]
+    if blk.stop - blk.start != local[1]:
+        raise ValueError(f"a cache block of {local[1]} positions where a "
+                         f"cache of {T} gives {blk.stop - blk.start}")
+    return T, blk.start, blk.stop - blk.start
+
+
+def _write_slot(cache, new: dict, j: int, count: int) -> None:
+    """Write each ``new[name]`` (B, 1, ...) at this rank's position ``j``
+    of its ``cache[name]`` block of ``count`` positions, cast to the
+    cache's dtype, where the block holds it.  Every rank runs the same
+    ops (a rank that does not hold it selects its own entry back), so
+    every rank counts the same step."""
+    own = 0 <= j < count
+    j = min(max(j, 0), count - 1)
+    for name, t in new.items():
+        c = cache[name]
+        keep = torch.full((), own, dtype=torch.bool, device=c.device)
+        c[:, j] = torch.where(keep, t[:, 0].to(c.dtype), c[:, j])
+
+
+def _whole_heads(parts: list, ctx: MeshContext) -> list:
+    """Each (B, 1, h, d) block of heads in ``parts`` (split over model)
+    with its heads whole: one all_gather over model for all of them."""
+    if not parts:
+        return []
+    widths = [t.shape[2] for t in parts]
+    g = all_gather(torch.cat(parts, 2)[None], ctx, ("model",), 0)
+    out = []
+    for t in g.split(widths, 3):              # (M, B, 1, h, d) each
+        M, B, _, h, d = t.shape
+        out.append(t.permute(1, 2, 0, 3, 4).reshape(B, 1, M * h, d))
+    return out
+
+
+def _partials(logits, mask, values, contract: str):
+    """This rank's share of a softmax over its positions: the running max
+    ``m``, the sum ``l`` of exp(logit - m) and the weighted ``values``
+    ``acc`` (by the einsum ``contract``), all float32.  A block with no
+    valid key gives m = NEG_INF and l = acc = 0."""
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    w = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
+    return m, w.sum(dim=-1), einsum(contract, w, values.float())
+
+
+def _combine(m, l, acc, ctx: MeshContext, first: int, count: int):
+    """Heads ``first`` .. ``first + count`` of the softmax-weighted sums
+    over every rank's positions, from each rank's partials over its own
+    (m, l (B, H), acc (B, H, c)): one all_gather over model of the packed
+    partials, combined in rank order the same way on every rank.
+    Returns (B, count, c) float32."""
+    packed = torch.cat([m[..., None], l[..., None], acc], dim=-1)
+    parts = all_gather(packed[None], ctx, ("model",), 0)[
+        :, :, first:first + count]
+    m, l, acc = parts[..., 0], parts[..., 1], parts[..., 2:]
+    w = torch.exp(m - m.amax(dim=0))          # an empty block weighs 0
+    l = (w * l).sum(dim=0)
+    acc = (w[..., None] * acc).sum(dim=0)
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _gqa_decode_world(q, k, v, cache, pos: int, cfg: ArchConfig,
+                      ctx: MeshContext, window: int):
+    """The attention of one new token (q (B, 1, Hl, hd) of this rank's
+    q heads, k / v of its kv heads) over the cache's rank's block: all
+    kv heads of the rank's positions (the whole sequence where ``model``
+    does not divide it).  The new token's kv heads gathered whole reach
+    the rank that holds its slot; over a split sequence every q head is
+    scored against the rank's positions and the partials combined for
+    its own heads.  Returns the (B, 1, Hl, hd) output."""
+    Bl, _, Hl, hd = q.shape
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    T, t0, Tl = _cache_positions(ctx, "k", tuple(cache["k"].shape), window)
+    split = Tl < T
+    q0, _ = model_block(ctx, spec_of(ctx, gqa_specs(cfg)["wq"])[1], H)
+    need_q, split_kv = split and Hl < H, k.shape[2] < Hkv
+    whole = _whole_heads([q] * need_q + [k, v] * split_kv, ctx)
+    q_all = whole.pop(0) if need_q else q
+    if split_kv:
+        k, v = whole
+    slot = pos % T if window > 0 else min(pos, T - 1)
+    _write_slot(cache, {"k": k, "v": v}, slot - t0, Tl)
+    kpos = t0 + torch.arange(Tl, device=q.device)
+    mask = _decode_mask(kpos, pos, slot, T, window)
+    ck, cv = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+    if not split:
+        if Hl < H:      # this rank's q heads against their kv heads
+            idx = ((q0 + torch.arange(Hl)) // (H // Hkv)).to(q.device)
+            ck, cv = ck[:, :, idx], cv[:, :, idx]
+        return _attend(q, ck, cv, mask[None, None, None, :])
+    qr = q_all.reshape(Bl, 1, Hkv, H // Hkv, hd)
+    logits = einsum("bskgd,btkd->bkgst", qr, ck).float()
+    logits = logits / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    m, l, acc = _partials(logits, mask, cv, "bkgst,btkd->bkgsd")
+    out = _combine(m.reshape(Bl, H), l.reshape(Bl, H),
+                   acc.reshape(Bl, H, hd), ctx, q0, Hl)
+    return out[:, None].to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -421,16 +563,13 @@ def mla_attention(p, x, cfg: ArchConfig, ctx: MeshContext, *, positions=None):
 
 def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                    device=None, ctx: MeshContext | None = None):
-    """Zeroed latent cache; in a world this rank's rows (the latent is
-    whole on every rank)."""
-    if ctx is not None:
-        batch = local_batch(ctx, batch)
-    return {
-        "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
-                           device=device),
-        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
-                              device=device),
-    }
+    """Zeroed latent cache; in a world this rank's block by the
+    reference's cache layout (``cache_leaf``: its rows and positions, the
+    latent whole)."""
+    return {name: cache_leaf(name, (batch, max_len, width), dtype, device,
+                             ctx)
+            for name, width in (("ckv", cfg.kv_lora_rank),
+                                ("k_rope", cfg.qk_rope_dim))}
 
 
 def mla_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext):
@@ -444,6 +583,10 @@ def mla_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext):
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv_new, k_rope_new = _mla_kv_latent(p, x, cfg)
     k_rope_new = apply_rope(k_rope_new, positions, cfg.rope_theta)
+    if ctx.world is not None:
+        out = _mla_decode_world(p, q_nope, q_rope, ckv_new, k_rope_new,
+                                cache, pos, cfg, ctx)
+        return _attn_out(p, out, x, cfg, ctx), cache
     T = cache["ckv"].shape[1]
     slot = min(pos, T - 1)
     cache["ckv"][:, slot] = ckv_new[:, 0].to(cdt)
@@ -452,6 +595,48 @@ def mla_decode(p, x, cache, pos: int, cfg: ArchConfig, ctx: MeshContext):
     out = _mla_attend(p, q_nope, q_rope, cache["ckv"].to(x.dtype),
                       cache["k_rope"].to(x.dtype), cfg, mask)
     return _attn_out(p, out, x, cfg, ctx), cache
+
+
+def _mla_decode_world(p, q_nope, q_rope, ckv_new, k_rope_new, cache,
+                      pos: int, cfg: ArchConfig, ctx: MeshContext):
+    """MLA's decode over the rank's block of the latent cache (its
+    positions; the whole sequence where ``model`` does not divide it).
+    The new token's latent is whole on every rank; the rank that holds
+    its slot writes it.  Over a split sequence the absorbed form: each of
+    the rank's q heads' ``q_nope`` folded through ``k_up`` into the
+    latent, the folded q heads gathered whole, every head scored against
+    the rank's ckv / k_rope block, the latent-weighted partials combined
+    for the rank's heads and taken through its ``v_up``.  Returns the
+    (B, 1, Hl, v_head_dim) output."""
+    dt = q_nope.dtype
+    T, t0, Tl = _cache_positions(ctx, "ckv", tuple(cache["ckv"].shape))
+    slot = min(pos, T - 1)
+    _write_slot(cache, {"ckv": ckv_new, "k_rope": k_rope_new}, slot - t0,
+                Tl)
+    mask = t0 + torch.arange(Tl, device=q_nope.device) <= pos
+    if Tl == T:
+        return _mla_attend(p, q_nope, q_rope, cache["ckv"].to(dt),
+                           cache["k_rope"].to(dt), cfg,
+                           mask[None, None, None, :])
+    # float32 from the fold on: the absorbed form's sums run over the
+    # latent, where the expanded form's run over q / k heads
+    Bl, _, Hl, _ = q_nope.shape
+    H, kl = cfg.num_heads, cfg.kv_lora_rank
+    q0, _ = model_block(ctx, spec_of(ctx, mla_specs(cfg)["k_up"])[1], H)
+    q = torch.cat([einsum("bshk,chk->bshc", q_nope.float(),
+                          p["k_up"].float()),
+                   q_rope.float()], dim=-1)       # (B, 1, Hl, kl + qr)
+    if Hl < H:
+        q, = _whole_heads([q], ctx)
+    q_lat, q_rope = torch.split(q, [kl, cfg.qk_rope_dim], dim=-1)
+    ckv = cache["ckv"].float()
+    logits = (einsum("bshc,btc->bhst", q_lat, ckv)
+              + einsum("bshk,btk->bhst", q_rope, cache["k_rope"].float()))
+    logits = logits * _mla_scale(cfg)
+    m, l, acc = _partials(logits, mask, ckv, "bhst,btc->bhsc")
+    lat = _combine(m[..., 0], l[..., 0], acc[:, :, 0], ctx, q0, Hl)
+    out = einsum("bhc,chk->bhk", lat, p["v_up"].float()).to(dt)
+    return out[:, None]
 
 
 # ---------------------------------------------------------------------------

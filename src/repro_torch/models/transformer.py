@@ -436,8 +436,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Zeroed decode cache for ``batch`` sequences of up to ``max_len``
     tokens: the prefix / stacked groups / suffix layers' caches (KV
     entries in ``dtype``, SSM and LRU states in float32).  In a world
-    (``ctx``) this rank's blocks: its rows of the global ``batch``, its kv
-    heads and SSM / LRU channels."""
+    (``ctx``) this rank's blocks: its rows of the global ``batch``, and
+    for attention the reference's sequence split (``sharding.cache_spec``:
+    its positions over model, every kv head or the whole latent; the whole
+    sequence where model does not divide it), for SSM / LRU states its
+    channels."""
     device = resolve_device(device, allow_meta=True)
     prefix_kinds, pat, groups, suffix_kinds = _layer_plan(cfg)
 
@@ -457,15 +460,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
-                ctx: MeshContext, *, scan_unroll: int | bool = 1):
+                ctx: MeshContext, *, scan_unroll: int | bool = 1,
+                max_len: int | None = None):
     """One decode step.  tokens (B, 1) int; pos the new token's index.
     Writes the cache in place; returns (logits (B, V), the cache).  In a
     world the tokens are the global batch, the cache and the logits this
-    rank's blocks."""
+    rank's blocks; each attention layer scores its rank's positions and
+    combines the ranks' partial softmaxes over model.  ``max_len``, the
+    length ``init_cache`` was given, is needed there only where a rank's
+    block does not tell it (a block that model does not divide: the
+    whole cache, or one of model's)."""
     require_one_device(ctx)
     if ctx.world is None:
         return _decode_step(params, cache, tokens, pos, cfg, ctx)
-    ctx = _world_call(ctx, tokens.shape[0])
+    ctx = dataclasses.replace(_world_call(ctx, tokens.shape[0]),
+                              cache_len=max_len)
     with torch.no_grad():
         return _decode_step(params, cache, tokens, pos, cfg, ctx)
 

@@ -53,9 +53,10 @@ def generate(
 
     In a world (``ctx`` of ``sharding.world_context``, ``params`` the
     rank's blocks) every rank passes the same global ``prompts`` and
-    decodes its rows into its own cache; greedy picks the global argmax
-    over the vocab blocks, ``sample`` gets the global logits on every rank
-    (so draws the same tokens on each), and every rank returns the same
+    decodes its rows into its own cache (its attention caches split by
+    sequence over model); greedy picks the global argmax over the vocab
+    blocks, ``sample`` gets the global logits on every rank (so draws
+    the same tokens on each), and every rank returns the same
     global tokens, counted globally in tokens/s."""
     device = params["embed"].device
     B, prompt_len = prompts.shape
@@ -69,7 +70,8 @@ def generate(
     _sync(device)
     t0 = time.perf_counter()
     for pos in range(total - 1):
-        logits, cache = tf.decode_step(params, cache, tok, pos, cfg, ctx)
+        logits, cache = tf.decode_step(params, cache, tok, pos, cfg, ctx,
+                                       max_len=total)
         if pos + 1 < prompt_len:
             tok = out[:, pos + 1: pos + 2]
         else:

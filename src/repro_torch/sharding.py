@@ -81,12 +81,15 @@ class MeshContext:
     """A mesh's axis sizes + the axis-name vocabulary the model code uses;
     in a world also the ``DeviceMesh`` (``world``, its dims named as the
     axes) and, while a model call is under way, the global batch of its
-    activations (``batch``, which ``forward`` / ``decode_step`` set)."""
+    activations (``batch``, which ``forward`` / ``decode_step`` set) and
+    the global length of its decode cache where the caller gave it
+    (``cache_len``, ``decode_step``'s ``max_len``)."""
 
     mesh: Mapping[str, int]       # axis name -> size
     rules: Mapping[str, tuple[str, ...]]
     world: object = None          # torch DeviceMesh over the axes, or None
     batch: int | None = None      # global batch of the call under way
+    cache_len: int | None = None  # global decode cache length of the call
 
     @property
     def batch_axes(self) -> tuple[str, ...]:
@@ -183,6 +186,60 @@ def axes_of(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
+
+
+def normalised_spec(*parts) -> tuple:
+    """A partition spec with a one-axis tuple normalised to its name."""
+    return tuple(p[0] if isinstance(p, tuple) and len(p) == 1 else p
+                 for p in parts)
+
+
+# ---------------------------------------------------------------------------
+# the decode cache's layout (the JAX package's launch/specs.py rule)
+# ---------------------------------------------------------------------------
+
+def batch_axes_for(batch: int, ctx: MeshContext):
+    """The mesh axes a cache's or a batch's ``batch`` rows split over:
+    the batch axes when they divide it, else the first one of them (of
+    size over 1) that does, else None (long_500k's B = 1: the data axis
+    idles)."""
+    bdp = ctx.batch_axes
+    if bdp and batch % ctx.axis_size(bdp) == 0:
+        return bdp
+    for ax in bdp or ():
+        if batch % ctx.mesh[ax] == 0 and ctx.mesh[ax] > 1:
+            return (ax,)
+    return None
+
+
+def cache_spec(name: str, shape: Sequence[int], ctx: MeshContext,
+               batch: int) -> tuple:
+    """The partition spec of one decode cache leaf named ``name`` (its
+    key in the layer's cache) of global ``shape`` (leading stacked dims
+    included), for a cache of ``batch`` rows: the rows over the batch
+    axes, and the SEQUENCE of ``k`` / ``v`` and ``ckv`` / ``k_rope`` over
+    ``model`` (divisible for every arch at 32k, where head counts often
+    are not), whole where ``model`` does not divide it; the SSM / RG-LRU
+    states' channels or heads over ``model`` where it divides them."""
+    bdp = batch_axes_for(batch, ctx)
+    model = ctx.model_axis
+    n = len(shape)
+    lead = [None] * (n - (4 if name in ("k", "v", "ssm") else 3))
+
+    def over_model(dim):
+        return model if model and shape[dim] % ctx.mesh[model] == 0 else None
+
+    if name in ("k", "v"):          # (..., B, T, Hkv, hd)
+        return normalised_spec(*lead, bdp, over_model(n - 3), None, None)
+    if name in ("ckv", "k_rope"):   # (..., B, T, r)
+        return normalised_spec(*lead, bdp, over_model(n - 2), None)
+    if name == "conv":              # (..., B, K-1, C)
+        return normalised_spec(*lead, bdp, None, over_model(n - 1))
+    if name == "ssm":               # (..., B, nh, hd, state)
+        return normalised_spec(*lead, bdp, over_model(n - 3), None, None)
+    if name == "h":                 # (..., B, 1, w) rg-lru state
+        return normalised_spec(*lead, bdp, None, over_model(n - 1))
+    return normalised_spec(*([None] * n))
 
 
 def world_context(world, rules=TRAIN_RULES) -> MeshContext:

@@ -800,23 +800,36 @@ def test_phase_lm_world_runs_on_the_cpu():
 def test_lm_world_full_parts_run_on_the_cpu():
     """Phase 14 (b) / (c)'s logic on reduced configs: the single-rank runs,
     then both parts in one world of (1, 1, 2), each rank holding half the
-    heads (and experts), its forward against the single run's and its
-    greedy tokens equal."""
+    heads (and experts) and half the positions of every attention cache,
+    its forward and its decode logits along the single run's tokens
+    against the single run's, and its greedy tokens equal; (c)'s MLA
+    decodes over its latent cache split by sequence, one all_gather of
+    the folded q heads and one of the partials a layer."""
     parts = (("minitron_4b", "minitron_4b", None, "float32", (2, 16),
               (2, 4, 4)),
              ("deepseek_v2_236b", "deepseek_v2_236b", 2, "bfloat16",
-              (2, 16), None))
+              (2, 16), (2, 4, 4)))
     rec, launches = chip_smoke.lm_world_full("cpu", parts,
                                              "get_reduced_config")
     m, d = rec["minitron_4b"], rec["deepseek_v2_236b"]
     assert rec["mesh"] == {"pod": 1, "data": 1, "model": 2}
     assert m["generate_rows_differ"] == 0
     assert m["forward_max_err"] <= chip_smoke.LM_TOL * (1 + m["max_abs_logit"])
+    assert m["decode_max_err"] <= chip_smoke.LM_TOL * (
+        1 + m["decode_max_abs_logit"])
     assert [r["local_heads"] for r in m["ranks"]] == [2, 2]
     gen = m["ranks"][0]["generate"]
     assert gen["steps"] == 7 and gen["collectives_per_step"]["psum"] > 0
     assert [r["local_experts"] for r in d["ranks"]] == [4, 4]
     assert d["forward_max_err"] <= chip_smoke.LM_BF16_TOL * d["max_abs_logit"]
+    assert 0 < d["decode_max_abs_logit"]
+    assert d["decode_max_err"] <= (chip_smoke.LM_BF16_TOL
+                                   * d["decode_max_abs_logit"])
+    assert d["generate_rows_differ"] <= 2
+    # every MLA layer (one of the two reduced layers is MLA + MoE, the
+    # other MLA + the dense FFN) gathers twice a step on top of the psums
+    per = d["ranks"][0]["generate"]["collectives_per_step"]
+    assert per["all_gather"] >= 2 * 2
     assert set(launches.values()) <= {0}
 
 
@@ -924,6 +937,33 @@ def test_mesh_cells_all_80_on_the_cpu(tmp_path, monkeypatch):
     with pytest.raises(AssertionError, match="long_500k x 16x16: traced"):
         chip_smoke.check_mesh_cells([dict(rec, shape="long_500k")],
                                     get_reduced_config)
+
+
+@pytest.mark.parametrize("arch,shape,mesh", [
+    ("qwen2p5_3b", "decode_32k", "16x16"),
+    ("deepseek_v2_236b", "decode_32k", "2x16x16"),
+    ("recurrentgemma_2b", "long_500k", "16x16")])
+def test_check_mesh_cells_refuses_a_cache_not_in_the_references_layout(
+        arch, shape, mesh):
+    """Phase 13 on a decode cell (reduced configs, the shape's own
+    sequence): the rank's attention caches hold what the reference's
+    layout gives it (the sequence over model), which passes; a record
+    whose rank holds more (the whole sequence, as a world that splits the
+    kv heads instead would) is refused."""
+    import copy
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell(arch, shape, mesh=mesh,
+                          config_of=get_reduced_config)
+    got = rec["attention_cache_bytes"]
+    assert got["held"] == got["argument"] > 0
+    chip_smoke.check_mesh_cells([rec], get_reduced_config)
+    whole = copy.deepcopy(rec)
+    whole["attention_cache_bytes"]["held"] *= 16
+    with pytest.raises(AssertionError, match="attention cache"):
+        chip_smoke.check_mesh_cells([whole], get_reduced_config)
 
 
 def test_check_index_mesh_cells_refuses_broken_readings():

@@ -9,12 +9,15 @@ real gloo worlds.
   input / output bytes by kind, ``dist_sort``), the same FLOPs, bytes and
   ops and the same storage peak, for reduced configs of the three
   families (dense, MLA + MoE, SSD) in worlds of ``(1, 2, 2)`` and ``(2, 2,
-  2)``; every real rank counts what rank 0 counts, and the first and the
-  last rank of ``(2, 2, 2)`` give equal records in the meta world.
+  2)``, and recurrentgemma_2b's decode (its windowed ring, split by
+  sequence with its single kv head); every real rank counts what rank 0
+  counts, and the first and the last rank of ``(2, 2, 2)`` give equal
+  records in the meta world.
 * A meta world refuses a tensor with storage and refuses to open inside a
   world (and a real world inside it); perf's fsdp variants come back as
   per-rank 16x16 estimates, and the full-size qwen2p5_3b train cell's
-  rank holds the arguments the rules give it.
+  rank holds the arguments the rules give it; its decode_32k cell's rank
+  holds the reference's cache and never a whole sequence of it.
 
 The reference's per-rank argument bytes of every cell on both meshes are
 held in ``test_torch_launch_specs.py``, beside the JAX reference it runs.
@@ -27,6 +30,8 @@ WORLD_TIMEOUT_S = 600
 ARCHS = ("qwen2p5_3b", "deepseek_v2_236b", "mamba2_1p3b")
 KINDS = {"train": "train_4k", "prefill": "prefill_32k",
          "decode": "decode_32k"}
+# beside them: the windowed attention's decode
+RING = ("recurrentgemma_2b", "decode")
 B, S = 4, 8
 MESHES = {"1x2x2": {"pod": 1, "data": 2, "model": 2},
           "2x2x2": {"pod": 2, "data": 2, "model": 2}}
@@ -139,10 +144,21 @@ def world(request):
     n = 1
     for size in axes.values():
         n *= size
-    cases = [(a, k) for a in ARCHS for k in KINDS]
+    cases = [(a, k) for a in ARCHS for k in KINDS] + [RING]
     ranks = run_world(n, real_rank, cases, mesh_shape=axes,
                       timeout_s=WORLD_TIMEOUT_S)
     return request.param, axes, ranks
+
+
+def _meta_equals_real(world, arch: str, kind: str) -> dict:
+    name, axes, ranks = world
+    want = ranks[0][f"{arch}|{kind}"]
+    assert want["aten_bytes"] > 0 and want["peak"] > 0
+    assert sum(int(c) for c in want["calls"].values()) > 0
+    for r, rank in enumerate(ranks[1:], 1):
+        _same(rank[f"{arch}|{kind}"], want, f"{name} rank {r}")
+    _same(_meta_rank(arch, kind, axes), want, f"{name} meta")
+    return want
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -152,13 +168,17 @@ def test_meta_world_counts_equal_a_real_world(world, arch, kind):
     counted: collectives by kind and pass and their bytes, FLOPs by
     dtype, bytes, ops, the storage peak; every real rank counts the
     same."""
-    name, axes, ranks = world
-    want = ranks[0][f"{arch}|{kind}"]
-    assert want["aten_bytes"] > 0 and want["peak"] > 0
-    assert sum(int(c) for c in want["calls"].values()) > 0
-    for r, rank in enumerate(ranks[1:], 1):
-        _same(rank[f"{arch}|{kind}"], want, f"{name} rank {r}")
-    _same(_meta_rank(arch, kind, axes), want, f"{name} meta")
+    _meta_equals_real(world, arch, kind)
+
+
+def test_meta_world_counts_equal_a_real_world_on_a_ring(world):
+    """recurrentgemma_2b's decode step (its local attention's ring split
+    by sequence over model, its one kv head in every block): the meta
+    rank counts what every gloo rank counts, the slot's owner and the
+    other rank alike; its attention layers gather the partials once
+    each."""
+    want = _meta_equals_real(world, *RING)
+    assert int(want["calls"]["all_gather"]) > 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -244,6 +264,30 @@ def test_fsdp_variants_are_16x16_estimates(tmp_path):
     assert v2 > v3
     assert (by["fsdp_v2_dots"]["estimate"]["argument_bytes"]
             == by["fsdp_v2"]["estimate"]["argument_bytes"])
+
+
+def test_full_size_decode_cell_holds_the_references_cache():
+    """qwen2p5_3b decode_32k at full size, rank 0 of 16x16: the rank holds
+    603,979,776 B of k / v (8 rows x 2048 of the 32768 positions x 2 kv
+    heads x 128 x bf16 x 2 x 36 layers), the reference's cache, not the
+    whole sequence of 2 kv heads (16x that); the step's temp peak stays
+    under one layer's k over the whole sequence, so no rank ever makes
+    one; each layer adds an all_gather of its new q / k / v heads and one
+    of its softmax partials to its psum."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell("qwen2p5_3b", "decode_32k", mesh="16x16")
+    cache = 8 * 2048 * 2 * 128 * 2 * 2 * 36
+    assert cache == 603_979_776
+    assert rec["attention_cache_bytes"] == {"argument": cache,
+                                            "held": cache}
+    assert rec["held_argument_bytes"]["cache"] == \
+        rec["argument_bytes"]["cache"] == cache
+    whole_k = 8 * 32768 * 2 * 128 * 2
+    assert 0 < rec["memory"]["temp_size_in_bytes"] < whole_k
+    assert rec["collectives"]["calls"] == {"all_gather": 2 * 36,
+                                           "psum": 2 * 36 + 1}
+    assert rec["memory"]["fits"]
 
 
 def test_full_size_train_cell_on_the_mesh():

@@ -10,18 +10,29 @@ writes each config's params (``init_model`` from one key), and per mesh,
 rule set and config: every leaf's shard index on every device (its mesh
 coordinate read from ``mesh.devices``), the shard data of a few leaves of
 each family, ``forward`` logits at B = 4, S = 8, and ``generate`` (4 prompt
-+ 8 new tokens) with the logits its decode step gave at each new token.
++ 8 new tokens; its loop written out, one jitted ``decode_step`` for every
+position, so that its cache is kept) with the logits its decode step gave
+at each new token, then each attention cache leaf's global value and its
+shard index on every device under the reference's cache specs
+(``launch/specs.py`` ``_cache_spec_for_path``: the sequence over model).
 
 The port runs one gloo CPU world per mesh (``run_world`` with
 ``mesh_shape``), every rank looping over the cases: its parameter blocks
 (``params_from_numpy`` with the reference's weights) are bit-equal to the
 JAX shard at its coordinate, its blocks of the ``forward`` logits and of
 the ``decode_step`` logits (teacher-forced along the reference's tokens)
-lie within TOL of the same cut of the reference's, and ``generate`` gives
-every rank the same tokens, equal to the reference's except from a step
-whose top-2 logits lie within TIE_TOL.  Cases at B = 3 under data = 2
-replicate the batch (the spec's fallback); recurrentgemma_2b's single kv
-head is replicated over model while its four q heads are split.
+lie within TOL of the same cut of the reference's, its attention cache
+blocks after that decode have the reference's shard index and lie within
+TOL of its cut, and ``generate`` gives every rank the same tokens, equal
+to the reference's except from a step whose top-2 logits lie within
+TIE_TOL.  Cases at B = 3 under data = 2 replicate the batch (the spec's
+fallback); recurrentgemma_2b's single kv head is replicated over model
+while its four q heads are split.  Two cases decode longer: past
+recurrentgemma_2b's reduced window of 16 (its ring wraps across the
+ranks' blocks), and to 11 positions, which model = 2 does not divide (the
+cache stays whole).  An fp8 cache decodes in a world of 4 against the
+port's one-device fp8 decode, and every rank's copy of a replicated block
+is the same bits.
 """
 
 import os
@@ -44,6 +55,8 @@ MESHES = {4: {"pod": 1, "data": 2, "model": 2},
           8: {"pod": 2, "data": 2, "model": 2}}
 RULES = ("train", "decode")
 B, S, PROMPT, NEW = 4, 8, 4, 8
+WRAP_NEW = 16         # 4 + 16 positions: past recurrentgemma_2b's window 16
+ODD_NEW = 7           # 4 + 7 = 11 positions: model = 2 does not divide it
 TOL = 1e-4            # float32: |a - b| <= TOL * (1 + |b|)
 MOE_TOL = 1e-3        # as test_torch_models.py holds the MoE configs
 TIE_TOL = 1e-4
@@ -53,24 +66,35 @@ WORLD_TIMEOUT_S = 600
 SHARD_LEAVES = {"wq", "wk", "wo", "kv_down", "k_up", "q_up", "router",
                 "w_gate", "w_down", "in_proj", "conv_w", "A_log", "w_a",
                 "out"}
+# the attention cache leaves (split by sequence over model)
+CACHE_LEAVES = ("k", "v", "ckv", "k_rope")
 
 
-def cases(archs, *, batch3=()):
-    """(mesh size, rules, arch, batch) of a family: every config on both
-    meshes under both rule sets, and ``batch3`` at B = 3 on (1, 2, 2)."""
-    out = [(n, r, a, B) for n in MESHES for r in RULES for a in archs]
-    return out + [(4, r, a, 3) for r in RULES for a in batch3]
+def cases(archs, *, batch3=(), longer=()):
+    """(mesh size, rules, arch, batch, new tokens) of a family: every
+    config on both meshes under both rule sets, ``batch3`` at B = 3 on
+    (1, 2, 2), and ``longer`` (arch, new tokens) decoding on (1, 2, 2)."""
+    out = [(n, r, a, B, NEW) for n in MESHES for r in RULES for a in archs]
+    out += [(4, r, a, 3, NEW) for r in RULES for a in batch3]
+    return out + [(4, "decode", a, B, new) for a, new in longer]
 
 
 CASES = cases(DENSE, batch3=("qwen2p5_3b", "mamba2_1p3b",
-                             "recurrentgemma_2b"))
+                             "recurrentgemma_2b"),
+              longer=(("recurrentgemma_2b", WRAP_NEW),
+                      ("qwen2p5_3b", ODD_NEW)))
 MOE_CASES = cases(MOE, batch3=MOE)
 FAMILIES = {"dense": CASES, "moe": MOE_CASES}
+# an fp8 cache in a world of 4 against the port's one-device fp8 decode
+# along the reference's tokens of the same case: a GQA and an MLA config
+FP8_CASES = [(4, "decode", a, B, NEW) for a in ("qwen2p5_3b", "minicpm3_4b")]
 
 
 def key(case) -> str:
-    n, rules, arch, b = case
-    return f"{n}/{rules}/{arch}/B{b}"
+    """A case's name (``new`` left out where it is NEW)."""
+    n, rules, arch, b, *new = case
+    k = f"{n}/{rules}/{arch}/B{b}"
+    return k if new in ([], [NEW]) else f"{k}/N{new[0]}"
 
 
 def tokens(cfg, b: int) -> np.ndarray:
@@ -112,13 +136,14 @@ def _index(idx, shape) -> np.ndarray:
 def _jax_case(case, params, mesh):
     import jax
     import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec
 
     from repro.configs import base as jbase
+    from repro.launch.specs import _cache_spec_for_path
     from repro.models import transformer as jtf
-    from repro.serving import engine as jengine
     from repro.sharding import DECODE_RULES, TRAIN_RULES, MeshContext
 
-    n, rules, arch, b = case
+    n, rules, arch, b, new = case
     cfg = jbase.get_reduced_config(arch)
     ctx = MeshContext(mesh, TRAIN_RULES if rules == "train"
                       else DECODE_RULES)
@@ -136,20 +161,42 @@ def _jax_case(case, params, mesh):
     toks = tokens(cfg, b)
     fwd = jax.jit(lambda p, t: jtf.forward(p, {"tokens": t}, cfg, ctx))
     out["forward"] = np.asarray(fwd(placed, jnp.asarray(toks)))
-    seen = []
-
-    def greedy(logits):
-        seen.append(np.asarray(logits))
-        return jnp.argmax(logits, axis=-1)
-
+    # the reference's generate (serving/engine.py), its loop written out
+    # to keep the cache: one jitted decode_step for every position,
+    # greedy argmax from the prompt's last token on
+    total = PROMPT + new
+    step = jax.jit(lambda p, c, t, pos: jtf.decode_step(p, c, t, pos, cfg,
+                                                        ctx),
+                   donate_argnums=(1,))
+    cache = jtf.init_cache(cfg, b, total, jnp.float32)
+    got = np.zeros((b, total), np.int32)
+    got[:, :PROMPT] = toks[:, :PROMPT]
+    tok, seen = jnp.asarray(toks[:, :1]), []
     try:
-        res = jengine.generate(placed, cfg, ctx, toks[:, :PROMPT], NEW,
-                               sample=greedy)
+        for pos in range(total - 1):
+            logits, cache = step(placed, cache, tok, jnp.int32(pos))
+            if pos + 1 < PROMPT:
+                tok = jnp.asarray(toks[:, pos + 1:pos + 2])
+            else:
+                seen.append(np.asarray(logits))
+                tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
+                got[:, pos + 1] = np.asarray(tok)[:, 0]
     except Exception as e:   # the shard_map's own refusal of a batch
         out["decode_error"] = np.array(f"{type(e).__name__}: {e}")
-    else:
-        out["tokens"] = res.tokens
-        out["decode"] = np.stack(seen)
+        return out
+    out["tokens"] = got
+    out["decode"] = np.stack(seen)
+    # the attention leaves laid out by the reference's cache specs
+    laid = jax.device_put(cache, jax.tree_util.tree_map_with_path(
+        lambda path, leaf: NamedSharding(mesh, PartitionSpec(
+            *_cache_spec_for_path(path, leaf.shape, cfg, ctx, b))), cache))
+    for path, leaf in paths(laid):
+        if path.rsplit("/", 1)[-1] in CACHE_LEAVES:
+            by_dev = {s.device: s for s in leaf.addressable_shards}
+            out[f"cache/{path}"] = np.asarray(leaf)
+            out[f"cache_index/{path}"] = np.stack([
+                _index(by_dev[mesh.devices[c]].index, leaf.shape)
+                for c in coords])
     return out
 
 
@@ -202,10 +249,28 @@ def run_reference(tmp_path_factory, family: str) -> dict:
 # the port, in a world (each rank)
 # --------------------------------------------------------------------------
 
-def world_rank(mesh, ref: dict, todo: list) -> dict:
+def cache_blocks(cache, ctx, b: int, ref: dict, k: str) -> dict:
+    """This rank's attention cache blocks: {path: (its (start, stop) per
+    dim of the reference's leaf, the block)}."""
+    from repro_torch.sharding import cache_spec
+
+    out = {}
+    for path, t in paths(cache):
+        name = path.rsplit("/", 1)[-1]
+        if name in CACHE_LEAVES:
+            shape = ref[f"{k}/cache/{path}"].shape
+            blk = ctx.block(cache_spec(name, shape, ctx, b), shape)
+            out[path] = ([(s.start, s.stop) for s in blk], t.numpy())
+    return out
+
+
+def world_rank(mesh, ref: dict, todo: list, fp8: list = ()) -> dict:
     """Every case of this world's mesh in this rank: param blocks against
     the JAX shards at its coordinate, its blocks of forward and decode
-    logits (with their slices), generate's tokens."""
+    logits (with their slices), its attention cache blocks after the
+    decode, generate's tokens; then each ``fp8`` case's decode logits
+    with a float8_e4m3fn cache, the rank's block beside the one-device
+    decode's."""
     import torch.distributed as dist
 
     from repro_torch.configs import base
@@ -216,13 +281,14 @@ def world_rank(mesh, ref: dict, todo: list) -> dict:
     from repro_torch.sharding import (
         DECODE_RULES,
         TRAIN_RULES,
+        single_device_context,
         world_context,
     )
 
     me = dist.get_rank()
     out = {}
     for case in todo:
-        n, rules, arch, b = case
+        n, rules, arch, b, new = case
         if n != mesh.size():
             continue
         k = key(case)
@@ -253,36 +319,67 @@ def world_rank(mesh, ref: dict, todo: list) -> dict:
                                 for s in ctx.block(spec3, (b, S, V))]
         if f"{k}/tokens" not in ref:
             try:
-                generate(params, cfg, ctx, toks[:, :PROMPT].numpy(), NEW)
+                generate(params, cfg, ctx, toks[:, :PROMPT].numpy(), new)
             except ValueError as e:
                 rec["decode_error"] = str(e)
             out[k] = rec
             continue
-        want = ref[f"{k}/tokens"]
-        total = PROMPT + NEW
-        cache = tf.init_cache(cfg, b, total, torch.float32, "cpu", ctx)
-        dec = []
-        for pos in range(total - 1):
-            logits, cache = tf.decode_step(
-                params, cache, torch.from_numpy(want[:, pos:pos + 1]), pos,
-                cfg, ctx)
-            if pos >= PROMPT - 1:
-                dec.append(logits)
-        rec["decode"] = torch.stack(dec)
+        want = torch.from_numpy(ref[f"{k}/tokens"])
+        rec["decode"], cache = teacher_forced(params, cfg, ctx, want,
+                                              torch.float32)
         spec2 = ctx.spec_for(("batch", "act_model"), (b, V))
         rec["decode_block"] = [(s.start, s.stop)
                                for s in ctx.block(spec2, (b, V))]
+        rec["cache"] = cache_blocks(cache, ctx, b, ref, k)
         ds.reset_collectives()
-        res = generate(params, cfg, ctx, toks[:, :PROMPT].numpy(), NEW)
+        res = generate(params, cfg, ctx, toks[:, :PROMPT].numpy(), new)
         rec["tokens"] = res.tokens
         rec["collectives"] = dict(ds.COLLECTIVES)
         out[k] = rec
+    for case in fp8:
+        n, _, arch, b, new = case
+        if n != mesh.size():
+            continue
+        k = key(case)
+        cfg = base.get_reduced_config(arch)
+        ctx = world_context(mesh, DECODE_RULES)
+        full = build(tf.model_specs(cfg),
+                     lambda path: ref[f"{arch}/params/{path}"])
+        params = params_from_numpy(full, "cpu", ctx,
+                                   tf.model_shardings(cfg, ctx))
+        want = torch.from_numpy(ref[f"{k}/tokens"])
+        f8 = torch.float8_e4m3fn
+        spec2 = ctx.spec_for(("batch", "act_model"), (b, cfg.vocab_size))
+        out[f"fp8/{k}"] = {
+            "decode": teacher_forced(params, cfg, ctx, want, f8)[0],
+            "one_device": teacher_forced(
+                params_from_numpy(full, "cpu"), cfg,
+                single_device_context(DECODE_RULES), want, f8)[0],
+            "decode_block": [(s.start, s.stop) for s in
+                             ctx.block(spec2, (b, cfg.vocab_size))]}
     return out
 
 
-def run_worlds(ref: dict, todo: list) -> dict:
+def teacher_forced(params, cfg, ctx, want, cache_dtype):
+    """The decode logits (this rank's blocks) of each new token along the
+    reference's tokens ``want`` (B, total) from a fresh cache of
+    ``cache_dtype``, and the cache after the last step."""
+    from repro_torch.models import transformer as tf
+
+    b, total = want.shape
+    cache = tf.init_cache(cfg, b, total, cache_dtype, "cpu", ctx)
+    dec = []
+    for pos in range(total - 1):
+        logits, cache = tf.decode_step(params, cache, want[:, pos:pos + 1],
+                                       pos, cfg, ctx, max_len=total)
+        if pos >= PROMPT - 1:
+            dec.append(logits)
+    return torch.stack(dec), cache
+
+
+def run_worlds(ref: dict, todo: list, fp8: list = ()) -> dict:
     """{case key: [each rank's record]} from one world per mesh, the
-    worlds side by side."""
+    worlds side by side (``fp8`` cases under ``fp8/<key>``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.launch.mesh import run_world
@@ -290,10 +387,10 @@ def run_worlds(ref: dict, todo: list) -> dict:
     def world(n):
         mine = {k: v for k, v in ref.items()
                 if "/params/" in k or k.startswith(f"{n}/")}
-        return run_world(n, world_rank, mine, todo, mesh_shape=MESHES[n],
-                         timeout_s=WORLD_TIMEOUT_S)
+        return run_world(n, world_rank, mine, todo, fp8,
+                         mesh_shape=MESHES[n], timeout_s=WORLD_TIMEOUT_S)
 
-    sizes = sorted({c[0] for c in todo})
+    sizes = sorted({c[0] for c in [*todo, *fp8]})
     out = {}
     with ThreadPoolExecutor(len(sizes)) as pool:
         for n, ranks in zip(sizes, list(pool.map(world, sizes))):
@@ -338,12 +435,55 @@ def check_decode(world: dict, ref: dict, case) -> None:
         close(rec["decode"], want[cut], tol_of(case[2]), (k, r))
 
 
+def check_cache(world: dict, ref: dict, case) -> None:
+    """Each rank's attention cache blocks after the decode: the shard
+    index of the reference's cache spec at the rank's coordinate, the
+    data within TOL of that cut of the reference's cache; split by
+    sequence where model divides it."""
+    k = key(case)
+    M = MESHES[case[0]]["model"]
+    leaves = [p for p in ref if p.startswith(f"{k}/cache/")]
+    for r, rec in enumerate(world[k]):
+        assert len(rec["cache"]) == len(leaves) > 0, (k, r)
+        for path, (idx, block) in rec["cache"].items():
+            want = ref[f"{k}/cache/{path}"]
+            assert [tuple(x) for x in idx] == [
+                tuple(x) for x in ref[f"{k}/cache_index/{path}"][r]], (k, r)
+            cut = tuple(slice(*x) for x in idx)
+            close(block, want[cut], tol_of(case[2]), (k, r, path))
+            name = path.rsplit("/", 1)[-1]
+            seq = want.ndim - (3 if name in ("k", "v") else 2)
+            T = want.shape[seq]
+            assert block.shape[seq] == (T // M if T % M == 0 else T)
+
+
+def check_replicated_bits(world: dict, case) -> None:
+    """Ranks that hold the same block of a forward, decode or cache array
+    (its rows or sequence replicated over an axis) hold the same bits."""
+    k = key(case)
+    recs = world[k]
+    views = [("forward", lambda rec: (rec["forward_block"], rec["forward"]))]
+    if "decode" in recs[0]:
+        views.append(("decode", lambda rec: (rec["decode_block"],
+                                             rec["decode"])))
+        views += [(path, lambda rec, p=path: rec["cache"][p])
+                  for path in recs[0]["cache"]]
+    for what, view in views:
+        held = {}
+        for rec in recs:
+            idx, block = view(rec)
+            held.setdefault(str(idx), []).append(np.asarray(block))
+        for blocks in held.values():
+            for other in blocks[1:]:
+                assert np.array_equal(other, blocks[0]), (k, what)
+
+
 def gathered_decode(world: dict, case) -> np.ndarray:
     """The port's decode logits (steps, B, V) put together from the
     ranks' blocks."""
     recs = world[key(case)]
     V = max(rec["decode_block"][1][1] for rec in recs)
-    full = np.full((NEW, case[3], V), np.nan, np.float32)
+    full = np.full((case[4], case[3], V), np.nan, np.float32)
     for rec in recs:
         (r0, r1), (v0, v1) = rec["decode_block"]
         full[:, r0:r1, v0:v1] = rec["decode"]
@@ -383,7 +523,7 @@ def reference(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world(reference):
-    return run_worlds(reference, CASES)
+    return run_worlds(reference, CASES, FP8_CASES)
 
 
 @pytest.mark.parametrize("case", CASES, ids=key)
@@ -404,6 +544,55 @@ def test_decode_logits_match_the_mesh_reference(world, reference, case):
 @pytest.mark.parametrize("case", CASES, ids=key)
 def test_generate_tokens_match_the_mesh_reference(world, reference, case):
     check_tokens(world, reference, case)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[2] != "mamba2_1p3b"],
+                         ids=key)     # mamba2_1p3b has no attention cache
+def test_cache_blocks_are_the_reference_layout(world, reference, case):
+    check_cache(world, reference, case)
+
+
+@pytest.mark.parametrize("case", CASES, ids=key)
+def test_replicated_blocks_are_the_same_bits(world, case):
+    check_replicated_bits(world, case)
+
+
+def test_the_ring_wraps_across_the_ranks_blocks(world, reference):
+    """recurrentgemma_2b decoding 4 + 16 tokens: its local attention's
+    ring of 16 is split 8 / 8 over model and wraps, so the last positions
+    overwrite the first rank's block while the second's holds the
+    window's oldest keys; the logits stay the reference's."""
+    k = key((4, "decode", "recurrentgemma_2b", B, WRAP_NEW))
+    path = "blocks/s2/k"
+    want = reference[f"{k}/cache/{path}"]
+    assert want.shape[2] == 16 and PROMPT + WRAP_NEW - 1 > 16
+    for rec in world[k]:
+        idx, block = rec["cache"][path]
+        assert idx[2][1] - idx[2][0] == 8 and block.shape[2] == 8
+    check_decode(world, reference, (4, "decode", "recurrentgemma_2b", B,
+                                    WRAP_NEW))
+
+
+def test_a_length_model_does_not_divide_keeps_the_cache_whole(
+        world, reference):
+    """11 positions over model = 2: the reference keeps every cache leaf
+    whole on each rank, and so does the port, each rank writing every
+    slot and attending its own q heads."""
+    k = key((4, "decode", "qwen2p5_3b", B, ODD_NEW))
+    for rec in world[k]:
+        for path, (idx, block) in rec["cache"].items():
+            assert block.shape[2] == PROMPT + ODD_NEW == idx[2][1], path
+    check_decode(world, reference, (4, "decode", "qwen2p5_3b", B, ODD_NEW))
+
+
+@pytest.mark.parametrize("case", FP8_CASES, ids=key)
+def test_an_fp8_cache_in_a_world_matches_one_device(world, case):
+    """A float8_e4m3fn cache in a world of 4 (cast on write, upcast on
+    read, each rank only its block) gives the rank's block of the
+    one-device fp8 decode's logits along the same tokens, within TOL."""
+    for r, rec in enumerate(world[f"fp8/{key(case)}"]):
+        cut = (slice(None),) + tuple(slice(*s) for s in rec["decode_block"])
+        close(rec["decode"], rec["one_device"][cut], TOL, (case, r))
 
 
 def test_a_batch_of_three_is_replicated_over_data(world):

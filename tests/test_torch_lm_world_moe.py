@@ -10,6 +10,9 @@ B = 4 on ``(1, 2, 2)`` and ``(2, 2, 2)`` (where ``expert_ff`` is split over
 pod and gathered) under both rule sets, and at B = 3 on ``(1, 2, 2)``,
 whose 24 prefill tokens split over data = 2 but whose 3 decode tokens do
 not: the reference's shard_map refuses that step, and so does the port.
+After the decode each rank's attention cache blocks (deepseek's MLA
+latent, llama4's k / v, split by sequence over model) are the reference's
+cache shards within MOE_TOL.
 """
 
 import numpy as np
@@ -21,9 +24,11 @@ from test_torch_lm_world import (
     MOE,
     MOE_CASES,
     MOE_TOL,
+    check_cache,
     check_decode,
     check_forward,
     check_params,
+    check_replicated_bits,
     check_tokens,
     key,
     build,
@@ -63,6 +68,18 @@ def test_decode_logits_match_the_mesh_reference(world, reference, case):
 @pytest.mark.parametrize("case", STEPPED, ids=key)
 def test_generate_tokens_match_the_mesh_reference(world, reference, case):
     check_tokens(world, reference, case)
+
+
+@pytest.mark.parametrize("case", STEPPED, ids=key)
+def test_cache_blocks_are_the_reference_layout(world, reference, case):
+    """deepseek_v2_236b's latent (ckv / k_rope) and llama4's k / v split
+    by sequence over model, as the reference's cache specs lay them."""
+    check_cache(world, reference, case)
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=key)
+def test_replicated_blocks_are_the_same_bits(world, case):
+    check_replicated_bits(world, case)
 
 
 @pytest.mark.parametrize("case", [c for c in MOE_CASES if c[3] == 3],
