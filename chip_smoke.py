@@ -181,7 +181,7 @@ script exits nonzero and prints no final result:
      8 new tokens (equal tokens, or a first difference where the CPU's
      top-2 logits tie); (b) minitron_4b at full width and depth and (c)
      mamba2_1p3b at full width and depth, bf16 weights drawn on the card:
-     generate at B = 8 with 64 + 64 tokens (tokens/s, ms a step, peak
+     generate at B = 8 with 32 + 32 tokens (tokens/s, ms a step, peak
      memory), forward(last_token_only) at B = 1, S = 2048, and for (b)
      decode against forward on 16 positions; (d) deepseek_v2_236b at full
      width cut to 3 layers (the dense layer and two MLA + MoE layers of 160
@@ -279,6 +279,34 @@ script exits nonzero and prints no final result:
      step, the collectives of a step by kind, pass and bytes, peak memory
      a rank, the single rank's s a step and peak
 
+ 16  (run after phase 13) the bwt_index config's own workload on one
+     card through the single-device path: the english corpus at the config's n = 2^28
+     (made once and shared with phase 13's one-rank mesh build of the
+     same text) built at its declared sigma 257 (258 with the pad slot:
+     the q-gram init packs 3 characters of 9 bits a word, q = 6, and the
+     Occ checkpoints have 258 columns) by build_index with the config's
+     sample rates, phase 2's path otherwise: build s, its stages (prepare,
+     host to device, SA, BWT, FM build) with each stage's peak, the build
+     peak (under the card's memory), BuildStats and launches by kernel;
+     the linear SA check; SA, BWT and row equal to phase 13's one-rank
+     mesh build (kept on the host); 1024 count + 1024 locate (k = 16)
+     requests of lengths 3-64, an equal share in each of the config's
+     buckets (8, 16, 32, 64), through FMQueryServer.from_config, every
+     count by brute force on the card (brute_counts) and every located
+     position by direct compare, one fm_query_unpacked launch per served
+     batch and no rank launch; the kernel against its plain version (the
+     requests as served, edge patterns at k = 0, 1, 16, 64) and timed per
+     bucket beside its bytes bound and latency floor (dependent loads x
+     one load's latency from scripts/pointer_chase.cu over the index's
+     BWT and 258-column Occ words, 5.4 GB); sync qps and the device-busy
+     share of a flush; save -> restore in the stored and the derived
+     layout (char_histogram and the Occ checkpoints again), each equal to
+     the built index and answering the requests identically, save s,
+     restore s and bytes on disk beside the build s
+ 17  the port's examples (examples/torch_*.py) in process on the card at
+     their default sizes: torch_quickstart, torch_index_corpus (dna and
+     --kind english), torch_serve_queries, torch_train_lm --steps 4; each
+     must end with its "... OK" line
 Launch counts are set to 0 just before each path (the phase 2 and 3 main
 paths, the seed build, each restore, each merge of phase 7, each catalog
 of phase 8: its appends and its serving, each frontend scenario of phase
@@ -287,10 +315,11 @@ with its two served batches, summed over a world's ranks, and each
 restore of phase 10 with its two batches, phase 4's single-query calls
 per corpus, phase 11, phase 12's screen, its reduced parts and its
 full-width runs, and phase 13's counted index build and served batch and
-its perf bwt_build, phase 14 and phase 15, each summed over its ranks)
-and read just after it.  Then a ``kernels`` line
-(launches on the main paths of phases 2-3, 7-10, phase 12's screen and
-phase 13, and on each path, parity error, times and bounds), the card's
+its perf bwt_build, phase 14 and phase 15, each summed over its ranks,
+phase 16's english path and phase 17's examples) and read just after it.
+Then a ``kernels`` line (launches on the main paths of phases 2-3, 7-10,
+phase 12's screen, phase 13 and phase 16, and on each path, parity
+error, times and bounds), the card's
 name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
 kernel time under its bound (bytes over the card's HBM peak), or a merge
 walk under its latency floor, fails the run as a broken measurement.
@@ -1248,6 +1277,57 @@ def sample_patterns(toks, count: int, seed: int, lo: int = 3, hi: int = 32):
     return out
 
 
+def bucket_patterns(toks, count: int, seed: int, buckets, lo: int = 3):
+    """``count`` substrings of ``toks``, an equal share in each length
+    bucket of ``buckets`` (the server's padded lengths, ascending): lengths
+    uniform over (the bucket below, the bucket], from ``lo`` up, so that
+    every bucket serves."""
+    import numpy as np
+
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0xB0C]))
+    out = []
+    for i, hi in enumerate(buckets):
+        share = count // len(buckets) + (i < count % len(buckets))
+        for L in rng.integers(lo, hi + 1, share):
+            st = int(rng.integers(0, len(toks) - L))
+            out.append(toks[st: st + int(L)].copy())
+        lo = hi + 1
+    return out
+
+
+def brute_counts(toks, pats) -> list:
+    """Occurrences of each pattern in ``toks`` (tokens in [0, 128), on any
+    device), every text position scanned: one pass compares the first
+    (up to) four tokens of each position at once, packed 8 bits a token
+    in one int32 word, then the candidates' further tokens one by one."""
+    import torch
+
+    n = toks.shape[0]
+    t = toks.to(torch.int32)
+    require(int(t.min()) >= 0 and int(t.max()) < 128,
+            "brute_counts takes tokens in [0, 128)")
+    ext = torch.cat([t, t.new_zeros(3)])
+    word = ext[:n].clone()
+    for j in (1, 2, 3):
+        word |= ext[j: j + n] << (8 * j)
+    del ext
+    out = []
+    for p in pats:
+        p = [int(x) for x in p]
+        L, m = len(p), min(4, len(p))
+        if L > n:
+            out.append(0)
+            continue
+        key = sum(c << (8 * j) for j, c in enumerate(p[:m]))
+        head = word[: n - L + 1]
+        hit = head == key if m == 4 else (head & ((1 << 8 * m) - 1)) == key
+        cand = hit.nonzero().squeeze(1)
+        for j in range(m, L):
+            cand = cand[t[cand + j] == p[j]]
+        out.append(int(cand.numel()))
+    return out
+
+
 def check_sa(s, sa) -> None:
     """Linear SA check on the card: SA is a permutation, and each adjacent
     pair (a, b) has (s[a], isa[a+1]) < (s[b], isa[b+1]) with the empty
@@ -1268,20 +1348,13 @@ def check_sa(s, sa) -> None:
     require(bool(ok.all()), "SA order (adjacent suffix pairs)")
 
 
-def check_answers(toks_dev, pats, counts, located, n_brute: int) -> None:
+def check_answers(toks_dev, pats, counts, located) -> None:
+    """Every located position by direct compare with the text, each
+    locate min(count, k) ascending positions."""
     import torch
 
     dev = toks_dev.device
     n = toks_dev.shape[0]
-    for i in range(n_brute):
-        p = torch.as_tensor(pats[i], device=dev)
-        L = p.shape[0]
-        hit = torch.ones(n - L + 1, dtype=torch.bool, device=dev)
-        for j in range(L):
-            hit &= toks_dev[j: j + n - L + 1] == p[j]
-        require(int(hit.sum()) == counts[i],
-                f"count of pattern {i}: {counts[i]} != brute force "
-                f"{int(hit.sum())}")
     Lmax = max(len(p) for p in pats)
     starts, plen, pad = [], [], []
     for i, pos in enumerate(located):
@@ -1338,8 +1411,11 @@ def profiled(fn, watch=()) -> dict:
                         for d, k, c in rows if any(w in k for w in watch)]}
 
 
-def stage_times(toks, sample_rate: int, sa_sample_rate: int) -> dict:
-    """A second build, stage by stage, each ended by a synchronize."""
+def stage_times(toks, sample_rate: int, sa_sample_rate: int,
+                sigma: int | None = None) -> tuple[dict, dict]:
+    """A second build (of the declared ``sigma``, None for the data's),
+    stage by stage, each ended by a synchronize: (seconds, peak allocated
+    bytes, what the stage added to what was held before it) by stage."""
     import torch
 
     from repro_torch.core.bwt import bwt_from_sa
@@ -1347,17 +1423,22 @@ def stage_times(toks, sample_rate: int, sa_sample_rate: int) -> dict:
     from repro_torch.core.pipeline import prepare_tokens
     from repro_torch.core.suffix_array import suffix_array_fast
 
-    out = {}
+    out, peaks = {}, {}
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
 
     def lap(name):
-        nonlocal t0
+        nonlocal t0, base
         torch.cuda.synchronize()
         t = time.perf_counter()
         out[name] = t - t0
         t0 = t
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
 
-    s, sigma = prepare_tokens(toks, sample_rate)
+    s, sigma = prepare_tokens(toks, sample_rate, sigma)
     lap("prepare_tokens_host")
     s_dev = torch.as_tensor(s, device="cuda")
     lap("host_to_device")
@@ -1368,16 +1449,21 @@ def stage_times(toks, sample_rate: int, sa_sample_rate: int) -> dict:
     build_fm_index(bwt, row, sigma, sample_rate, sa=sa,
                    sa_sample_rate=sa_sample_rate)
     lap("build_fm_index")
-    return out
+    return out, peaks
 
 
 def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool,
-               snap: bool = False, chase=None):
+               snap: bool = False, chase=None, sigma: int | None = None,
+               pats=None, old_design: bool = True):
     """One main path; returns its launches, with ``keep`` what later phases
     compare against (the index, its requests and answers), the fused
     query kernel's parity and times on the path's index (with ``chase``,
-    ``start_chase_build``, beside their latency floors) and, with
-    ``snap``, phase 10's reference (``snapshot``)."""
+    ``start_chase_build``, beside their latency floors, per bucket the
+    requests fill) and, with ``snap``, phase 10's reference
+    (``snapshot``).  ``sigma`` declares the alphabet (None: the data's);
+    ``pats`` are the requests (None: 1024 of lengths 3-32), each count
+    checked by brute force (``brute_counts``); ``old_design`` times the
+    query design before the fused kernel beside it (``query_timing``)."""
     import functools
 
     import torch
@@ -1390,18 +1476,22 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool,
     n = len(toks)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
 
     _build.reset_launches()
     t0 = time.perf_counter()
-    index = build_index(toks, sample_rate=64, sa_sample_rate=32,
+    index = build_index(toks, sigma=sigma, sample_rate=icfg.sample_rate,
+                        sa_sample_rate=icfg.sa_sample_rate,
                         sa_config=SAConfig(local_sort="auto"), device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = dict(_build.LAUNCHES)
+    build_peak = torch.cuda.max_memory_allocated() - held
 
     server = FMQueryServer.from_config(index, icfg.replace(locate_k=LOCATE_K),
                                        device="cuda")
-    pats = sample_patterns(toks, 1024, seed=phase)
+    if pats is None:
+        pats = sample_patterns(toks, 1024, seed=phase)
     server.count(pats[:8])                       # warm-up: first launches
     server.locate(pats[:8])
     qps = {}
@@ -1426,44 +1516,68 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool,
             f"phase {phase}: a rank kernel launched while serving: {serve}")
 
     # after the counted run, so these launches are not counted
+    laps = {}
+    t1 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t1
+        t = time.perf_counter()
+        laps[name] = t - t1
+        t1 = t
+
+    stages, stage_peaks = stage_times(toks, icfg.sample_rate,
+                                      icfg.sa_sample_rate, sigma)
     extra = {
-        "stages_s": stage_times(toks, 64, 32),
+        "stages_s": stages,
+        "stage_peak_bytes": stage_peaks,
         "profile_build": profiled(lambda: build_index(
-            toks, sample_rate=64, sa_sample_rate=32, device="cuda"),
+            toks, sigma=sigma, sample_rate=icfg.sample_rate,
+            sa_sample_rate=icfg.sa_sample_rate, device="cuda"),
             watch=BUILD_WATCH),
         "profile_count": profiled(lambda: server.count(pats)),
         "profile_locate": profiled(lambda: server.locate(pats)),
     }
+    lap("stages_and_profiles")
 
     fq = {"name": qname, "index": f"{kind} n={n}"}
     fq["max_abs_err"] = check_queries(index.fm, query_cases(
         index.fm, toks, pats, phase), fq["index"])
+    lap("query_parity")
     fq.update(query_timing(index.fm, toks, pats, phase, functools.lru_cache(
         maxsize=None)(functools.partial(dependent_load_ns, chase))
-        if chase is not None else None))
+        if chase is not None else None, old_design))
+    lap("query_timing")
 
-    s, _ = prepare_tokens(toks, 64)
+    s, _ = prepare_tokens(toks, icfg.sample_rate, sigma)
     s_dev = torch.as_tensor(s, device="cuda")
     check_sa(s_dev, index.sa)
     del s_dev
     toks_dev = torch.as_tensor(toks, device="cuda")
-    check_answers(toks_dev, pats, counts, located, n_brute=64)
+    check_answers(toks_dev, pats, counts, located)
+    got = brute_counts(toks_dev, pats)
+    bad = [i for i, (a, b) in enumerate(zip(got, counts)) if a != b]
+    require(not bad, f"phase {phase}: counts of requests {bad[:8]} differ "
+                     f"from brute force")
+    lap("sa_and_answer_checks")
     st = index.build_stats.as_dict()
     emit({"phase": phase, "kind": kind, "n": n, "sigma": index.sigma,
           "packed_bits": index.fm.bits, "corpus_gen_s": gen_s,
           "build_s": build_s, "build_stats": st,
+          "build_peak_bytes": build_peak,
           "count_qps": qps["count"], "locate_qps": qps["locate"],
-          "locate_k": LOCATE_K, "requests": {"count": 1024, "locate": 1024},
+          "locate_k": LOCATE_K,
+          "requests": {"count": len(pats), "locate": len(pats)},
           "peak_mem_gib": peak_gib, "launches_build": build_launches,
           "launches": launches, "launches_serve": serve,
           "serve_batches": batches, "fm_query": fq,
           "sa_check": "pass",
-          "count_check": "64 brute force + 1024 locate-consistent",
+          "count_check": f"{len(pats)} brute force",
           "locate_check": f"{sum(len(p) for p in located)} positions",
-          **extra})
+          "after_serving_s": laps, **extra})
     del server, toks_dev
     kept = dict(index=index, pats=pats, counts=counts, located=located,
-                build_s=build_s) if keep else None
+                build_s=build_s, peak_bytes=build_peak, serve=serve,
+                batches=batches) if keep else None
     ref = snapshot(index, pats) if snap else None
     del index
     torch.cuda.empty_cache()
@@ -1613,19 +1727,25 @@ def query_bytes(fm, P, k: int) -> tuple[int, int]:
     return query_bytes(fm, P, k)
 
 
-def query_timing(fm, toks, pats, seed: int, latency_ns=None) -> dict:
-    """Per length bucket (B = 1024 requests of lengths in the bucket, count
-    and locate): the fused kernel's event and device times beside its
-    bound and dependent steps (with ``latency_ns(words)`` also its latency
-    floor, ``latency_floor``), the plain version, and the earlier design
-    (the same step loop launching the single-batch rank kernel); then the
-    earlier design against the fused kernel over the flush's own batches,
-    timed in turns (old, new, new, old)."""
+def query_timing(fm, toks, pats, seed: int, latency_ns=None,
+                 old_design: bool = True) -> dict:
+    """Per length bucket the requests ``pats`` fill (B = 1024 substrings of
+    lengths in the bucket, from the shortest request's length up, count
+    and locate): the fused kernel's event and device
+    times beside its bound and dependent steps (with ``latency_ns(words)``
+    also its latency floor, ``latency_floor``), the plain version, and
+    with ``old_design`` the earlier design (the same step loop launching
+    the single-batch rank kernel), then the earlier design against the
+    fused kernel over the flush's own batches, timed in turns (old, new,
+    new, old)."""
     name, kern, plain, rank_kernel = query_fns(fm)
     dev = fm.device
+    reqs = flush_buckets(pats, dev)
     buckets = []
-    for L, lo in ((8, 3), (16, 9), (32, 17)):
+    lo = min(len(p) for p in pats)
+    for L in (R.shape[1] for R in reqs):
         P = pad_patterns(sample_patterns(toks, 1024, seed, lo, L), L, dev)
+        lo = L + 1
         for k in (0, LOCATE_K):
             nbytes, walk = query_bytes(fm, P, k)
             buckets.append(dict(
@@ -1634,12 +1754,16 @@ def query_timing(fm, toks, pats, seed: int, latency_ns=None) -> dict:
                 device_ms=kernel_device_ms(lambda: kern(fm, P, k),
                                            f"{name}_kernel"),
                 plain_ms=time_ms(lambda: plain(fm, P, k), 3),
-                old_ms=time_ms(lambda: plain(fm, P, k, rank=rank_kernel), 3),
                 bound_ms=bound_ms(nbytes), bytes=nbytes,
                 dependent_steps={"search": L, "walk": walk},
+                **({"old_ms": time_ms(
+                    lambda: plain(fm, P, k, rank=rank_kernel), 3)}
+                   if old_design else {}),
                 **(latency_floor(fm, P, walk, latency_ns)
                    if latency_ns is not None else {})))
-    reqs = flush_buckets(pats, dev)
+    if not old_design:
+        return {"buckets": buckets,
+                "flush_batches": [list(P.shape) for P in reqs]}
 
     def old():
         for P in reqs:
@@ -1829,76 +1953,102 @@ def dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
-def phase_restore(kept, proteins_log2n: int,
-                  keep_ckpt: Path | None = None) -> tuple[dict, dict]:
-    """Returns (the phase's record, launches per restore path).  With
-    ``keep_ckpt`` the stored-layout checkpoint is written there and left
-    for phase 10."""
+def save_and_restore(kept, stored: Path, derived: Path, what: str,
+                     read_back: bool = True) -> tuple[dict, dict]:
+    """``save_index`` of ``kept``'s index to ``stored``, a copy without the
+    single-device layout (the reference's sharded kind) at ``derived``,
+    and both restored on the card: each must equal the built index
+    (``fm_mismatch`` empty) and answer ``kept``'s requests identically,
+    and the derived restore must launch ``char_histogram``.  The copy is
+    made from the stored checkpoint read back on the host (timed: the
+    host side of a restore) or, without ``read_back``, written from the
+    index in memory, the same arrays and manifest.  Returns (the record:
+    save s, bytes on disk, host npz read s, per restore its s; launches
+    per restore)."""
     import torch
 
     from repro_torch.configs.bwt_index import CONFIG as icfg
     from repro_torch.core.fm_index import fm_mismatch
     from repro_torch.core.index_io import (
+        _COMMON,
         _FM_LAYOUT,
+        _SA_ARRAYS,
+        _manifest,
         restore_index,
         save_index,
     )
     from repro_torch.kernels import _build
-    from repro_torch.launch import serve
     from repro_torch.serving.engine import FMQueryServer
     from repro_torch.training.checkpoint import Checkpointer
 
     index = kept["index"]
-    build_dir = ROOT / "build"
-    build_dir.mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=build_dir))
     out, launches = {}, {}
-    try:
-        stored, derived = keep_ckpt or tmp / "stored", tmp / "derived"
-        t0 = time.perf_counter()
-        save_index(str(stored), index)
-        out["save_s"] = time.perf_counter() - t0
-        out["bytes_on_disk"] = dir_bytes(stored)
+    t0 = time.perf_counter()
+    save_index(str(stored), index)
+    out["save_s"] = time.perf_counter() - t0
+    out["bytes_on_disk"] = dir_bytes(stored)
 
-        # the reference's sharded kind stores no single-device layout
+    # the reference's sharded kind stores no single-device layout
+    if read_back:
         t0 = time.perf_counter()
         flat, meta = Checkpointer(str(stored)).restore_raw()
-        out["read_npz_s"] = time.perf_counter() - t0   # host side of restore
+        out["read_npz_s"] = time.perf_counter() - t0  # host side of restore
         for name in _FM_LAYOUT:
             flat.pop(name, None)
         meta.pop("step")
-        meta.update(kind="dist_fm", arrays=sorted(flat))
-        Checkpointer(str(derived)).save(0, flat, extra=meta)
-        del flat
-        out["derived_bytes_on_disk"] = dir_bytes(derived)
+    else:
+        fm = index.fm
+        flat = {name: getattr(fm, name) for name in _COMMON + _SA_ARRAYS
+                if getattr(fm, name) is not None}
+        meta = _manifest(fm, index.text_length)
+    meta.update(kind="dist_fm", arrays=sorted(flat))
+    Checkpointer(str(derived)).save(0, flat, extra=meta)
+    del flat
+    out["derived_bytes_on_disk"] = dir_bytes(derived)
 
-        for name, path in (("stored_layout", stored),
-                           ("derived_layout", derived)):
-            torch.cuda.synchronize()
-            _build.reset_launches()
-            t0 = time.perf_counter()
-            rest = restore_index(str(path), device="cuda")
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches[name] = dict(_build.LAUNCHES)
-            mm = fm_mismatch(index.fm, rest.fm)
-            require(mm == [], f"{name} restore differs: {mm}")
-            server = FMQueryServer.from_config(
-                rest, icfg.replace(locate_k=LOCATE_K), device="cuda")
-            counts = [int(x) for x in server.count(kept["pats"])]
-            located = server.locate(kept["pats"])
-            require(counts == kept["counts"], f"{name}: counts differ")
-            require(len(located) == len(kept["located"]) and all(
-                torch.equal(torch.as_tensor(a), torch.as_tensor(b))
-                for a, b in zip(located, kept["located"])),
-                f"{name}: locates differ")
-            out[name] = {"restore_s": secs, "fm_mismatch": mm,
-                         "answers": "1024 count + 1024 locate identical",
-                         "launches": launches[name]}
-            del rest, server
-        require(launches["derived_layout"]["char_histogram"] > 0,
-                "phase 6: char_histogram never launched on the derived "
-                "restore")
+    for name, path in (("stored_layout", stored),
+                       ("derived_layout", derived)):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rest = restore_index(str(path), device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[name] = dict(_build.LAUNCHES)
+        mm = fm_mismatch(index.fm, rest.fm)
+        require(mm == [], f"{what}: {name} restore differs: {mm}")
+        server = FMQueryServer.from_config(
+            rest, icfg.replace(locate_k=LOCATE_K), device="cuda")
+        counts = [int(x) for x in server.count(kept["pats"])]
+        located = server.locate(kept["pats"])
+        require(counts == kept["counts"], f"{what}: {name}: counts differ")
+        require(len(located) == len(kept["located"]) and all(
+            torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+            for a, b in zip(located, kept["located"])),
+            f"{what}: {name}: locates differ")
+        out[name] = {"restore_s": secs, "fm_mismatch": mm,
+                     "answers": f"{len(counts)} count + {len(located)} "
+                                f"locate identical",
+                     "launches": launches[name]}
+        del rest, server
+    require(launches["derived_layout"]["char_histogram"] > 0,
+            f"{what}: char_histogram never launched on the derived restore")
+    return out, launches
+
+
+def phase_restore(kept, proteins_log2n: int,
+                  keep_ckpt: Path | None = None) -> tuple[dict, dict]:
+    """Returns (the phase's record, launches per restore path).  With
+    ``keep_ckpt`` the stored-layout checkpoint is written there and left
+    for phase 10."""
+    from repro_torch.launch import serve
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=build_dir))
+    try:
+        out, launches = save_and_restore(
+            kept, keep_ckpt or tmp / "stored", tmp / "derived", "phase 6")
 
         # the launcher: build + save, then restore + serve
         ck = tmp / "launcher"
@@ -2928,7 +3078,7 @@ def check_catalog_answers(cat, pats, counts, located, n_brute: int) -> None:
                                    f"{counts[i]} != brute force {hits}")
     toks = torch.as_tensor(np.concatenate([s.tokens for s in cat.segments]),
                            device=dev)
-    check_answers(toks, pats, counts, located, n_brute=0)
+    check_answers(toks, pats, counts, located)
 
 
 def catalog_config(n: int, merge_log2n: int):
@@ -5017,8 +5167,8 @@ def lm_reduced(arch: str, device, long_s: bool) -> dict:
 # the full-width parts: (name, config id, depth cut, generate (B, prompt,
 # new), forward (B, S), decode-against-forward positions)
 LM_FULL = (
-    ("minitron_4b", "minitron_4b", None, (8, 64, 64), (1, 2048), 16),
-    ("mamba2_1p3b", "mamba2_1p3b", None, (8, 64, 64), (1, 2048), 0),
+    ("minitron_4b", "minitron_4b", None, (8, 32, 32), (1, 2048), 16),
+    ("mamba2_1p3b", "mamba2_1p3b", None, (8, 32, 32), (1, 2048), 0),
     ("deepseek_v2_236b", "deepseek_v2_236b", 3, (8, 16, 16), (4, 1024), 0),
 )
 
@@ -6055,15 +6205,18 @@ def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
                  mesh_cells=LAUNCH_MESH_SUBSET,
                  world_config: str = "get_config", prework=None,
                  mesh_icfg=None, world_peaks=None,
-                 world_log2n: int = 22) -> tuple:
+                 world_log2n: int = 22, index_tokens=None,
+                 on_index_build=None) -> tuple:
     """Phase 13: (a) the dry run of every cell (the LM cells traced on
     meta, long_500k skipped where the reference skips it, the production
     mesh cells ``mesh_cells`` and the four bwt_index cells on the
     production meshes (of ``mesh_icfg``, default ``icfg``) for rank 0 in
     meta worlds: ``prework`` of ``launch_prework``, or started here with
     ``jobs`` processes; the two bwt_index cells built and served in a
-    one-rank world through ``dryrun.main``), the build peaks held to their
-    meta ISA estimates (``check_index_peaks``: the one-rank build's, and
+    one-rank world through ``dryrun.main``, over ``index_tokens`` when
+    given, ``on_index_build`` called with the built index), the build
+    peaks held to their meta ISA estimates (``check_index_peaks``: the
+    one-rank build's, and
     ``world_peaks``, each rank's of phase 10 (b)'s ``INDEX_PEAK_WORLD`` at
     2^``world_log2n``), (b) ``perf``'s three targets (qwen_train's four
     rule-set variants estimated per rank on 16x16, every LM variant with
@@ -6105,7 +6258,8 @@ def phase_launch(device="cuda", config_of=None, icfg=None, jobs=None,
         rec["lm_waited_s"] = time.perf_counter() - t0
         cells += dryrun.main(["--arch", "bwt_index", "--out", str(dr_dir)],
                              config_of=config_of, index_cfg=icfg,
-                             index_device=device)
+                             index_device=device, index_tokens=index_tokens,
+                             on_index_build=on_index_build)
         rec["dryrun_s"] = time.perf_counter() - t0
         lm = [c for c in cells if c["arch"] != "bwt_index"]
         require(len(lm) == LAUNCH_LM_CELLS, f"phase 13: {len(lm)} LM cells")
@@ -6993,6 +7147,173 @@ def phase_lm_train(device="cuda", reduced=None, archs=None,
     return rec, launches
 
 
+# --------------------------------------------------------------------------
+# phase 16: the bwt_index config's own workload on the single-device path
+# --------------------------------------------------------------------------
+
+# the kernels the english path must launch (its build and its serving)
+ENGLISH_NEEDED = ("fm_query_unpacked", "radix_hist", "radix_pos",
+                  "rerank_scan", "char_histogram")
+ENGLISH_REQUESTS = 1024                          # of each kind
+
+
+def mesh_keeper(store: dict):
+    """Phase 13's ``on_index_build``: host copies of its one-rank mesh
+    build's SA, BWT and row into ``store``, phase 16's reference."""
+    def keep(index):
+        store.update(sa=index.sa.cpu(), bwt=index.bwt.cpu(),
+                     row=int(index.row))
+    return keep
+
+
+def english_rows(fq: dict) -> dict:
+    """The fused query kernel's english row of the kernels line: its
+    parity and, per bucket, the locate launch's times beside its bytes
+    bound and latency floor; each time refused under its bytes bound."""
+    rows = []
+    for b in fq["buckets"]:
+        if not b["k"]:
+            continue
+        check_reading(fq["name"], b["device_ms"], b["bound_ms"], b["ms"],
+                      f"{fq['index']} m={b['m']}")
+        rows.append({k: b[k] for k in (
+            "m", "B", "k", "ms", "device_ms", "bound_ms", "plain_ms",
+            "old_ms", "dependent_steps", "dependent_loads", "latency_ns",
+            "latency_floor_ms") if k in b})
+    return {"index": fq["index"], "max_abs_err": fq["max_abs_err"],
+            "locate": rows}
+
+
+def phase_english(toks, gen_s: float, chase=None, mesh_ref=None):
+    """Phase 16: english at the config's n and declared sigma through the
+    single-device entry points: ``phase_main``'s path (the build with its
+    stages, peaks and launches, 1024 count + 1024 locate requests of
+    lengths 3-64, an equal share in each of the config's buckets, through
+    ``FMQueryServer.from_config``, every count by brute force, the fused
+    kernel against its plain version and timed per bucket), then SA, BWT
+    and row against ``mesh_ref`` (phase 13's one-rank mesh build of the
+    same text, on the host) and the index saved and restored in both
+    layouts.  Returns (record, the main path's launches, the kernels
+    line's english row)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.bwt_index import CONFIG as icfg
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    buckets = icfg.serve_length_buckets
+    pats = bucket_patterns(toks, ENGLISH_REQUESTS, 16, buckets)
+    launches, kept, fq, _ = phase_main(
+        "english", toks, gen_s, 16, keep=True, chase=chase,
+        sigma=icfg.sigma, pats=pats, old_design=False)
+    index = kept["index"]
+    for name in ENGLISH_NEEDED:
+        require(launches[name] > 0,
+                f"phase 16: kernel {name} never launched on the english "
+                f"path")
+    served = {next(b for b in buckets if len(p) <= b) for p in pats}
+    require(served == set(buckets),
+            f"phase 16: buckets {sorted(served)} served, not {buckets}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    peak = held + kept["peak_bytes"]
+    require(peak < card, f"phase 16: build peak {peak} B over the card's "
+                         f"{card} B")
+    rec = {"phase": 16, "n": len(toks), "sigma_declared": icfg.sigma,
+           "sigma": index.sigma, "held_at_start_bytes": held,
+           "build_peak_bytes": kept["peak_bytes"],
+           "peak_under_card_memory": {"peak_bytes": peak,
+                                      "card_bytes": card},
+           "serve_batches": kept["batches"],
+           "fm_query_launches_serve": kept["serve"][fq["name"]],
+           "rank_launches_serve": kept["serve"]["rank_packed"]
+           + kept["serve"]["rank_select"]}
+    if mesh_ref:
+        for name, got in (("sa", index.sa), ("bwt", index.bwt)):
+            require(np.array_equal(got.cpu().numpy(),
+                                   mesh_ref[name].numpy()),
+                    f"phase 16: {name} differs from phase 13's one-rank "
+                    f"mesh build")
+        require(int(index.row) == mesh_ref["row"],
+                "phase 16: row differs from phase 13's one-rank mesh build")
+        rec["one_rank_mesh_build"] = "SA, BWT and row equal"
+    else:
+        rec["one_rank_mesh_build"] = "not run (phase 13 left out)"
+    mesh_ref = None
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_english_",
+                                dir=ROOT / "build"))
+    try:
+        restore, rec["restore_launches"] = save_and_restore(
+            kept, tmp / "stored", tmp / "derived", "phase 16",
+            read_back=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["restore"] = restore
+    rec["restore_over_build"] = {
+        name: restore[name]["restore_s"] / kept["build_s"]
+        for name in ("stored_layout", "derived_layout")}
+    rec["build_s"] = kept["build_s"]
+    del kept, index
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec, launches, english_rows(fq)
+
+
+# --------------------------------------------------------------------------
+# phase 17: the port's examples
+# --------------------------------------------------------------------------
+
+# (example under examples/, its arguments besides --device)
+EXAMPLES = (("torch_quickstart", ()), ("torch_index_corpus", ()),
+            ("torch_index_corpus", ("--kind", "english")),
+            ("torch_serve_queries", ()), ("torch_train_lm", ("--steps", "4")))
+
+
+def run_example(name: str, argv) -> list:
+    """``examples/<name>.py``'s ``main(argv)`` in this process; returns
+    what it printed, line by line."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mod.main(list(argv))
+    return buf.getvalue().splitlines()
+
+
+def phase_examples(device="cuda", examples=EXAMPLES) -> tuple[dict, dict]:
+    """Phase 17: each example of ``examples`` in process on ``device`` at
+    its default sizes; each must end with its ``... OK`` line.  Returns
+    (record: per run its lines and s; launches summed over the runs)."""
+    from repro_torch.kernels import _build
+
+    out, launches = {}, {name: 0 for name in _build.KERNELS}
+    for name, argv in examples:
+        _build.reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        lines = run_example(name, [*argv, "--device", device])
+        _sync(device)
+        secs = time.perf_counter() - t0
+        want = f"{name.removeprefix('torch_')} OK"
+        require(bool(lines) and lines[-1] == want,
+                f"phase 17: {name} {' '.join(argv)} ended without "
+                f"'{want}': {lines[-3:]}")
+        out[" ".join([name, *argv])] = {"s": secs, "lines": lines}
+        for k, v in _build.LAUNCHES.items():
+            launches[k] += v
+    return {"examples": out}, launches
+
+
 # the function of the JAX package each kernel replaces (file:line of the
 # function that reaches pl.pallas_call)
 REPLACES = {
@@ -7033,10 +7354,12 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
          # chains; the query kernels' chains of dependent steps (the
          # latency floors of the query, stacked, merge and single-batch
          # rank kernels); the rank kernels on the distributed indexes of
-         # phase 10 and on the LF maps of phase 7's merges
+         # phase 10 and on the LF maps of phase 7's merges; the fused query
+         # kernel on phase 16's english index
          **{k: rows[name][k] for k in ("plain_shape", "dependent_steps",
                                        "latency_floor_ms", "chains",
-                                       "events_ms", "dist", "lf_map")
+                                       "events_ms", "dist", "lf_map",
+                                       "english")
             if k in rows[name]}}
         for name in _build.KERNELS]}
 
@@ -7044,7 +7367,8 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,"
+                            "17",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--dna-log2n", type=int, default=28)
     ap.add_argument("--proteins-log2n", type=int, default=24)
@@ -7073,7 +7397,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     t0 = time.perf_counter()
-    finish_chase = (start_chase_build() if phases & {1, 2, 3, 7, 8, 10}
+    finish_chase = (start_chase_build() if phases & {1, 2, 3, 7, 8, 10, 16}
                     else None)
     finish_lanes = (start_script_build(LANES_SRC, LANES_ARGTYPES)
                     if 8 in phases else None)
@@ -7308,16 +7632,48 @@ def main(argv=None) -> int:
             main_launches[name] += v
         emit({"phase": 12, **rec})
 
+    # the english text at the config's n: phase 13's one-rank mesh build
+    # and phase 16's single-device path share it
+    eng_toks, eng_gen_s, mesh_ref = None, 0.0, {}
+    if phases & {13, 16}:
+        from repro_torch.configs.bwt_index import CONFIG as icfg
+
+        t0 = time.perf_counter()
+        eng_toks = corpus("english", icfg.n)
+        eng_gen_s = time.perf_counter() - t0
+
     world_est = None    # phase 13's estimates of phases 14 (b), 15 (b)
     if 13 in phases:
-        rec, launches = phase_launch(prework=prework, world_peaks=world_peaks,
-                                     world_log2n=world_log2n)
+        rec, launches = phase_launch(
+            prework=prework, world_peaks=world_peaks,
+            world_log2n=world_log2n, index_tokens=eng_toks,
+            on_index_build=mesh_keeper(mesh_ref) if 16 in phases else None)
         world_est = rec["world_peak_estimates"]
         for path, counts in launches.items():
             path_launches[path] = counts
             for name, v in counts.items():
                 main_launches[name] += v
         emit({"phase": 13, **rec})
+
+    if 16 in phases:
+        require(13 not in phases or bool(mesh_ref),
+                "phase 16: phase 13 kept no one-rank mesh build")
+        rec, launches, eng_row = phase_english(eng_toks, eng_gen_s, chase,
+                                               mesh_ref)
+        mesh_ref = None
+        path_launches["english"] = launches
+        for name, v in launches.items():
+            main_launches[name] += v
+        if "fm_query_unpacked" in rows:
+            rows["fm_query_unpacked"]["english"] = eng_row
+        emit(rec)
+    del eng_toks
+
+    if 17 in phases:
+        t0 = time.perf_counter()
+        rec, path_launches["examples"] = phase_examples()
+        rec["phase_s"] = time.perf_counter() - t0
+        emit({"phase": 17, **rec})
 
     trained = None      # phase 15 (a), taken in phase 14's worlds
     served = full_train = None

@@ -877,15 +877,17 @@ def _timed(fn, *args, device) -> float:
     return time.perf_counter() - t0
 
 
-def run_index_cells(shapes, mesh, *, icfg=None, device=None) -> list:
+def run_index_cells(shapes, mesh, *, icfg=None, device=None, tokens=None,
+                    on_build=None) -> list:
     """The bwt_index cells on a one-part ``mesh``: ``build`` runs
     ``build_index(tokens, mesh)`` over the english corpus at the config's
-    n once under ``roofline.count`` (launch counts reset just before it,
-    read just after), then once more timed alone; ``serve`` counts one
-    ``dist_count`` batch of ``query_batch`` x ``query_len`` substrings
-    of the text, then times a second.  Each records seconds, peak memory,
-    the counts (the kernels' reported bytes in them), collective bytes by
-    kind and the roofline."""
+    n (``tokens``, when the caller has made them) once under
+    ``roofline.count`` (launch counts reset just before it, read just
+    after; ``on_build``, when given, is then called with the index), then
+    once more timed alone; ``serve`` counts one ``dist_count`` batch of
+    ``query_batch`` x ``query_len`` substrings of the text, then times a
+    second.  Each records seconds, peak memory, the counts (the kernels'
+    reported bytes in them), collective bytes by kind and the roofline."""
     from ..configs.bwt_index import CONFIG
     from ..data.corpus import corpus
     from ..devices import resolve_device
@@ -893,12 +895,15 @@ def run_index_cells(shapes, mesh, *, icfg=None, device=None) -> list:
     icfg = icfg or CONFIG
     device = resolve_device(device)
     t0 = time.perf_counter()
-    tokens = corpus("english", icfg.n)
+    if tokens is None:
+        tokens = corpus("english", icfg.n)
     gen_s = time.perf_counter() - t0
     out, index = [], None
     if "build" in shapes or "serve" in shapes:
         index, counts, peak, launches, records = _counted(
             index_build, tokens, mesh, icfg, device, device=device)
+        if on_build is not None:
+            on_build(index)
         seconds = _timed(index_build, tokens, mesh, icfg, device,
                          device=device)
         if "build" in shapes:
@@ -989,13 +994,16 @@ def run_cells(cells, *, compile_: bool = True, jobs: int = 1,
 
 
 def main(argv=None, *, config_of=get_config, index_cfg=None,
-         index_device=None, index_mesh=None) -> list:
+         index_device=None, index_mesh=None, index_tokens=None,
+         on_index_build=None) -> list:
     """Run the cells the arguments name and write one JSON each; returns
     the records.  Raises ``SystemExit(1)`` after the last cell when any
     cell failed.  The keyword arguments are for rehearsals: other LM
     configs (``get_reduced_config``), another index config and device,
     and an index mesh to run in (default: a one-rank world of its own,
-    NCCL on the card).  ``index_cfg`` applies to the mesh cells too.
+    NCCL on the card).  ``index_cfg`` applies to the mesh cells too;
+    ``index_tokens`` / ``on_index_build`` are ``run_index_cells``'
+    ``tokens`` / ``on_build``.
 
     Without ``--multi-pod`` every cell runs on one card; with it, on the
     reference's production meshes (``single``: 16x16, ``multi``: 2x16x16,
@@ -1034,7 +1042,9 @@ def main(argv=None, *, config_of=get_config, index_cfg=None,
         _emit(res, args.out)
     if index and not args.no_compile:
         for res in _index_cells([s for s, _ in index], index_cfg,
-                                index_device, index_mesh):
+                                index_device, index_mesh,
+                                tokens=index_tokens,
+                                on_build=on_index_build):
             _emit(res, args.out)
             results.append(res)
     failures = sum(res["status"] == "failed" for res in results)
@@ -1065,17 +1075,17 @@ def _emit(res: dict, out_dir) -> None:
         print(res["error"], flush=True)
 
 
-def _index_cells(shapes, icfg, device, mesh) -> list:
+def _index_cells(shapes, icfg, device, mesh, **kw) -> list:
     """``run_index_cells`` in ``mesh``, or in a one-rank world of this
     process (NCCL on the card, gloo on the CPU)."""
     from ..devices import resolve_device
     from .mesh import single_rank_world
 
     if mesh is not None:
-        return run_index_cells(shapes, mesh, icfg=icfg, device=device)
+        return run_index_cells(shapes, mesh, icfg=icfg, device=device, **kw)
     dev = resolve_device(device)
     with single_rank_world(dev.type) as world:
-        return run_index_cells(shapes, world, icfg=icfg, device=dev)
+        return run_index_cells(shapes, world, icfg=icfg, device=dev, **kw)
 
 
 if __name__ == "__main__":

@@ -1080,3 +1080,101 @@ def test_world_peaks_are_held_to_their_meta_estimates():
                         (0.85, 1.0, "phase 15 .* under")):
         with pytest.raises(AssertionError, match=match):
             chip_smoke.check_world_peaks(est, *records(t, s))
+
+
+# -- phase 16: the english path at the config's sigma; phase 17: examples --
+
+@pytest.mark.parametrize("count", [1024, 101, 4])
+def test_bucket_patterns_fill_every_bucket(count):
+    """An equal share of the requests in each of the config's buckets
+    (the first buckets take the remainder), lengths from 3 up to the
+    bucket and over the bucket below, each a substring of the text."""
+    import numpy as np
+
+    from repro_torch.configs.bwt_index import CONFIG
+    from repro_torch.data.corpus import corpus
+
+    toks = corpus("english", 1 << 14)
+    buckets = CONFIG.serve_length_buckets
+    pats = chip_smoke.bucket_patterns(toks, count, 16, buckets)
+    assert len(pats) == count
+    lo, start = 3, 0
+    for i, hi in enumerate(buckets):
+        share = count // len(buckets) + (i < count % len(buckets))
+        lens = [len(p) for p in pats[start: start + share]]
+        assert all(lo <= L <= hi for L in lens)
+        lo, start = hi + 1, start + share
+    text = toks.tobytes()
+    assert all(p.astype(np.int32).tobytes() in text for p in pats)
+    again = chip_smoke.bucket_patterns(toks, count, 16, buckets)
+    assert all(np.array_equal(a, b) for a, b in zip(pats, again))
+
+
+def test_brute_counts_by_hand():
+    """Every position scanned: overlapping hits, the text's last tokens,
+    patterns shorter and longer than the packed word, absent ones."""
+    import numpy as np
+
+    from repro_torch.data.corpus import corpus
+
+    toks = corpus("english", 3000)
+    toks[100:110] = 5
+    pats = [np.array([5, 5]), np.array([5] * 4), np.array([5] * 7),
+            toks[-3:], toks[-9:], toks[:64], np.array([7, 8, 9]),
+            toks[200:205], np.array([33]), np.array([5] * 11)]
+
+    def naive(p):
+        L = len(p)
+        return sum(np.array_equal(toks[i: i + L], p)
+                   for i in range(len(toks) - L + 1))
+
+    got = chip_smoke.brute_counts(torch.as_tensor(toks), pats)
+    assert got == [naive(np.asarray(p, np.int32)) for p in pats]
+    assert got[:3] == [9, 7, 4] and got[-1] == 0
+    with pytest.raises(AssertionError, match=r"\[0, 128\)"):
+        chip_smoke.brute_counts(torch.tensor([1, 200], dtype=torch.int32),
+                                pats)
+
+
+def test_english_rows_keep_locate_buckets_and_refuse_a_broken_one():
+    fq = {"name": "fm_query_unpacked", "index": "english n=8",
+          "max_abs_err": 0,
+          "buckets": [dict(m=m, B=1024, k=k, ms=0.1, device_ms=0.08,
+                           bound_ms=0.01, plain_ms=9.0, old_ms=1.0,
+                           latency_floor_ms=0.05)
+                      for m in (8, 16, 32, 64) for k in (0, 16)]}
+    rows = chip_smoke.english_rows(fq)
+    assert [r["m"] for r in rows["locate"]] == [8, 16, 32, 64]
+    assert all(r["k"] == 16 for r in rows["locate"])
+    fq["buckets"][-1]["device_ms"] = 0.001
+    with pytest.raises(AssertionError, match="under its bytes bound"):
+        chip_smoke.english_rows(fq)
+
+
+def test_mesh_keeper_keeps_host_copies():
+    class Index:
+        sa = torch.arange(5, dtype=torch.int32)
+        bwt = torch.ones(5, dtype=torch.int32)
+        row = torch.tensor(3, dtype=torch.int32)
+
+    store = {}
+    chip_smoke.mesh_keeper(store)(Index)
+    assert torch.equal(store["sa"], Index.sa) and store["row"] == 3
+    assert store["sa"].device.type == "cpu"
+
+
+def test_phase_examples_on_the_cpu(monkeypatch):
+    """Phase 17's machinery on the CPU over the quickstart: its lines and
+    its launches (none: plain versions); an example that does not end
+    with its OK line fails the phase."""
+    rec, launches = chip_smoke.phase_examples(
+        "cpu", examples=(("torch_quickstart", ()),))
+    lines = rec["examples"]["torch_quickstart"]["lines"]
+    assert lines[0].startswith("bwt(BANANA$) = ANNB$AA   I = 4")
+    assert lines[-1] == "quickstart OK"
+    assert set(launches.values()) == {0}
+    monkeypatch.setattr(chip_smoke, "run_example",
+                        lambda name, argv: ["quickstart failed"])
+    with pytest.raises(AssertionError, match="ended without"):
+        chip_smoke.phase_examples("cpu", examples=(("torch_quickstart",
+                                                    ()),))

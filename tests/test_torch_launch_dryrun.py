@@ -230,3 +230,29 @@ def test_check_launch_cell_refuses_broken_readings():
         cs.check_launch_cell(dict(cell, measured_s=0.4), "fast")
     with pytest.raises(AssertionError, match="exceeds its estimate"):
         cs.check_launch_cell(dict(cell, peak_bytes=111), "peak")
+
+
+def test_index_cells_share_tokens_and_keep_the_build():
+    """Phase 13's index cells over the tokens the caller made, the counted
+    build handed to ``on_build`` (chip_smoke's ``mesh_keeper``): in a
+    one-rank CPU world its SA, BWT and row equal the single-device build
+    of the same text at the config's declared sigma, phase 16's
+    comparison."""
+    from repro_torch.configs.bwt_index import reduced
+    from repro_torch.core.pipeline import build_index
+    from repro_torch.data.corpus import corpus
+    from repro_torch.launch import dryrun
+
+    icfg = reduced()
+    toks = corpus("english", icfg.n)
+    store = {}
+    recs = dryrun._index_cells(["build"], icfg, "cpu", None, tokens=toks,
+                               on_build=_chip_smoke().mesh_keeper(store))
+    assert [(r["shape"], r["status"]) for r in recs] == [("build",
+                                                          "measured")]
+    single = build_index(toks, sigma=icfg.sigma, sample_rate=icfg.sample_rate,
+                         sa_sample_rate=icfg.sa_sample_rate, device="cpu")
+    assert single.sigma == icfg.sigma + 1
+    assert torch.equal(store["sa"], single.sa)
+    assert torch.equal(store["bwt"], single.bwt)
+    assert store["row"] == int(single.row)

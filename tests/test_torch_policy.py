@@ -19,7 +19,7 @@ from repro_torch.serving.engine import FMQueryServer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path: Path):
@@ -42,7 +42,8 @@ def test_no_jax_or_reference_imports(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"ops.py", "fm_index.py", "pipeline.py", "engine.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "torch_quickstart.py", "torch_index_corpus.py",
+            "torch_serve_queries.py", "torch_train_lm.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" /
                              "csrc").glob("*.cu")} == {
         f"{k}.cu" for k in _build.SOURCES}
