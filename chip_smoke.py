@@ -44,7 +44,15 @@ script exits nonzero and prints no final result:
      steps and latency floor (the steps x one load's latency from
      scripts/pointer_chase.cu), and the earlier one-rank-launch-per-step
      design against it in turns
-  3  the same for proteins at n = 2^24 (sigma 23: the unpacked layout)
+  3  the same for proteins at n = 2^24 (sigma 23: the unpacked layout);
+     on the unpacked layout the fused kernel is also held to its plain
+     version on walk-aimed patterns (rows at cuts 0, 1, 3, 4, 31, 32, 33,
+     63 and in the last block, m = 1, PAD-only, out of the alphabet) at k
+     = 0, 1, 15, 16, 17, 64, and so is the kernel before its
+     redesign (scripts/fm_query_unpacked_serial.cu, built beside the
+     kernels like the pointer chase, a measurement and not a kernel of
+     the port), which is timed in turns with it (old, new, new, old:
+     device and event ms, count and locate) on the m = 32 bucket
   4  cross-device parity at n = 2^16 for dna, proteins and english: the CPU
      build (plain versions) and the CUDA build (kernels) must agree bit for
      bit (SA, BWT, every FMIndex field, counts, locates), for the fast and
@@ -201,7 +209,9 @@ script exits nonzero and prints no final result:
      off (reported); (c)
      examples/train_lm.py's pipeline at full width: the english corpus at
      2^22 tokens indexed on the card and screened by
-     duplicate_window_mask (window 64, stride 256), then qwen2p5_3b at full
+     duplicate_window_mask (window 64, stride 256; the query kernel held
+     to its plain version on the screen's first and last batches, count
+     and k = 16), then qwen2p5_3b at full
      width and depth (3.40 B params, float32 params, grads and AdamW
      moments) trained on the screened stream through ``train``: B = 2, S =
      1024, remat "full", 4 steps: s a step, tokens/s and peak memory beside
@@ -298,7 +308,14 @@ script exits nonzero and prints no final result:
      requests as served, edge patterns at k = 0, 1, 16, 64) and timed per
      bucket beside its bytes bound and latency floor (dependent loads x
      one load's latency from scripts/pointer_chase.cu over the index's
-     BWT and 258-column Occ words, 5.4 GB); sync qps and the device-busy
+     BWT and 258-column Occ words, 5.4 GB), in turns with the kernel
+     before its redesign on every bucket, the walk-aimed parity of phase
+     3 on this index and on english 2^20 indexes built from a raw BWT at
+     r = 64, 62 and 256 (the last block partial; 62: the 4-byte loads;
+     256: blocks past one step of chunks), and on the m = 8 bucket the
+     walk study: both walks stamped with clock64() per step at k = 1, 4,
+     16 (scripts/fm_query_unpacked_stamps.cu) and the launches at k = 0,
+     1, 4, 16 in turns; sync qps and the device-busy
      share of a flush; save -> restore in the stored and the derived
      layout (char_histogram and the Occ checkpoints again), each equal to
      the built index and answering the requests identically, save s,
@@ -319,8 +336,10 @@ its perf bwt_build, phase 14 and phase 15, each summed over its ranks,
 phase 16's english path and phase 17's examples) and read just after it.
 Then a ``kernels`` line (launches on the main paths of phases 2-3, 7-10,
 phase 12's screen, phase 13 and phase 16, and on each path, parity
-error, times and bounds), the card's
-name and power limit and, last, the ``{"ok": true, ...}`` device line.  A
+error, times and bounds), a ``host`` line (the CPU model, its cores, the
+1-, 5- and 15-minute load averages from /proc and the run's seconds so
+far), the card's name and power limit and, last, the ``{"ok": true,
+...}`` device line.  A
 kernel time under its bound (bytes over the card's HBM peak), or a merge
 walk under its latency floor, fails the run as a broken measurement.
 Exits nonzero without a result when no CUDA device is present.
@@ -374,6 +393,22 @@ STAMPS_ARGTYPES = {"rank_select_stamps_launch": ("c_void_p", "c_int") +
 # entries' argument types (the port's stacked wrappers' C arguments up to
 # k, then sp, ep, positions, stream; the occupancy query: unpacked, bits,
 # sigma, out)
+# the fused unpacked query kernel before its redesign (a lane-serial walk),
+# timed in turns with the port's: its source and its C entry's argument
+# types (the port's unpacked entry's arguments before the redesign: layout,
+# n, C, SA sample, patterns, B, m, k, sp, ep, positions, stream)
+SERIAL_SRC = ROOT / "scripts" / "fm_query_unpacked_serial.cu"
+_QUERY_HEAD = ("c_void_p", "c_void_p", "c_int", "c_int", "c_int", "c_int",
+               "c_void_p", "c_void_p", "c_void_p", "c_void_p", "c_int",
+               "c_int", "c_int")
+SERIAL_ARGTYPES = {"fm_query_unpacked_serial_launch": _QUERY_HEAD + (
+    "c_void_p", "c_int", "c_int", "c_int") + ("c_void_p",) * 4}
+# both unpacked walks with clock64() stamps around a step's round trips:
+# its source and its C entry's argument types (the same head, rows, B, k,
+# design, stamps, stream)
+WALK_STAMPS_SRC = ROOT / "scripts" / "fm_query_unpacked_stamps.cu"
+WALK_STAMPS_ARGTYPES = {"fm_query_unpacked_stamps_launch": _QUERY_HEAD + (
+    "c_void_p", "c_int", "c_int", "c_int", "c_void_p", "c_void_p")}
 LANES_SRC = ROOT / "scripts" / "fm_query_stacked_lanes.cu"
 _LANES_TAIL = ("c_void_p",) * 4 + ("c_longlong", "c_longlong", "c_int",
                                    "c_void_p", "c_int", "c_int", "c_int") \
@@ -1454,7 +1489,8 @@ def stage_times(toks, sample_rate: int, sa_sample_rate: int,
 
 def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool,
                snap: bool = False, chase=None, sigma: int | None = None,
-               pats=None, old_design: bool = True):
+               pats=None, old_design: bool = True, serial=None,
+               turn_buckets=(), stamps=None):
     """One main path; returns its launches, with ``keep`` what later phases
     compare against (the index, its requests and answers), the fused
     query kernel's parity and times on the path's index (with ``chase``,
@@ -1463,7 +1499,13 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool,
     (``snapshot``).  ``sigma`` declares the alphabet (None: the data's);
     ``pats`` are the requests (None: 1024 of lengths 3-32), each count
     checked by brute force (``brute_counts``); ``old_design`` times the
-    query design before the fused kernel beside it (``query_timing``)."""
+    query design before the fused kernel beside it (``query_timing``).
+    On an unpacked index the kernel is also held to its plain version on
+    the walk-aimed patterns (``walk_checks``) and, with ``serial``, timed
+    in turns with the kernel before its redesign on the buckets of
+    ``turn_buckets``; with ``stamps`` and ``chase`` the shortest
+    bucket's walk is stamped (``walk_stamps``) and its
+    launches at k = 0, 1, 4, 16 timed against that kernel."""
     import functools
 
     import torch
@@ -1542,11 +1584,27 @@ def phase_main(kind: str, toks, gen_s: float, phase: int, keep: bool,
     fq = {"name": qname, "index": f"{kind} n={n}"}
     fq["max_abs_err"] = check_queries(index.fm, query_cases(
         index.fm, toks, pats, phase), fq["index"])
+    if not index.fm.bits:
+        fq["walk_cases"] = walk_checks(index.fm, toks, index.sa, phase,
+                                       fq["index"], serial)
+        fq["max_abs_err"] = max(fq["max_abs_err"],
+                                fq["walk_cases"]["max_abs_err"])
     lap("query_parity")
-    fq.update(query_timing(index.fm, toks, pats, phase, functools.lru_cache(
-        maxsize=None)(functools.partial(dependent_load_ns, chase))
-        if chase is not None else None, old_design))
+    latency_ns = (functools.lru_cache(maxsize=None)(functools.partial(
+        dependent_load_ns, chase)) if chase is not None else None)
+    fq.update(query_timing(index.fm, toks, pats, phase, latency_ns,
+                           old_design, serial, turn_buckets))
     lap("query_timing")
+    if stamps is not None and latency_ns is not None and not index.fm.bits:
+        L = min(R.shape[1] for R in flush_buckets(pats, "cpu"))
+        P = pad_patterns(sample_patterns(toks, 1024, phase, 3, L), L,
+                         "cuda")
+        fq["walk_study"] = {
+            "m": L, "B": 1024, "stamps": walk_stamps(stamps, index.fm, P,
+                                                     latency_ns),
+            "launches": serial_launches(serial, index.fm, P)
+            if serial is not None else None}
+        lap("walk_study")
 
     s, _ = prepare_tokens(toks, icfg.sample_rate, sigma)
     s_dev = torch.as_tensor(s, device="cuda")
@@ -1728,16 +1786,20 @@ def query_bytes(fm, P, k: int) -> tuple[int, int]:
 
 
 def query_timing(fm, toks, pats, seed: int, latency_ns=None,
-                 old_design: bool = True) -> dict:
+                 old_design: bool = True, serial=None,
+                 turn_buckets=()) -> dict:
     """Per length bucket the requests ``pats`` fill (B = 1024 substrings of
     lengths in the bucket, from the shortest request's length up, count
     and locate): the fused kernel's event and device
     times beside its bound and dependent steps (with ``latency_ns(words)``
-    also its latency floor, ``latency_floor``), the plain version, and
-    with ``old_design`` the earlier design (the same step loop launching
-    the single-batch rank kernel), then the earlier design against the
-    fused kernel over the flush's own batches, timed in turns (old, new,
-    new, old)."""
+    also its latency floor, ``latency_floor``), the plain version, with
+    ``serial`` (the unpacked kernel before its redesign, ``SERIAL_SRC``)
+    on the buckets of ``turn_buckets`` that kernel and the port's in
+    turns (``serial_turns``: ``before_ms`` and ``turns``), and with
+    ``old_design`` the earlier design (the same step loop launching the
+    single-batch rank kernel), then the earlier design against the fused
+    kernel over the flush's own batches, timed in turns (old, new, new,
+    old)."""
     name, kern, plain, rank_kernel = query_fns(fm)
     dev = fm.device
     reqs = flush_buckets(pats, dev)
@@ -1761,6 +1823,9 @@ def query_timing(fm, toks, pats, seed: int, latency_ns=None,
                    if old_design else {}),
                 **(latency_floor(fm, P, walk, latency_ns)
                    if latency_ns is not None else {})))
+            if serial is not None and L in turn_buckets:
+                t = serial_turns(serial, fm, P, k)
+                buckets[-1].update(before_ms=t.pop("before_ms"), turns=t)
     if not old_design:
         return {"buckets": buckets,
                 "flush_batches": [list(P.shape) for P in reqs]}
@@ -1791,8 +1856,234 @@ def query_row(rec: dict, small_err: int) -> dict:
                 bound_ms=top["bound_ms"], library_ms=None,
                 device_ms=top["device_ms"],
                 dependent_steps=top["dependent_steps"],
-                **{k: top[k] for k in ("latency_floor_ms",) if k in top},
+                **{k: top[k] for k in ("latency_floor_ms", "before_ms")
+                   if k in top},
                 shape=f"{rec['index']}: locate B=1024, m=32, k={LOCATE_K}")
+
+
+# --------------------------------------------------------------------------
+# the fused unpacked kernel's redesign: the design before it in turns, the
+# walk's stamps and the walk-aimed parity (phases 3, 12, 16)
+# --------------------------------------------------------------------------
+
+# the cuts (row % r) the walk-aimed patterns start rows at, and the k of
+# their launches
+WALK_CUTS = (0, 1, 3, 4, 31, 32, 33, 63)
+WALK_KS = (0, 1, 15, 16, 17, 64)
+# the ks of phase 16's stamped walks and timed launches on the m = 8 bucket
+STAMP_KS = (1, 4, 16)
+
+
+def cuda_stream() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def index_args(fm, k: int, name: str) -> tuple:
+    """The C arguments an unpacked query entry takes before the patterns:
+    the layout, n, C and the SA sample (nothing of it for k = 0)."""
+    from repro_torch.kernels import fm_query as fq
+
+    _, sample = fq._sample_args(fm, k, name)
+    return (fm.bwt.data_ptr(), fm.occ_samples.data_ptr(), fm.n_blocks,
+            fm.sigma, fm.sample_rate, fm.length, fm.c_array.data_ptr(),
+            *sample)
+
+
+def serial_query(serial, fm, P, k: int):
+    """(sp, ep, positions) of one launch of the kernel before the redesign
+    (``SERIAL_SRC``'s entry ``serial``) on an unpacked index."""
+    import torch
+
+    B, m = P.shape
+    sp = torch.empty(B, dtype=torch.int32, device=P.device)
+    ep = torch.empty(B, dtype=torch.int32, device=P.device)
+    pos = torch.empty((B, k), dtype=torch.int32, device=P.device)
+    err = serial(*index_args(fm, k, "fm_query_unpacked_serial"),
+                 P.data_ptr(), B, m, k, sp.data_ptr(), ep.data_ptr(),
+                 pos.data_ptr(), cuda_stream())
+    require(err == 0, f"fm_query_unpacked_serial failed: CUDA error {err}")
+    return sp, ep, pos
+
+
+def serial_turns(serial, fm, P, k: int) -> dict:
+    """The kernel before the redesign ("old") and the port's ("new") on one
+    batch in turns (old, new, new, old): per turn the event ms (CUDA events
+    around 20 calls) and the device ms (profiler, per recorded launch);
+    ``before_ms`` is the old kernel's mean device ms."""
+    from repro_torch.kernels.fm_query import fm_query_unpacked
+
+    fns = {"old": (lambda: serial_query(serial, fm, P, k),
+                   "fm_query_unpacked_serial_kernel"),
+           "new": (lambda: fm_query_unpacked(fm, P, k),
+                   "fm_query_unpacked_kernel")}
+    out = {f"{tag}_{what}": [] for tag in fns for what in ("ms",
+                                                            "device_ms")}
+    for tag in ("old", "new", "new", "old"):
+        fn, kernel = fns[tag]
+        out[f"{tag}_ms"].append(time_ms(fn, 20))
+        out[f"{tag}_device_ms"].append(kernel_device_ms(fn, kernel))
+    out["before_ms"] = sum(out["old_device_ms"]) / 2
+    return out
+
+
+def walk_edge_patterns(fm, toks, sa, seed: int) -> list:
+    """Patterns aimed at the group walk: the text's substrings of 16 and 48
+    symbols at rows whose cut (row % r) is each of ``WALK_CUTS`` (those
+    rows lie in the patterns' intervals), at the last rows of the index
+    (its last block, partial where r does not divide n), every length-1
+    pattern, all-PAD and out-of-alphabet ones."""
+    import numpy as np
+
+    from repro_torch.core.fm_index import PAD
+
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0xC07]))
+    r, n = fm.sample_rate, fm.length
+    rows = [int(b) * r + cut for cut in WALK_CUTS if cut < r
+            for b in rng.integers(0, n // r, 3)]
+    rows += [n - 1, n - 2, (n - 1) // r * r]
+    starts = sa[rows].cpu().numpy()
+    out = []
+    for L in (16, 48):
+        out += [toks[p: p + L].copy() for p in starts if p < len(toks)]
+    out += [np.array([c], np.int32) for c in range(1, fm.sigma)]
+    out += [np.zeros(0, np.int32), np.array([PAD, PAD], np.int32),
+            np.array([fm.sigma], np.int32), np.array([3, 999, 4], np.int32)]
+    return out
+
+
+def walk_checks(fm, toks, sa, seed: int, what: str, serial=None) -> dict:
+    """The port's kernel, and with ``serial`` the kernel before the
+    redesign, equal to the plain version on ``walk_edge_patterns`` at each
+    k of ``WALK_KS``; the walk's first rows must cover every cut of
+    ``WALK_CUTS`` below r and the last block.  Returns what was
+    checked."""
+    import torch
+
+    from repro_torch.kernels import fm_query as fq
+
+    E = pad_patterns(walk_edge_patterns(fm, toks, sa, seed), 64, fm.device)
+    r, err, launches = fm.sample_rate, 0, 0
+    for k in WALK_KS:
+        want = fq.fm_query_unpacked_plain(fm, E, k)
+        runs = [("kernel", lambda: fq.fm_query_unpacked(fm, E, k))]
+        if serial is not None:
+            runs.append(("pre-redesign", lambda: serial_query(serial, fm,
+                                                              E, k)))
+        for design, fn in runs:
+            got = fn()
+            tag = f"fm_query_unpacked {what} walk edge {design} k={k}"
+            err = max(err, same(got[0], want[0], f"{tag} sp"),
+                      same(got[1], want[1], f"{tag} ep"))
+            if k:
+                err = max(err, same(got[2], want[2], f"{tag} positions"))
+            launches += 1
+    sp, ep, _ = want
+    first = sp[:, None] + torch.arange(WALK_KS[-1], device=sp.device)
+    first = first[first < ep[:, None]]
+    cuts = set((first % r).tolist())
+    aimed = {c for c in WALK_CUTS if c < r}
+    require(aimed <= cuts, f"{what}: the walk-aimed patterns start no row "
+                           f"at cuts {sorted(aimed - cuts)}")
+    last = int((first >= (fm.n_blocks - 1) * r).sum())
+    require(last > 0, f"{what}: no walk starts in the last block")
+    return {"patterns": int(E.shape[0]), "ks": WALK_KS,
+            "kernels": len(runs), "launches": launches,
+            "cuts_started": len(cuts), "rows_in_last_block": last,
+            "max_abs_err": err}
+
+
+def walk_indexes(sigma: int, serial=None, log2n: int = 20,
+                 device="cuda") -> dict:
+    """``walk_checks`` on two english indexes of 2^log2n tokens built on
+    ``device`` from a raw BWT (n = 2^log2n + 1: the last block partial) at
+    declared ``sigma``: r = 64 (16-byte loads), r = 62 (not a multiple of
+    4: the kernel's 4-byte loads) and r = 256 (blocks longer than one
+    step of chunks: the walk loads the row's symbol on its own)."""
+    import torch
+
+    from repro_torch.core import alphabet as al
+    from repro_torch.core.bwt import bwt_from_sa
+    from repro_torch.core.fm_index import build_fm_index
+    from repro_torch.core.suffix_array import suffix_array_fast
+    from repro_torch.data.corpus import corpus
+    from repro_torch.kernels import fm_query as fq
+
+    toks = corpus("english", 1 << log2n)
+    s = al.append_sentinel(toks)
+    s_dev = torch.as_tensor(s, device=device)
+    sa, _ = suffix_array_fast(s_dev, sigma + 1, local_sort="auto")
+    bwt, row = bwt_from_sa(s_dev, sa)
+    out = {}
+    for r in (64, 62, 256):
+        fm = build_fm_index(bwt, row, sigma + 1, r, sa=sa, sa_sample_rate=32)
+        vec = fq.unpacked_launch_plan(fm, 1, 16)["vector"]
+        require(vec == (r % 4 == 0), f"r={r}: vector loads {vec}")
+        out[f"r={r}"] = dict(walk_checks(
+            fm, toks, sa, r, f"english 2^{log2n} r={r}", serial),
+            n=fm.length, vector_loads=vec)
+    return out
+
+
+def walk_stamps(stamps, fm, P, latency_ns) -> dict:
+    """Where a locate walk step goes on one batch ``P`` (phase 16's m = 8
+    bucket), at each k of ``STAMP_KS``: the rows sp + j (j < k, inside the
+    interval) walked by ``WALK_STAMPS_SRC``'s stamped copies of the
+    serial walk (design 0) and the group walk (8 and 16 lanes a row, its
+    count summed by shuffles as the kernel does, or by ballots).  Per
+    design the walked rows, their median steps and, per step, the median
+    SM cycles of the whole step, of round trip 1 (the row's symbol, block
+    and mark word) and of round trip 2 (its checkpoint), the clock (cycles
+    over the global timer's ns, summed over the rows) and the step's ns,
+    beside one dependent load's ns over the index's words and the two
+    loads a step that the latency floor counts."""
+    import torch
+
+    from repro_torch.kernels.fm_query import fm_query_unpacked
+
+    sp, ep, _ = fm_query_unpacked(fm, P, 0)
+    load_ns = latency_ns(rank_words(fm))
+    out = {"load_ns": load_ns, "floor_step_ns": 2 * load_ns}
+    for k in STAMP_KS:
+        rows = sp[:, None] + torch.arange(k, dtype=torch.int32,
+                                          device=sp.device)
+        rows = torch.where(rows < ep[:, None], rows, -1).contiguous()
+        B = rows.shape[0]
+        rec = {"walked_rows": int((rows >= 0).sum())}
+        for design in (0, 8, 16, 108, 116):
+            st = torch.zeros((B * k, 6), dtype=torch.int64, device=P.device)
+            for _ in range(2):          # the second launch is read
+                err = stamps(*index_args(fm, k, "fm_query_unpacked_stamps"),
+                             rows.data_ptr(), B, k, design, st.data_ptr(),
+                             cuda_stream())
+                require(err == 0, f"fm_query_unpacked_stamps failed: CUDA "
+                                  f"error {err}")
+            torch.cuda.synchronize()
+            st = st[st[:, 0] > 0].double()
+            steps = st[:, 0]
+            ghz = float(st[:, 3].sum() / (st[:, 5] - st[:, 4]).sum())
+            step = float((st[:, 3] / steps).median())
+            rec["serial" if design == 0 else f"G={design % 100}" + (
+                " ballots" if design > 100 else "")] = dict(
+                steps=float(steps.median()), step_cycles=step,
+                round_trip_1_cycles=float((st[:, 1] / steps).median()),
+                round_trip_2_cycles=float((st[:, 2] / steps).median()),
+                clock_ghz=ghz, step_ns=step / ghz,
+                step_over_floor=step / ghz / (2 * load_ns))
+        out[f"k={k}"] = rec
+    return out
+
+
+def serial_launches(serial, fm, P) -> dict:
+    """The m = 8 bucket's launches at k = 0 and each k of ``STAMP_KS``:
+    device ms of the kernel before the redesign and of the port's."""
+    out = {}
+    for k in (0, *STAMP_KS):
+        t = serial_turns(serial, fm, P, k)
+        out[f"k={k}"] = {"old_device_ms": t["old_device_ms"],
+                         "new_device_ms": t["new_device_ms"]}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -5576,12 +5867,36 @@ def screen(toks, device, window: int, stride: int,
     _sync(device)
     dedup_s = time.perf_counter() - t0
     launches, _ = _counts()
+    parity = screen_parity(index, toks, window, stride)
     del index
     return mask, {"tokens": len(toks), "window": window, "stride": stride,
                   "windows": len(range(0, len(toks) - window, stride)),
                   "build_s": build_s, "dedup_s": dedup_s,
                   "drop_share": float(mask.mean()),
-                  "dropped_tokens": int(mask.sum())}, launches
+                  "dropped_tokens": int(mask.sum()),
+                  "query_parity": parity}, launches
+
+
+def screen_parity(index, toks, window: int, stride: int,
+                  batch: int = 256) -> dict:
+    """The layout's fused query kernel against its plain version on the
+    screen's first and last served batches (``duplicate_window_mask``'s
+    windows, ``batch`` a count call), for count and at k = 16."""
+    import numpy as np
+
+    name, kern, plain, _ = query_fns(index.fm)
+    starts = np.arange(0, len(toks) - window, stride)
+    err = 0
+    for lo in sorted({0, (len(starts) - 1) // batch * batch}):
+        chunk = starts[lo: lo + batch]
+        P = pad_patterns(toks[chunk[:, None] + np.arange(window)[None, :]],
+                         window, index.fm.device)
+        for k in (0, LOCATE_K):
+            got, want = kern(index.fm, P, k), plain(index.fm, P, k)
+            tag = f"{name} phase 12 screen batch {lo // batch} k={k}"
+            for i, field in enumerate(("sp", "ep", "positions")):
+                err = max(err, same(got[i], want[i], f"{tag} {field}"))
+    return {"kernel": name, "max_abs_err": err}
 
 
 def train_full(arch: str, cfg, raw, screened, mask, batch: int, seq: int,
@@ -7178,23 +7493,28 @@ def english_rows(fq: dict) -> dict:
                       f"{fq['index']} m={b['m']}")
         rows.append({k: b[k] for k in (
             "m", "B", "k", "ms", "device_ms", "bound_ms", "plain_ms",
-            "old_ms", "dependent_steps", "dependent_loads", "latency_ns",
-            "latency_floor_ms") if k in b})
+            "old_ms", "before_ms", "turns", "dependent_steps",
+            "dependent_loads", "latency_ns", "latency_floor_ms") if k in b})
     return {"index": fq["index"], "max_abs_err": fq["max_abs_err"],
             "locate": rows}
 
 
-def phase_english(toks, gen_s: float, chase=None, mesh_ref=None):
+def phase_english(toks, gen_s: float, chase=None, mesh_ref=None,
+                  serial=None, stamps=None):
     """Phase 16: english at the config's n and declared sigma through the
     single-device entry points: ``phase_main``'s path (the build with its
     stages, peaks and launches, 1024 count + 1024 locate requests of
     lengths 3-64, an equal share in each of the config's buckets, through
     ``FMQueryServer.from_config``, every count by brute force, the fused
-    kernel against its plain version and timed per bucket), then SA, BWT
-    and row against ``mesh_ref`` (phase 13's one-rank mesh build of the
-    same text, on the host) and the index saved and restored in both
-    layouts.  Returns (record, the main path's launches, the kernels
-    line's english row)."""
+    kernel against its plain version and timed per bucket, with
+    ``serial`` the kernel before its redesign in turns on every bucket and
+    with ``stamps`` the m = 8 bucket's walk study), ``walk_indexes`` (the
+    walk-aimed parity on raw-built english indexes at r = 64, 62 and
+    256),
+    then SA, BWT and row against ``mesh_ref`` (phase 13's one-rank mesh
+    build of the same text, on the host) and the index saved and restored
+    in both layouts.  Returns (record, the main path's launches, the
+    kernels line's english row)."""
     import gc
 
     import numpy as np
@@ -7210,7 +7530,8 @@ def phase_english(toks, gen_s: float, chase=None, mesh_ref=None):
     pats = bucket_patterns(toks, ENGLISH_REQUESTS, 16, buckets)
     launches, kept, fq, _ = phase_main(
         "english", toks, gen_s, 16, keep=True, chase=chase,
-        sigma=icfg.sigma, pats=pats, old_design=False)
+        sigma=icfg.sigma, pats=pats, old_design=False, serial=serial,
+        turn_buckets=buckets, stamps=stamps)
     index = kept["index"]
     for name in ENGLISH_NEEDED:
         require(launches[name] > 0,
@@ -7223,7 +7544,13 @@ def phase_english(toks, gen_s: float, chase=None, mesh_ref=None):
     peak = held + kept["peak_bytes"]
     require(peak < card, f"phase 16: build peak {peak} B over the card's "
                          f"{card} B")
+    t1 = time.perf_counter()
+    walk = walk_indexes(icfg.sigma, serial)
+    walk["s"] = time.perf_counter() - t1
+    fq["max_abs_err"] = max([fq["max_abs_err"]] + [
+        v["max_abs_err"] for v in walk.values() if isinstance(v, dict)])
     rec = {"phase": 16, "n": len(toks), "sigma_declared": icfg.sigma,
+           "walk_indexes": walk,
            "sigma": index.sigma, "held_at_start_bytes": held,
            "build_peak_bytes": kept["peak_bytes"],
            "peak_under_card_memory": {"peak_bytes": peak,
@@ -7331,6 +7658,35 @@ REPLACES = {
 }
 
 
+def host_line(run_s: float, cpuinfo: str = "/proc/cpuinfo",
+              loadavg: str = "/proc/loadavg") -> dict:
+    """The host this run had: its CPU (model name, vendor, family and model
+    numbers, MHz, as the first processor of /proc/cpuinfo gives them: a
+    virtualised /proc may say "unknown"), its cores, the 1-, 5- and
+    15-minute load averages (a virtualised /proc may read 0), the seconds
+    a fixed loop of Python takes now (a slow or crowded host reads high
+    whatever /proc says) and the run's seconds so far, so that a slow host
+    can be told apart from a slow phase."""
+    cpu = {}
+    keys = {"model name": "model_name", "vendor_id": "vendor",
+            "cpu family": "family", "model": "model", "cpu MHz": "mhz"}
+    with open(cpuinfo) as f:
+        for line in f:
+            if not line.strip():
+                break                       # the first processor only
+            key, _, value = line.partition(":")
+            if key.strip() in keys:
+                cpu[keys[key.strip()]] = value.strip()
+    with open(loadavg) as f:
+        load = [float(x) for x in f.read().split()[:3]]
+    t0 = time.perf_counter()
+    sum(i * i for i in range(1_000_000))
+    probe_s = time.perf_counter() - t0
+    return {"host": {"cpu": cpu, "cores": os.cpu_count(),
+                     "loadavg_1_5_15": load, "python_probe_s": probe_s,
+                     "run_s": run_s}}
+
+
 def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
     """The ``kernels`` line: one entry per kernel of ``_build.KERNELS``
     with its source, the TPU kernel it replaces, its launches on the main
@@ -7357,7 +7713,8 @@ def kernels_line(rows: dict, main_launches: dict, path_launches: dict):
          # phase 10 and on the LF maps of phase 7's merges; the fused query
          # kernel on phase 16's english index
          **{k: rows[name][k] for k in ("plain_shape", "dependent_steps",
-                                       "latency_floor_ms", "chains",
+                                       "latency_floor_ms", "before_ms",
+                                       "chains",
                                        "events_ms", "dist", "lf_map",
                                        "english")
             if k in rows[name]}}
@@ -7377,6 +7734,7 @@ def main(argv=None) -> int:
                     help="phase 7: log2 of the largest DNA document")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    run_t0 = time.perf_counter()
 
     import torch
 
@@ -7405,6 +7763,10 @@ def main(argv=None) -> int:
                    if phases & {1, 7, 10} else None)
     finish_stamps = (start_script_build(STAMPS_SRC, STAMPS_ARGTYPES)
                      if phases & {1, 7, 10} else None)
+    finish_serial = (start_script_build(SERIAL_SRC, SERIAL_ARGTYPES)
+                     if phases & {3, 16} else None)
+    finish_walk = (start_script_build(WALK_STAMPS_SRC, WALK_STAMPS_ARGTYPES)
+                   if 16 in phases else None)
     try:
         _build.build_all()
     finally:
@@ -7412,18 +7774,25 @@ def main(argv=None) -> int:
         lanes = finish_lanes() if finish_lanes else None
         warp = finish_warp() if finish_warp else None
         stamps = finish_stamps() if finish_stamps else None
+        serial = finish_serial() if finish_serial else None
+        walk_stamps_fn = finish_walk() if finish_walk else None
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "entry function" in ln]
              for name, log in _build.BUILD_LOG.items()}
     for src, script in ((LANES_SRC, lanes), (WARP_SRC, warp),
-                        (STAMPS_SRC, stamps)):
+                        (STAMPS_SRC, stamps), (SERIAL_SRC, serial),
+                        (WALK_STAMPS_SRC, walk_stamps_fn)):
         if script is not None:
             ptxas[src.stem] = script["ptxas"]
     warp = warp["rank_select_warp_launch"] if warp is not None else None
     stamps = (stamps["rank_select_stamps_launch"] if stamps is not None
               else None)
+    serial = (serial["fm_query_unpacked_serial_launch"] if serial is not None
+              else None)
+    walk_stamps_fn = (walk_stamps_fn["fm_query_unpacked_stamps_launch"]
+                      if walk_stamps_fn is not None else None)
     emit({"phase": 0, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "ptxas": ptxas})
@@ -7468,9 +7837,10 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             toks = corpus(kind, 1 << log2n)
             gen_s = time.perf_counter() - t0
-        launches, k, fq, ref = phase_main(kind, toks, gen_s, phase,
-                                          keep=kind == "dna",
-                                          snap=10 in phases, chase=chase)
+        launches, k, fq, ref = phase_main(
+            kind, toks, gen_s, phase, keep=kind == "dna", snap=10 in phases,
+            chase=chase, serial=serial if kind == "proteins" else None,
+            turn_buckets=(32,))
         kept = k or kept
         if ref is not None:
             refs[kind] = ref
@@ -7659,7 +8029,8 @@ def main(argv=None) -> int:
         require(13 not in phases or bool(mesh_ref),
                 "phase 16: phase 13 kept no one-rank mesh build")
         rec, launches, eng_row = phase_english(eng_toks, eng_gen_s, chase,
-                                               mesh_ref)
+                                               mesh_ref, serial,
+                                               walk_stamps_fn)
         mesh_ref = None
         path_launches["english"] = launches
         for name, v in launches.items():
@@ -7700,6 +8071,7 @@ def main(argv=None) -> int:
             check_reading(name, r["device_ms"], r["bound_ms"], r["ms"],
                           r["shape"], r.get("bound_by", "bytes"))
         emit(kernels_line(rows, main_launches, path_launches))
+    emit(host_line(time.perf_counter() - run_t0))
     print(card, flush=True)
     reduced = {k: v for k, v in vars(args).items()
                if v != ap.get_default(k)}

@@ -64,8 +64,9 @@ SIGNATURES = {
     # patterns, B, m, k, sp, ep, positions, stream
     "fm_query_packed": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                         _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    # (the unpacked entry: then its plan's vec and grid)
     "fm_query_unpacked": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
-                          _I, _P, _I, _I, _I, _P, _P, _P, _P],
+                          _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # pairwise walk: left rows (fused, blocks, occ, wid, n_blocks), sigma,
     # bits, r, cA, cB, right (symbol, LF) pairs, nB, ends, seed rows, SA
     # rate, seed stride, seeds, meets, ins, stream

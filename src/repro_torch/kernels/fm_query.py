@@ -195,9 +195,10 @@ def _sample_args(fm, k: int, name: str):
                      fm.sa_sample_rate, fm.sa_val_bits)
 
 
-def _launch(name, fm, patterns, k, tensors, layout_args):
+def _launch(name, fm, patterns, k, tensors, layout_args, plan_args=()):
     """Check the CUDA arguments, allocate the outputs and launch ``name``
-    once for the whole batch."""
+    once for the whole batch (``plan_args``: the C arguments of its launch
+    plan, after k)."""
     sample, sample_args = _sample_args(fm, k, name)
     _build.check_cuda(name, *tensors, fm.c_array, *sample, patterns)
     if patterns.dim() != 2 or k < 0:
@@ -210,7 +211,8 @@ def _launch(name, fm, patterns, k, tensors, layout_args):
     if B:
         _build.launch(name, *layout_args, fm.length, fm.c_array.data_ptr(),
                       *sample_args, patterns.data_ptr(), B, m, k,
-                      sp.data_ptr(), ep.data_ptr(), pos.data_ptr())
+                      *plan_args, sp.data_ptr(), ep.data_ptr(),
+                      pos.data_ptr())
     return sp, ep, pos
 
 
@@ -230,17 +232,80 @@ def fm_query_packed(fm, patterns, k: int = 0):
         fm.sample_rate))
 
 
+UNPACKED_THREADS = 128      # threads a block of fm_query_unpacked.cu
+UNPACKED_UNITS = 16         # units a block: groups of 8 lanes
+# the C occupancy query's argument types: vec, out
+UNPACKED_OCCUPANCY_ARGTYPES = ("c_int", "c_void_p")
+_unpacked_occupancy: dict = {}
+
+
+def unpacked_plan(B: int, k: int, r: int, resident: int,
+                  aligned: bool = True) -> dict:
+    """The launch of ``fm_query_unpacked.cu`` for ``B`` patterns at ``k``
+    over blocks of ``r`` symbols on a card that holds ``resident`` blocks
+    of ``UNPACKED_THREADS`` at once.  A unit is a pattern's search (k = 0)
+    or one of its k walked rows; a block holds a tile of
+    ``UNPACKED_UNITS`` consecutive units, and the grid is a block a tile
+    up to one resident wave (blocks stride over the tiles beyond it).
+    ``vector``: 16-byte chunk loads, where the BWT starts 16-byte
+    ``aligned`` and r % 4 == 0."""
+    tiles = -(-B * max(k, 1) // UNPACKED_UNITS)
+    return {"grid": max(1, min(tiles, resident)),
+            "vector": aligned and r % 4 == 0}
+
+
+def unpacked_occupancy(device, vector: bool) -> dict:
+    """Registers, spilled bytes and resident blocks per SM of
+    ``fm_query_unpacked.cu``'s kernel of 16- or 4-byte loads
+    (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), with the card's
+    SMs and the blocks it holds at once (``resident``); asked once per
+    kernel and card."""
+    import ctypes
+
+    dev = torch.device(device)
+    key = (dev.index, vector)
+    if key not in _unpacked_occupancy:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            err = _build.query(
+                "fm_query_unpacked", "fm_query_unpacked_occupancy",
+                [getattr(ctypes, t) for t in UNPACKED_OCCUPANCY_ARGTYPES],
+                int(vector), out)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if err:
+            raise RuntimeError(f"fm_query_unpacked_occupancy failed: CUDA "
+                               f"error {err}")
+        occ = dict(zip(("blocks_per_sm", "registers", "threads",
+                        "local_bytes"), list(out)), sms=sms)
+        occ["resident"] = occ["blocks_per_sm"] * sms
+        _unpacked_occupancy[key] = occ
+    return _unpacked_occupancy[key]
+
+
+def unpacked_launch_plan(fm, B: int, k: int) -> dict:
+    """``unpacked_plan`` of a launch over ``fm``'s blocks on their card,
+    its wave read from the occupancy of the kernel it launches."""
+    r, aligned = fm.sample_rate, fm.bwt.data_ptr() % 16 == 0
+    resident = unpacked_occupancy(fm.bwt.device,
+                                  aligned and r % 4 == 0)["resident"]
+    return unpacked_plan(B, k, r, resident, aligned)
+
+
 @traffic.reports("fm_query_unpacked",
                  lambda fm, patterns, k=0: traffic.query_bytes(fm, patterns, k)[0])
 def fm_query_unpacked(fm, patterns, k: int = 0):
     """(sp, ep, positions) over int32 blocks plus ``occ_samples``; the
-    plain version for CPU tensors, one kernel launch otherwise."""
+    plain version for CPU tensors, one kernel launch otherwise
+    (``unpacked_launch_plan``)."""
+    name = "fm_query_unpacked"
     if _build.on_cpu(fm.bwt, fm.occ_samples, fm.c_array, patterns):
         return fm_query_unpacked_plain(fm, patterns, k)
-    return _launch("fm_query_unpacked", fm, patterns, k,
-                   (fm.bwt, fm.occ_samples), (
-                       fm.bwt.data_ptr(), fm.occ_samples.data_ptr(),
-                       fm.n_blocks, fm.sigma, fm.sample_rate))
+    _build.check_cuda(name, fm.bwt, patterns)
+    plan = unpacked_launch_plan(fm, len(patterns), k)
+    return _launch(name, fm, patterns, k, (fm.bwt, fm.occ_samples), (
+        fm.bwt.data_ptr(), fm.occ_samples.data_ptr(), fm.n_blocks, fm.sigma,
+        fm.sample_rate), (int(plan["vector"]), plan["grid"]))
 
 
 # -- the stacked catalog: every pattern against every segment ---------------

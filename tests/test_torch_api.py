@@ -31,6 +31,8 @@ from repro_torch.core.competitor import bwt_rpgi, suffix_array_rpgi
 from repro_torch.core.suffix_array import suffix_array_naive
 from repro_torch.data.corpus import corpus
 from repro_torch.kernels import fm_query
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 TEXTS = ["sigma2", "sigma4", "sigma16", "sigma17", "dna", "proteins"]
 

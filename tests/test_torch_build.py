@@ -36,6 +36,8 @@ from repro_torch.data.corpus import corpus
 from repro_torch.kernels import ops
 from repro_torch.kernels.radix_hist import TILE
 from repro_torch.kernels.radix_sort import radix_sort_blocked
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 CORPORA = ["sigma2", "sigma4", "sigma16", "sigma17", "dna", "proteins",
            "english"]

@@ -8,6 +8,11 @@ FMIndex field (``fm_mismatch`` empty), the walks' ``ins`` against the JAX
 ``_merge_walk`` / ``_kway_walk`` output sliced to the real rows, and the
 port's own ``build_index_prepared`` of the concatenated prepared texts.
 Every output is an integer, so the tolerance is exact equality.
+
+The JAX side (the operands' builds, the JAX walks and merges) is computed
+once per test session and shared with ``test_torch_merge_chains.py``,
+which holds the merge kernel's chained model to the same walks
+(``torch_session_cache.cached``, keyed by the inputs' content).
 """
 
 import dataclasses
@@ -31,6 +36,9 @@ from repro_torch.data.corpus import corpus
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import merge_walk as mw
 from repro_torch.testing import faultinject as fi
+from torch_session_cache import array_key, cached
+from torch_session_cache import session_cache_root  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -85,12 +93,28 @@ _OPERANDS = {}
 
 def _operands(docs, sigma_decl, r, srate, pack=None):
     """(prepared texts, sigma, JAX indexes, the same carried across),
-    built once per input (the JAX builds dominate this file's time)."""
+    built once per input and session (the JAX builds dominate this file's
+    time)."""
     key = (tuple(np.asarray(d, np.int32).tobytes() for d in docs),
            sigma_decl, r, srate, pack)
     if key not in _OPERANDS:
-        _OPERANDS[key] = _build_operands(docs, sigma_decl, r, srate, pack)
+        _OPERANDS[key] = cached("merge_operands", key, lambda: (
+            _build_operands(docs, sigma_decl, r, srate, pack)))
     return _OPERANDS[key]
+
+
+def _fm_key(f) -> tuple:
+    """A content key of a JAX (or port) FMIndex: every array field's
+    content and every scalar field."""
+    return (tuple((n, array_key(getattr(f, n))) for n in FM_ARRAY_FIELDS),
+            tuple((n, getattr(f, n)) for n in FM_AUX_FIELDS))
+
+
+def _jax_merge(left, right, pack=None):
+    """``jbm.merge_fm_indexes(left, right, pack=pack)``, once per input
+    and session."""
+    return cached("jax_merge", (_fm_key(left), _fm_key(right), pack),
+                  lambda: jbm.merge_fm_indexes(left, right, pack=pack))
 
 
 def _build_operands(docs, sigma_decl, r, srate, pack):
@@ -117,7 +141,12 @@ def _same(got, want, what=""):
 
 def _jax_pair_ins(left, right):
     """``_merge_walk`` called as ``merge_fm_indexes`` calls it, sliced to
-    the right operand's real rows."""
+    the right operand's real rows (once per input and session)."""
+    return cached("jax_pair_ins", (_fm_key(left), _fm_key(right)),
+                  lambda: _jax_pair_ins_computed(left, right))
+
+
+def _jax_pair_ins_computed(left, right):
     fA, bA, oA = jbm._side_arrays(left, jfm._next_pow2(left.n_blocks))
     fB, bB, oB = jbm._side_arrays(right, jfm._next_pow2(right.n_blocks))
     ins = jbm._merge_walk(
@@ -131,7 +160,12 @@ def _jax_pair_ins(left, right):
 
 def _jax_kway_ins(jfms):
     """``_kway_walk`` as ``merge_kway`` calls it: segments 1 .. k-1 at
-    their real lengths, back to back."""
+    their real lengths, back to back (once per input and session)."""
+    return cached("jax_kway_ins", tuple(_fm_key(f) for f in jfms),
+                  lambda: _jax_kway_ins_computed(jfms))
+
+
+def _jax_kway_ins_computed(jfms):
     k = len(jfms)
     k_pad = jfm._next_pow2(k)
     fused, blocks, occ, c_mat, nb_vec, _ = jfm.stack_rank_arrays(
@@ -186,7 +220,7 @@ def _check_fold(docs, sigma_decl, r, srate, pack=None):
         assert np.array_equal(_pair_ins(left, acc).numpy(),
                               _jax_pair_ins(jleft, jacc))
         acc = bm.merge_fm_indexes(left, acc, pack=pack)
-        jacc = jbm.merge_fm_indexes(jleft, jacc, pack=pack)
+        jacc = _jax_merge(jleft, jacc, pack)
         _same(acc, jacc, "fold step vs JAX")
     _same(acc, _rebuild(preps, sig, r, srate, pack), "fold vs rebuild")
     return acc

@@ -4,21 +4,13 @@ it, and the operation count of its bound equals what
 ``torch.utils.flop_counter`` counts over a train step.  No GPU.
 """
 
-import importlib.util
-import sys
-from pathlib import Path
-
 import pytest
 import torch
+from torch_session_cache import load_chip_smoke
 
-_ROOT = Path(__file__).resolve().parents[1]
-_SPEC = importlib.util.spec_from_file_location("chip_smoke",
-                                               _ROOT / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_SPEC)
-sys.modules.setdefault("chip_smoke", chip_smoke)
-if str(_ROOT) not in sys.path:
-    sys.path.append(str(_ROOT))
-_SPEC.loader.exec_module(chip_smoke)
+# one module per process: the functions handed to spawned ranks must be the
+# ones the ranks import by the name chip_smoke
+chip_smoke = load_chip_smoke()
 
 
 @pytest.fixture

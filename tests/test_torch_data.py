@@ -14,6 +14,8 @@ from repro.data import loader as j_loader
 from repro.models.transformer import LABEL_PAD as J_LABEL_PAD
 from repro_torch.data import dedup as t_dedup
 from repro_torch.data import loader as t_loader
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 
 def both_indexes(tokens, **kw):

@@ -29,6 +29,8 @@ import os
 
 import numpy as np
 import pytest
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
 
 WORLD_TIMEOUT_S = 120
 DEVICES = 8            # the reference scenarios' device count (sizes)

@@ -26,6 +26,9 @@ if __name__ == "__main__":   # the JAX reference: devices before jax loads
 
 import numpy as np
 import pytest
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
+from torch_session_cache import jax_reference_env
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
 
 AXIS = "parts"
 PARTS = (1, 2, 4, 8)
@@ -119,8 +122,7 @@ def _jax_reference(out_path: str) -> None:
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_dist_fm") / "ref.npz"
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
+    env = jax_reference_env(tmp_path_factory)
     proc = subprocess.run([sys.executable, __file__, "--jax-reference",
                            str(out)], capture_output=True, text=True,
                           timeout=300, env=env)

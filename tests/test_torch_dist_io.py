@@ -34,6 +34,9 @@ if __name__ == "__main__":   # the JAX reference: devices before jax loads
 
 import numpy as np
 import pytest
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
+from torch_session_cache import jax_reference_env
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
 
 AXIS = "parts"
 R = 8                     # Occ sample rate
@@ -170,8 +173,7 @@ def saved(tmp_path_factory):
     from repro_torch.launch.mesh import run_world, single_rank_world
 
     root = str(tmp_path_factory.mktemp("dist_io"))
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
+    env = jax_reference_env(tmp_path_factory)
     proc = subprocess.run([sys.executable, __file__, "--jax-reference",
                            root], capture_output=True, text=True,
                           timeout=300, env=env)

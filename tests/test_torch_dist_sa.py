@@ -14,6 +14,8 @@ samplesort capacity overflow retried by doubling as ``build_index`` does
 
 import numpy as np
 import pytest
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
 
 AXIS = "parts"
 PARTS = (1, 2, 4, 8)

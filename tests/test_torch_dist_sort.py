@@ -23,6 +23,9 @@ if __name__ == "__main__":   # the JAX reference: devices before jax loads
 
 import numpy as np
 import pytest
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
+from torch_session_cache import jax_reference_env
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
 
 AXIS = "parts"
 PARTS = (1, 2, 4, 8, 6)
@@ -175,8 +178,7 @@ def jax_run(tmp_path_factory):
     """The JAX reference subprocess, started before the port's worlds so
     that the two overlap."""
     out = tmp_path_factory.mktemp("jax_dist_sort") / "ref.npz"
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
+    env = jax_reference_env(tmp_path_factory)
     proc = subprocess.Popen([sys.executable, __file__, "--jax-reference",
                              str(out)], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import dist_sort as ds
 from repro_torch.launch.mesh import make_index_mesh, run_world
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
 
 TIMEOUT_S = 60
 

@@ -39,6 +39,7 @@ from repro_torch.core.index_io import restore_index, save_index
 from repro_torch.core.pipeline import build_index
 from repro_torch.data.corpus import corpus
 from repro_torch.serving.engine import FMQueryServer
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 SIGMA = CONFIG.sigma                 # 257 declared; 258 with the pad slot
 PLANT = (500, 3000, 600)             # copy text[500:1100] over [3000:3600]

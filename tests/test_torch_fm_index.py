@@ -24,6 +24,8 @@ from repro_torch.core.convert import (
 )
 from repro_torch.core.fm_index import PAD, fm_mismatch
 from repro_torch.data.corpus import corpus
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 # (name, tokens maker, sample_rate): dna -> 4-bit packed, sigma 4 -> 2-bit
 # packed, proteins / english -> unpacked

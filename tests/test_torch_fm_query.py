@@ -25,6 +25,8 @@ from repro_torch.core import fm_index as fm
 from repro_torch.data.corpus import corpus
 from repro_torch.kernels import _build, fm_query, ops
 from repro_torch.kernels.fm_query import PAD
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 
 def _random(sigma, n, seed):
@@ -226,3 +228,184 @@ def test_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     after = {name: _build._target(name) for name in _build.SOURCES}
     assert all(before[n] != after[n] for n in _build.SOURCES)
     assert len(set(after.values())) == len(_build.SOURCES)
+
+
+# -- fm_query_unpacked.cu's launch plan and a model of its groups ---------
+
+RESIDENT = 2112    # blocks of 128 threads an H100 holds at 16 a SM
+
+
+@pytest.mark.parametrize("B, k, r, resident, aligned, grid, vector", [
+    (1024, 16, 64, RESIDENT, True, 1024, True),     # one wave
+    (1024, 16, 64, 1000, True, 1000, True),         # strided
+    (1024, 0, 64, RESIDENT, True, 64, True),        # count
+    (1024, 1, 64, RESIDENT, True, 64, True),        # a row a pattern
+    (1024, 64, 128, RESIDENT, True, RESIDENT, True),
+    (7, 17, 62, RESIDENT, True, 8, False),          # r % 4 != 0
+    (100, 4, 32, RESIDENT, False, 25, False),       # unaligned BWT
+    (5, 3, 7, 1, True, 1, False),
+    (0, 16, 64, RESIDENT, True, 1, True),
+])
+def test_unpacked_plan_by_hand(B, k, r, resident, aligned, grid, vector):
+    """A block of 128 lanes is 16 groups of 8, a group a unit (a pattern's
+    search, or one of its k rows), a block a tile of 16 units and two
+    int32 of shared memory a unit; the grid is a block a tile, at most
+    one resident wave."""
+    plan = fm_query.unpacked_plan(B, k, r, resident, aligned)
+    assert plan == {"grid": grid, "vector": vector}
+    assert fm_query.UNPACKED_THREADS == 8 * fm_query.UNPACKED_UNITS
+    units = B * max(k, 1)
+    assert grid * fm_query.UNPACKED_UNITS >= min(
+        units, resident * fm_query.UNPACKED_UNITS)
+
+
+def test_unpacked_source_matches_the_plan():
+    """The kernel source has the plan's block and group sizes, its tile of
+    shared (sp, ep), and entries taking the argument types the wrapper
+    passes."""
+    src = (_build.CSRC / "fm_query_unpacked.cu").read_text()
+    assert f"THREADS = {fm_query.UNPACKED_THREADS};" in src
+    assert "G = 8;" in src and "__shared__ int tile[2 * PER];" in src
+    m = re.search(r'extern "C" int fm_query_unpacked_occupancy\(([^)]*)\)',
+                  src)
+    assert m and len(m.group(1).split(",")) == len(
+        fm_query.UNPACKED_OCCUPANCY_ARGTYPES)
+
+
+def _unpacked_model(index, P, k, plan):
+    """fm_query_unpacked.cu's blocks in plain Python: every block's tiles
+    (grid-stride) of units (a pattern's search for k = 0, else one of its
+    k rows), the tile's searching groups and what the others read of
+    them, the chunks a lane of
+    a group loads at each rank (only where a chunk's first symbol lies
+    below the cut; each symbol below the cut voted once) and the walk's
+    steps.  Returns (sp, ep, positions) and how often each slot of them
+    was written."""
+    G, per, grid = 8, fm_query.UNPACKED_UNITS, plan["grid"]
+    r, n, sigma = index.sample_rate, index.length, index.sigma
+    vec = r % 4 == 0
+    bwt = index.bwt.tolist()
+    occ = index.occ_samples.tolist()
+    C = index.c_array.tolist()
+    pats = P.tolist()
+    B, m = P.shape
+
+    def count(blk, c, cut):
+        votes = [0] * cut
+        total = 0
+        for g in range(G):
+            for j0 in range(0, cut, 8 * G):
+                for j in (j0 + 4 * g, j0 + 4 * (G + g)):
+                    if j < cut:                 # the chunk is read
+                        assert not vec or j + 3 < r
+                        for i in range(j, min(j + 4, cut)):
+                            votes[i] += 1
+                            total += bwt[blk * r + i] == c
+        assert votes == [1] * cut
+        return total
+
+    def search(b):
+        sp, ep = 0, n
+        for c in reversed(pats[b]):
+            if 1 <= c < sigma and ep > sp:
+                b0, b1 = min(sp // r, len(occ) - 1), min(ep // r, len(occ) - 1)
+                sp, ep = (C[c] + occ[b0][c] + count(b0, c, sp - b0 * r),
+                          C[c] + occ[b1][c] + count(b1, c, ep - b1 * r))
+            elif c != PAD and not 1 <= c < sigma:
+                ep = sp
+        return sp, ep
+
+    def walk(row):
+        for steps in range(index.sa_sample_rate):
+            blk, cut = row // r, row % r
+            if r <= 8 * G:      # c from the lane that loaded its chunk
+                loaded = {i for g in range(G) for j in (4 * g, 4 * (G + g))
+                          if j <= cut for i in range(j, min(j + 4, r))}
+                assert cut in loaded and (cut // 4) % G < G
+            c = bwt[row]
+            cnt = count(blk, c, cut)
+            marked, val = fm_query.sample_lookup(
+                index.sa_marks, index.sa_mark_ranks, index.sa_vals,
+                torch.tensor([row], dtype=torch.int32),
+                val_bits=index.sa_val_bits, val_scale=index.sa_sample_rate)
+            if bool(marked[0]):
+                return int(val[0]) + steps
+            row = C[c] + occ[blk][c] + cnt
+        return 0
+
+    kk = max(k, 1)
+    units = B * kk
+    sp_out, ep_out = [None] * B, [None] * B
+    pos = [[None] * k for _ in range(B)]
+    writes = {"sp": [0] * B, "pos": [[0] * k for _ in range(B)]}
+    for block in range(grid):
+        for u0 in range(block * per, units, grid * per):
+            first = u0 // kk
+            npat = (min(u0 + per, units) - 1) // kk - first + 1
+            tile = [search(first + s) for s in range(min(npat, per))]
+            for s, (sp, ep) in enumerate(tile):
+                if (first + s) * kk >= u0:
+                    sp_out[first + s], ep_out[first + s] = sp, ep
+                    writes["sp"][first + s] += 1
+            for slot in range(per):
+                u = u0 + slot
+                if u >= units:
+                    continue
+                b, j = divmod(u, kk)
+                assert 0 <= b - first < npat
+                if k:
+                    sp, ep = tile[b - first]
+                    pos[b][j] = walk(sp + j) if sp + j < ep else n
+                    writes["pos"][b][j] += 1
+    out = (torch.tensor(sp_out, dtype=torch.int32),
+           torch.tensor(ep_out, dtype=torch.int32),
+           torch.tensor(pos, dtype=torch.int32).view(B, k))
+    return out, writes
+
+
+@pytest.mark.parametrize("r", [7, 30, 62, 64, 200])
+@pytest.mark.parametrize("k", [0, 1, 3, 17])
+@pytest.mark.parametrize("resident", [1, 2, 3])
+def test_unpacked_model_matches_the_plain_version(built, r, k, resident):
+    """The kernel's groups, tiles and shared searches, modelled, give the
+    plain version's answers on the english case at sigma 258, each answer
+    written once, with one to three blocks striding over the tiles."""
+    toks, _, sa, bwt, row = built["english"]
+    index = fm.build_fm_index(torch.from_numpy(bwt), row, 258, r,
+                              sa=torch.from_numpy(sa), sa_sample_rate=8)
+    pats = _patterns(toks, 258, np.random.default_rng(r + k))[::3, :48]
+    P = torch.from_numpy(np.ascontiguousarray(pats))
+    plan = fm_query.unpacked_plan(P.shape[0], k, r, resident)
+    got, writes = _unpacked_model(index, P, k, plan)
+    want = fm_query.fm_query_unpacked_plain(index, P, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert writes["sp"] == [1] * P.shape[0]
+    assert writes["pos"] == [[1] * k] * P.shape[0]
+
+
+@pytest.mark.parametrize("r", [62, 64])
+@pytest.mark.parametrize("compress", [False, True])
+def test_plain_at_sigma_258_matches_reference_locate(built, no_kernels, r,
+                                                     compress):
+    """The english index at the bwt_index config's alphabet (258 Occ
+    columns), r = 62 (not a multiple of 4: the kernel's 4-byte loads) and
+    64, against the JAX package's count and locate up to k = 64."""
+    toks, _, sa, bwt, row = built["english"]
+    want = jfm.build_fm_index(jnp.asarray(bwt), jnp.asarray(row), 258, r,
+                              sa=jnp.asarray(sa), sa_sample_rate=8,
+                              compress_sa=compress)
+    got = fm.build_fm_index(torch.from_numpy(bwt), row, 258, r,
+                            sa=torch.from_numpy(sa), sa_sample_rate=8,
+                            compress_sa=compress)
+    assert got.bits == 0 and got.occ_samples.shape[1] == 258
+    pats = _patterns(toks, 258, np.random.default_rng(r))
+    P, jP = torch.from_numpy(pats), jnp.asarray(pats)
+    jcount = np.asarray(jfm.count(want, jP))
+    assert np.array_equal(fm.count(got, P).numpy(), jcount)
+    for k in (1, 15, 16, 17, 64):
+        sp, ep, pos = fm_query.fm_query_unpacked_plain(got, P, k)
+        jpos, jcnt = jfm.locate(want, jP, k)
+        assert np.array_equal(torch.sort(pos, dim=1).values.numpy(),
+                              np.asarray(jpos))
+        assert np.array_equal((ep - sp).clamp(max=k).numpy(),
+                              np.asarray(jcnt))

@@ -31,6 +31,8 @@ from repro_torch.core.segments import SegmentedIndex as TSeg
 from repro_torch.serving import engine as t_engine
 from repro_torch.serving import frontend as t_frontend
 from repro_torch.testing import faultinject as t_fi
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 SIGMA = 5  # dna-like: tokens 1..4
 WAIT = 60  # seconds any future may take

@@ -25,6 +25,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import GenerateResult, generate
 from repro_torch.sharding import single_device_context
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 LM_ARCHS = [a for a in base.ARCH_IDS if a != "bwt_index"]
 TOL = dict(rtol=1e-4, atol=1e-4)     # float32, CPU against CPU

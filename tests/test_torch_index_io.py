@@ -43,6 +43,8 @@ from repro_torch.core.suffix_array import suffix_array
 from repro_torch.data.corpus import corpus
 from repro_torch.testing import faultinject
 from repro_torch.training.checkpoint import Checkpointer, _flatten
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 
 def build_index(toks, **kw):

@@ -21,6 +21,8 @@ from repro_torch.core import journal
 from repro_torch.core.segments import SegmentedIndex as TSeg
 from repro_torch.testing import faultinject
 from repro_torch.testing.faultinject import FaultSchedule, InjectedFault
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 SIGMA = 4
 KW = dict(sample_rate=8, sa_sample_rate=4)

@@ -30,6 +30,8 @@ from repro_torch.kernels.rank_select import (
 )
 from repro_torch.kernels.rerank_scan import TILE as RERANK_TILE
 from repro_torch.kernels.rerank_scan import rerank_scan_plain
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 
 def t(x):

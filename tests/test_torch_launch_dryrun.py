@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 _ROOT = Path(__file__).resolve().parents[1]
 

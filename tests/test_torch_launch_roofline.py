@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.launch import roofline as rf
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 _ROOT = Path(__file__).resolve().parents[1]
 

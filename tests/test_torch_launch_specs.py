@@ -29,6 +29,9 @@ if __name__ == "__main__":   # the JAX reference: devices before jax loads
 
 import numpy as np
 import pytest
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
+from torch_session_cache import jax_reference_env
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
 
 MESHES = ("16x16", "2x16x16", "one")
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
@@ -191,8 +194,7 @@ def _jax_reference(out_path: str) -> None:
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_launch_specs") / "ref.json"
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
+    env = jax_reference_env(tmp_path_factory)
     proc = subprocess.run([sys.executable, __file__, "--jax-reference",
                            str(out)], capture_output=True, text=True,
                           timeout=600, env=env)

@@ -15,6 +15,8 @@ from repro.core.fm_index import PAD
 from repro.core.segments import SegmentedIndex as JSeg
 from repro_torch.core.fm_index import fm_mismatch
 from repro_torch.core.segments import SegmentedIndex as TSeg
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 SAMPLE_RATE = 8
 SA_SAMPLE_RATE = 4

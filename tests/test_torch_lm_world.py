@@ -46,6 +46,9 @@ if __name__ == "__main__":   # the JAX reference: devices before jax loads
 import numpy as np
 import pytest
 import torch
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
+from torch_session_cache import jax_reference_env
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
 
 DENSE = ["qwen2p5_3b", "minitron_4b", "nemotron_4_15b", "llava_next_34b",
          "musicgen_medium", "minicpm3_4b", "mamba2_1p3b",
@@ -234,8 +237,7 @@ def _jax_reference(out_path: str, family: str) -> None:
 
 def run_reference(tmp_path_factory, family: str) -> dict:
     out = tmp_path_factory.mktemp(f"jax_lm_world_{family}") / "ref.npz"
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
+    env = jax_reference_env(tmp_path_factory)
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--jax-reference", str(out), family],
                           capture_output=True, text=True, timeout=600,

@@ -36,6 +36,7 @@ from test_torch_lm_world import (
     run_worlds,
     tokens,
 )
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
 
 STEPPED = [c for c in MOE_CASES if c[3] == B]
 

@@ -4,8 +4,8 @@ the seeds, the two bounding walks and the hand-over between chains.
 
 The model's ``ins`` must equal the plain walks' (``merge_walk_plain`` /
 ``kway_walk_plain``) and the JAX package's ``_merge_walk`` /
-``_kway_walk`` on ``test_torch_bwt_merge.py``'s matrix, at several seed
-strides; every output is an integer, so the tolerance is exact equality.
+``_kway_walk`` on ``test_torch_bwt_merge.py``'s matrix (its JAX side
+shared with that file, once per test session), at several seed strides; every output is an integer, so the tolerance is exact equality.
 A hypothesis property holds the bounds around the exact walk.  Walks where
 no seed meets (a repeated document, a run of tiny documents) are one
 chain.  The plan, grid and seed table are checked by hand, and the
@@ -25,11 +25,13 @@ from test_torch_bwt_merge import (
     CASES,
     _corpus_docs,
     _jax_kway_ins,
+    _jax_merge,
     _jax_pair_ins,
 )
 from test_torch_bwt_merge import _operands as _jax_built
+from torch_session_cache import session_cache_root  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
-from repro.core import bwt_merge as jbm
 from repro_torch.core import bwt_merge as bm
 from repro_torch.core.pipeline import build_index_prepared, prepare_tokens
 from repro_torch.data.corpus import corpus
@@ -129,7 +131,7 @@ def test_fold_chains_match_reference(name):
     for left, jleft in zip(reversed(tfms[:-1]), reversed(jfms[:-1])):
         _hold(_pair_walk(left, acc), _jax_pair_ins(jleft, jacc))
         acc = bm.merge_fm_indexes(left, acc, pack=pack)
-        jacc = jbm.merge_fm_indexes(jleft, jacc, pack=pack)
+        jacc = _jax_merge(jleft, jacc, pack)
 
 
 @pytest.mark.parametrize("k", [2, 3, 4, 5, 6, 7, 8, 9, 33])

@@ -35,6 +35,8 @@ from repro_torch.sharding import (
     MeshContext,
     single_device_context,
 )
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 LM_ARCHS = [a for a in base.ARCH_IDS if a != "bwt_index"]
 MOE_ARCHS = ["deepseek_v2_236b", "llama4_maverick_400b_a17b"]

@@ -18,6 +18,7 @@ from repro.training import optimizer as jopt
 from repro_torch.models.common import tree_leaves
 from repro_torch.training import compression as comp
 from repro_torch.training import optimizer as opt
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 CFG = dict(lr=1e-2, warmup_steps=3, total_steps=20, min_lr_ratio=0.1)
 STEPS = 4

@@ -17,6 +17,8 @@ from repro_torch.core.pipeline import SAConfig, build_index, prepare_tokens
 from repro_torch.data.corpus import corpus
 from repro_torch.launch import serve
 from repro_torch.serving.engine import FMQueryServer
+from torch_session_cache import one_thread  # noqa: F401 (fixture)
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 
 def _requests(toks, seed, count=60):

@@ -20,6 +20,7 @@ from repro_torch.core.fm_index import StackedFMIndex, fm_mismatch
 from repro_torch.core.segments import DistSAConfig
 from repro_torch.core.segments import SegmentedIndex as TSeg
 from repro_torch.serving.engine import FMQueryServer as TServer
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

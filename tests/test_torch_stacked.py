@@ -27,6 +27,7 @@ from repro_torch.core.fm_index import FM_ARRAY_FIELDS, FM_AUX_FIELDS, PAD
 from repro_torch.data.corpus import corpus
 from repro_torch.kernels import _build
 from repro_torch.kernels import fm_query as fq
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

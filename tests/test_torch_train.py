@@ -43,6 +43,7 @@ from repro_torch.models.convert import (
 from repro_torch.sharding import single_device_context
 from repro_torch.training import optimizer as opt
 from repro_torch.training import train_loop as tl
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 LM_ARCHS = [a for a in base.ARCH_IDS if a != "bwt_index"]
 MOE_ARCHS = ("deepseek_v2_236b", "llama4_maverick_400b_a17b")

@@ -32,6 +32,7 @@ from repro_torch.sharding import single_device_context
 from repro_torch.training import checkpoint as port_ckpt
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_loop import TrainConfig, train
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 ADAMW = dict(lr=1e-3, warmup_steps=2, total_steps=12)
 STEPS, CUT, SEED = 12, 6, 7

@@ -44,6 +44,8 @@ import pytest
 import torch
 
 from test_torch_lm_world import DENSE, MESHES, MOE, build, paths
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
+from torch_session_cache import jax_reference_env
 
 SSM = ("mamba2_1p3b", "recurrentgemma_2b")
 FSDP_ARCHS = ("qwen2p5_3b", "mamba2_1p3b")
@@ -196,8 +198,7 @@ def run_reference(tmp_path_factory, family: str) -> str:
     """The reference's npz for ``family``, written by this file run as a
     script; returns its path (the ranks read it themselves)."""
     out = tmp_path_factory.mktemp(f"jax_train_world_{family}") / "ref.npz"
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
+    env = jax_reference_env(tmp_path_factory)
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--jax-reference", str(out), family],
                           capture_output=True, text=True, timeout=600,

@@ -26,6 +26,7 @@ if __name__ == "__main__":   # the JAX reference: devices before jax loads
 import numpy as np
 import pytest
 import torch
+from torch_session_cache import jax_compile_cache  # noqa: F401 (fixture)
 
 MESH4 = {"pod": 1, "data": 2, "model": 2}
 MESH2 = {"pod": 1, "data": 1, "model": 2}
